@@ -52,3 +52,5 @@ def fake_devices():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers",
+                            "gpu: needs a CUDA device; skips without one")

@@ -1,6 +1,6 @@
 """The port's fused PLCore kernels (K1, K2): plain versions against the
-reference's Pallas kernels on the CPU, the CUDA kernels against the plain
-versions on the card.
+reference's Pallas kernels on the CPU (the CUDA kernels against the plain
+versions on the card are in ``test_torch_kernels_gpu.py``).
 
 On the CPU the wrappers run the plain versions (a CPU tensor never reaches
 a kernel). The reference side runs as its own tests run it:
@@ -22,10 +22,9 @@ from repro.kernels import ops as jops
 from repro.models.params import init_params
 
 from repro_torch import bridge
-from repro_torch.configs.nerf_icarus import CONFIG, tiny
-from repro_torch.core import plcore, rmcm, sampling
+from repro_torch.configs.nerf_icarus import tiny
+from repro_torch.core import plcore
 from repro_torch.kernels import fused_plcore, ops, ref
-from repro_torch.models.params import init_params as torch_init
 
 R = 48
 
@@ -147,47 +146,3 @@ def test_dispatch_count_ticks_once_per_fused_call(nets):
     # the CPU path never launches a kernel
     assert fused_plcore.LAUNCHES == {"fused_plcore_call": 0,
                                      "two_pass_plcore_call": 0}
-
-
-# ----------------------------------------------------------- on the card ---
-@pytest.mark.gpu
-def test_kernels_match_plain_versions_on_card():
-    """Full-width K1 and K2 on CUDA tensors against their plain versions
-    on the same tensors (what ``chip_smoke.py`` checks at scale)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    cfg = CONFIG
-    params = torch_init(plcore.plcore_decls(cfg),
-                        torch.Generator().manual_seed(0))
-    o, d = (torch.from_numpy(x).to(dev) for x in _rays(64))
-    for quantized in (False, True):
-        packed = {}
-        for n in ("coarse", "fine"):
-            q = rmcm.quantize_tree(params[n]) if quantized else None
-            packed[n] = bridge.to_device(
-                ops.stack_plcore_weights(cfg, params[n], q), dev)
-        tol = 5e-3 if quantized else 1e-3
-        for eps in (0.0, 0.01):
-            tol_e = 5e-3 if eps else tol
-            t_row = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (1,),
-                                        device=dev)
-            k = fused_plcore.two_pass_plcore_call(
-                cfg, packed["coarse"], packed["fine"], o, d, t_row, rt=2,
-                ert_eps=eps)
-            p = ref.two_pass_ref(cfg, packed["coarse"], packed["fine"], o, d,
-                                 t_row, rt=64, ert_eps=eps)
-            torch.cuda.synchronize()
-            for i, (a, b) in enumerate(zip(k, p)):
-                torch.testing.assert_close(a, b, rtol=0,
-                                           atol=1e-2 if i == 4 else tol_e)
-        t = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (64,),
-                                device=dev)
-        dl = sampling.deltas_from_t(t)
-        k = fused_plcore.fused_plcore_call(cfg, packed["fine"], o, d, t, dl,
-                                           rt=2)
-        p = ref.fused_plcore_ref(cfg, packed["fine"], o, d, t, dl, rt=64)
-        torch.cuda.synchronize()
-        for a, b in zip(k, p):
-            torch.testing.assert_close(a, b, rtol=0, atol=tol)

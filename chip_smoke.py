@@ -5,21 +5,25 @@
 Phases (any failure raises and exits nonzero; nothing is caught):
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
 2. Hold each kernel against its plain PyTorch version at the full
-   ``NerfConfig()`` width on 1024 rays of a real camera view: K1
-   (``fused_plcore_call``) at N=64 and N=192, f32 and RMCM, with an alive
-   mask; K2 (``two_pass_plcore_call``) f32, RMCM and ERT 0.01. Tolerances:
-   rgb/acc/weights 1e-3, depth 1e-2, 5e-3 with RMCM or ERT. Then time each
-   kernel and its plain version at the main path's shape (one 128x128
-   view, 16384 rays) with CUDA events, beside the least time the card
-   could take (fp32 operations over SMs x 128 FMA/clk x 2 x max SM clock,
-   or bytes over 3.35 TB/s, whichever is larger).
+   ``NerfConfig()`` width and the main path's shape: one 128x128 camera
+   view (16384 rays) at the main path's ray tile, which must be above 1
+   and leave a ragged last tile. K1 (``fused_plcore_call``) at N=64 and
+   N=192, f32 and RMCM, with an alive mask; K2 (``two_pass_plcore_call``)
+   f32, RMCM, ERT at 0.01 and at an eps where some rays terminate and
+   some do not, and an alive mask. Tolerances: rgb/acc/weights 1e-3,
+   depth 1e-2, 5e-3 with RMCM, ERT or a mask. K1 at N=192 and K2 in f32,
+   unmasked, are timed with CUDA events, their timed outputs checked, beside
+   the least time the card could take (fp32 operations over SMs x 128
+   FMA/clk x 2 x max SM clock, or bytes over 3.35 TB/s, whichever is
+   larger).
 3. The main path through the serve entry point: full config,
    ``--kernel --fuse-two-pass``, 3 views at 128x128, then one view with
    ``--rmcm --ert 0.01``. Launch counters are zeroed just before and read
    just after: K2 must have launched, no weights re-packed, images finite
    with pixel std > 0.
-4. The oracle path: one tile through ``render_tile_oracle`` (K1 twice,
-   counters zeroed before and read after) against ``render_tile`` at 1e-3.
+4. The oracle path: one view-sized tile through ``render_tile_oracle`` (K1
+   twice, counters zeroed before and read after) against ``render_tile``
+   at 1e-3.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits nonzero with no
@@ -53,7 +57,7 @@ from repro_torch.models.params import init_params  # noqa: E402
 
 DEV = torch.device("cuda")
 HW = 128
-N_CHECK = 1024
+PLAIN_RT = 1024          # rays per tensor batch of the plain versions
 HBM_BYTES_PER_S = 3.35e12
 SOURCE = "src/repro_torch/kernels/csrc/fused_plcore.cu"
 REPLACES = {"fused_plcore_call": "src/repro/kernels/fused_plcore.py:239",
@@ -101,17 +105,18 @@ def bound_ms(flops: float, n_bytes: int, peak: float):
                                        else "bytes")
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int):
+    """Mean ms of ``reps`` calls after one warm-up, and the last output."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
 def check(name: str, got, want, tols) -> float:
@@ -142,76 +147,98 @@ def view_rays(theta: float):
 
 
 def kernel_phase(cfg, params, peak: float) -> dict:
-    """Kernels vs plain versions (correctness at N_CHECK rays, then times
-    at the main path's 16384 rays)."""
-    o_all, d_all = view_rays(45.0)
-    stride = o_all.shape[0] // N_CHECK
-    o, d = o_all[::stride].contiguous(), d_all[::stride].contiguous()
+    """Each kernel against its plain version at the main path's shape: one
+    128x128 view (16384 rays) at the main path's ray tile, so every block
+    walks several rays and the last tile is ragged. The timed calls'
+    outputs are checked too."""
+    o, d = view_rays(45.0)
     R = o.shape[0]
+    rt = ops.pick_ray_tile(R, DEV)
+    assert rt > 1 and R % rt != 0, ("no multi-ray ragged tiling", R, rt)
     alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
-    t_row = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (1,),
-                                device=DEV)
-    errs = {"fused_plcore_call": 0.0, "two_pass_plcore_call": 0.0}
+    rows = ops.sample_rows(cfg, DEV)
     nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
+    errs, times = {}, {}
+
+    def hold(name, label, kern, plain, tols, timed=False):
+        """Run the kernel and its plain version on the same inputs, check
+        the kernel's output; with ``timed``, time both and check the
+        output of the last timed call."""
+        if timed:
+            ms, got = cuda_ms(kern, 3)
+            plain_ms, want = cuda_ms(plain, 3)
+            times[name] = (ms, plain_ms)
+        else:
+            got, want = kern(), plain()
+        errs[name] = max(errs.get(name, 0.0), check(label, got, want, tols))
+        return want
 
     # ---- K1: coarse (N=64) and fine-shaped (N=192) sample sets ----------
+    K1 = "fused_plcore_call"
     g = torch.Generator(device=DEV).manual_seed(1)
+    Nt = cfg.n_coarse + cfg.n_fine
     for quantized in (False, True):
         tol = 5e-3 if quantized else 1e-3
-        for N in (cfg.n_coarse, cfg.n_coarse + cfg.n_fine):
+        for N in (cfg.n_coarse, Nt):
             t = sampling.stratified(cfg.near, cfg.far, N, (R,), g, device=DEV)
             dl = sampling.deltas_from_t(t)
-            args = (cfg, nets[quantized]["fine"], o, d, t, dl)
-            got = fused_plcore.fused_plcore_call(
-                *args, rt=ops.pick_ray_tile(R, DEV), alive=alive)
-            want = ref.fused_plcore_ref(*args, rt=R, alive=alive)
-            e = check(f"K1 N={N} rmcm={quantized} alive-mask", got, want,
-                      (tol, tol, tol))
-            errs["fused_plcore_call"] = max(errs["fused_plcore_call"], e)
+            k1 = (cfg, nets[quantized]["fine"], o, d, t, dl)
+            masks = (None, alive) if (N == Nt and not quantized) else (alive,)
+            for mask in masks:
+                hold(K1, f"K1 N={N} rmcm={quantized} alive-mask="
+                     f"{mask is not None}",
+                     lambda: fused_plcore.fused_plcore_call(
+                         *k1, rt=rt, alive=mask),
+                     lambda: ref.fused_plcore_ref(*k1, rt=PLAIN_RT,
+                                                  alive=mask),
+                     (tol, tol, tol), timed=mask is None)
+                if mask is None:
+                    k1_in = (o, d, t, dl, k1[1])
 
-    # ---- K2: f32, RMCM, ERT ----------------------------------------------
-    for quantized, eps in ((False, 0.0), (True, 0.0), (False, 0.01)):
-        tol = 5e-3 if (quantized or eps) else 1e-3
-        args = (cfg, nets[quantized]["coarse"], nets[quantized]["fine"], o, d,
-                t_row)
-        got = fused_plcore.two_pass_plcore_call(
-            *args, rt=ops.pick_ray_tile(R, DEV), ert_eps=eps)
-        want = ref.two_pass_ref(*args, rt=256, ert_eps=eps)
-        e = check(f"K2 rmcm={quantized} ert={eps}", got, want,
-                  (tol, tol, tol, tol, 1e-2))
-        errs["two_pass_plcore_call"] = max(errs["two_pass_plcore_call"], e)
+    # ---- K2: f32 (timed), RMCM, ERT, alive mask ---------------------------
+    K2 = "two_pass_plcore_call"
 
-    # ---- times at the main path's shape: one 128x128 view -----------------
-    Rv = o_all.shape[0]
-    rt = ops.pick_ray_tile(Rv, DEV)
-    net = nets[False]
-    Nt = cfg.n_coarse + cfg.n_fine
-    t = sampling.stratified(cfg.near, cfg.far, Nt, (Rv,), g, device=DEV)
-    dl = sampling.deltas_from_t(t)
-    k1 = (cfg, net["fine"], o_all, d_all, t, dl)
-    k2 = (cfg, net["coarse"], net["fine"], o_all, d_all, t_row)
-    times = {
-        "fused_plcore_call": (
-            cuda_ms(lambda: fused_plcore.fused_plcore_call(*k1, rt=rt), 3),
-            cuda_ms(lambda: ref.fused_plcore_ref(*k1, rt=1024), 3)),
-        "two_pass_plcore_call": (
-            cuda_ms(lambda: fused_plcore.two_pass_plcore_call(
-                *k2, rt=rt, ert_eps=0.0), 3),
-            cuda_ms(lambda: ref.two_pass_ref(*k2, rt=1024, ert_eps=0.0), 3)),
-    }
-    # work these inputs need: every ray alive (no ERT in the timed call)
-    k1_flops = 2 * Rv * (Nt * macs_per_sample(cfg) + macs_per_ray_pass(cfg))
-    k1_bytes = nbytes(o_all, d_all, t, dl, net["fine"]) + 4 * Rv * (3 + Nt + 1)
-    k2_flops = 2 * Rv * ((cfg.n_coarse + Nt) * macs_per_sample(cfg)
-                         + 2 * macs_per_ray_pass(cfg))
-    k2_bytes = nbytes(o_all, d_all, t_row, net) + 4 * Rv * 9
-    bounds = {"fused_plcore_call": bound_ms(k1_flops, k1_bytes, peak),
-              "two_pass_plcore_call": bound_ms(k2_flops, k2_bytes, peak)}
-    print(f"timed at {Rv} rays (one {HW}x{HW} view), K1 at N={Nt}, "
-          f"ray tile {rt}; fp32 peak {peak / 1e12:.2f} TFLOP/s", flush=True)
+    def k2_hold(quantized, eps, mask=None, timed=False):
+        k2 = (cfg, nets[quantized]["coarse"], nets[quantized]["fine"], o, d,
+              *rows)
+        tol = 5e-3 if (quantized or eps or mask is not None) else 1e-3
+        return hold(K2, f"K2 rmcm={quantized} ert={eps} alive-mask="
+                    f"{mask is not None}",
+                    lambda: fused_plcore.two_pass_plcore_call(
+                        *k2, rt=rt, ert_eps=eps, alive=mask),
+                    lambda: ref.two_pass_ref(*k2, rt=PLAIN_RT, ert_eps=eps,
+                                             alive=mask),
+                    (tol, tol, tol, tol, 1e-2), timed=timed)
+
+    acc_c = k2_hold(False, 0.0, timed=True)[3]
+    k2_hold(True, 0.0)
+    # ERT at the serve eps, then at the median of the distinct coarse acc
+    # values below 1, where some rays terminate and others go on to their
+    # fine pass
+    below = torch.unique(acc_c[acc_c < 1.0])
+    eps_mix = 1.0 - float(below[below.numel() // 2]) if below.numel() else 0.0
+    for eps in (0.01, eps_mix):
+        dead = int((acc_c >= ref.ert_threshold(eps)).sum())
+        print(f"ERT eps {eps}: {dead} of {R} rays skip the fine pass",
+              flush=True)
+        k2_hold(False, eps)
+    assert eps_mix > 0.0 and 0 < dead < R, ("no live/dead mix", eps_mix, dead)
+    k2_hold(False, 0.0, alive)
+
+    # the least time for the timed calls' work: every ray alive
+    k1_flops = 2 * R * (Nt * macs_per_sample(cfg) + macs_per_ray_pass(cfg))
+    k1_bytes = nbytes(*k1_in) + 4 * R * (3 + Nt + 1)
+    k2_flops = 2 * R * ((cfg.n_coarse + Nt) * macs_per_sample(cfg)
+                        + 2 * macs_per_ray_pass(cfg))
+    k2_bytes = nbytes(o, d, rows, nets[False]) + 4 * R * 9
+    bounds = {K1: bound_ms(k1_flops, k1_bytes, peak),
+              K2: bound_ms(k2_flops, k2_bytes, peak)}
+    print(f"checked and timed at {R} rays (one {HW}x{HW} view), ray tile "
+          f"{rt} (last tile {R % rt} rays), K1 timed at N={Nt}; fp32 peak "
+          f"{peak / 1e12:.2f} TFLOP/s", flush=True)
     return {k: {"max_abs_err": errs[k], "ms": times[k][0],
                 "plain_ms": times[k][1], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1]} for k in errs}
+                "bound_by": bounds[k][1]} for k in (K1, K2)}
 
 
 def serve_phase(out_dir: str, extra: list, views: int) -> dict:
@@ -237,7 +264,6 @@ def oracle_phase(cfg, params) -> int:
     model = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
                          device=DEV)
     o, d = view_rays(120.0)
-    o, d = o[:4096], d[:4096]
     fused = model.render_tile(o, d)
     for k in fused_plcore.LAUNCHES:
         fused_plcore.LAUNCHES[k] = 0

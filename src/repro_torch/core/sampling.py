@@ -75,13 +75,16 @@ def importance(t_mid, weights, n: int,
     return _invert_cdf(t_mid, cdf, u)
 
 
-def importance_det(t_mid, weights, n: int, eps: float = 1e-5):
+def importance_det(t_mid, weights, n: int, eps: float = 1e-5,
+                   u_row: Optional[torch.Tensor] = None):
     """The deterministic inverse CDF the fused kernel runs: the u-grid is
-    ``det_u`` and the bin is found by binary search (the count of CDF
-    entries <= u), clipped to [0, M-3]. Equal to ``importance`` without a
-    generator, value for value."""
+    ``det_u`` (or a prebuilt ``u_row`` of it, (n,)) and the bin is found by
+    binary search (the count of CDF entries <= u), clipped to [0, M-3].
+    Equal to ``importance`` without a generator, value for value."""
     cdf = _weights_to_cdf(weights, eps)
-    u = torch.broadcast_to(det_u(n, cdf.device), cdf.shape[:-1] + (n,))
+    if u_row is None:
+        u_row = det_u(n, cdf.device)
+    u = torch.broadcast_to(u_row, cdf.shape[:-1] + (n,))
     return _invert_cdf(t_mid, cdf, u)
 
 

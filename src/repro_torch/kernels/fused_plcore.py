@@ -128,28 +128,29 @@ def fused_plcore_call(cfg: NerfConfig, weights: dict, rays_o, rays_d, t,
 
 
 def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
-                         rays_o, rays_d, t_row, *, rt: int, ert_eps: float,
-                         alive: Optional[torch.Tensor] = None):
-    """K2. rays (R, 3); ``t_row`` (1, n_coarse) coarse positions shared by
-    every ray; ``ert_eps`` > 0 lets rays with acc_c >= 1 - eps skip their
-    fine pass; ``alive`` optional (R,) float mask, 0 = dead. Returns
-    (rgb (R,3), rgb_coarse (R,3), acc (R,), acc_coarse (R,), depth (R,));
-    the caller composites the white background."""
+                         rays_o, rays_d, t_row, u_row, *, rt: int,
+                         ert_eps: float, alive: Optional[torch.Tensor] = None):
+    """K2. rays (R, 3); ``t_row`` (1, n_coarse) coarse positions and
+    ``u_row`` (n_fine,) resample grid, both shared by every ray
+    (``ops.sample_rows``); ``ert_eps`` > 0 lets rays with acc_c >= 1 - eps
+    skip their fine pass; ``alive`` optional (R,) float mask, 0 = dead.
+    Returns (rgb (R,3), rgb_coarse (R,3), acc (R,), acc_coarse (R,),
+    depth (R,)); the caller composites the white background."""
     dev = _device_of(rays_o)
     if dev.type == "cpu":
         return ref.two_pass_ref(cfg, packed_c, packed_f, rays_o, rays_d,
-                                t_row, rt=rt, ert_eps=ert_eps, alive=alive)
+                                t_row, u_row, rt=rt, ert_eps=ert_eps,
+                                alive=alive)
     from repro_torch.kernels import build
-    from repro_torch.core import sampling
     R = rays_o.shape[0]
     Nc, Nf = t_row.shape[-1], cfg.n_fine
     f32 = torch.float32
     _check("rays_o", rays_o, (R, 3), f32, dev)
     _check("rays_d", rays_d, (R, 3), f32, dev)
     _check("t_row", t_row, (1, Nc), f32, dev)
+    _check("u_row", u_row, (Nf,), f32, dev)
     if alive is not None:
         _check("alive", alive, (R,), f32, dev)
-    u_row = sampling.det_u(Nf, dev)
     ptrs = _net_ptrs(cfg, packed_c, dev) + _net_ptrs(cfg, packed_f, dev)
     outs = [torch.empty(s, dtype=f32, device=dev)
             for s in ((R, 3), (R, 3), (R,), (R,), (R,))]

@@ -8,13 +8,15 @@
 * ``fused_render`` (one sample set, K1) and ``fused_render_two_pass``
   (the whole two-pass render, K2) pick the ray tile and call the kernel
   wrappers. Both kernels and their plain versions handle a ragged last
-  tile themselves, so no ray is padded here.
+  tile themselves, so no ray is padded here. K2's ray-independent sample
+  grids come from ``sample_rows``, built once per config and device.
 * ``pack_count`` and ``dispatch_count`` are plain counters: packs at load
   and kernel dispatches. The fused chain dispatches once per render call,
   the two-dispatch chain twice.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -159,6 +161,21 @@ def fused_render(cfg: NerfConfig, params: Optional[dict], rays_o, rays_d, t,
     return rgb, {"weights": w, "acc": acc}
 
 
+@functools.lru_cache(maxsize=None)
+def _sample_rows(near: float, far: float, n_coarse: int, n_fine: int,
+                 device: torch.device):
+    t_row = sampling.stratified(near, far, n_coarse, (1,), device=device)
+    return t_row.contiguous(), sampling.det_u(n_fine, device)
+
+
+def sample_rows(cfg: NerfConfig, device) -> tuple:
+    """K2's two ray-independent grids, built once per config and device:
+    ``t_row`` (1, n_coarse), the coarse bin midpoints, and ``u_row``
+    (n_fine,), the deterministic resample grid. Read-only."""
+    return _sample_rows(float(cfg.near), float(cfg.far), cfg.n_coarse,
+                        cfg.n_fine, torch.device(device))
+
+
 def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
                           ert_eps: float = 0.0, rt: Optional[int] = None,
                           alive=None) -> dict:
@@ -168,12 +185,10 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
     composite."""
     _COUNTS["dispatches"] += 1
     rt = rt or pick_ray_tile(rays_o.shape[0], rays_o.device)
-    # deterministic coarse samples are ray-independent: ship ONE row
-    t_row = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (1,),
-                                device=rays_o.device)
+    t_row, u_row = sample_rows(cfg, rays_o.device)
     rgb, rgb_c, acc, acc_c, depth = _fp.two_pass_plcore_call(
         cfg, packed["coarse"], packed["fine"], rays_o.contiguous(),
-        rays_d.contiguous(), t_row.contiguous(), rt=rt,
+        rays_d.contiguous(), t_row, u_row, rt=rt,
         ert_eps=float(ert_eps),
         alive=None if alive is None else alive.to(torch.float32).contiguous())
     return {"rgb": rgb, "rgb_coarse": rgb_c, "acc": acc,

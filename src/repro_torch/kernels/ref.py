@@ -126,11 +126,12 @@ def fused_plcore_ref(cfg: NerfConfig, weights: dict, rays_o, rays_d, t,
     return rgb, w, acc
 
 
-def two_pass_tile(cfg: NerfConfig, net_c, net_f, o, d, t_row, thr: float,
-                  ert: bool, m=None):
-    """K2's tile body for rt rays. ``thr``: a ray stays alive while
-    acc_c < thr (under ``ert``); ``m``: optional (rt,) mask, 0 = dead.
-    Returns (rgb, rgb_coarse, acc, acc_coarse, depth)."""
+def two_pass_tile(cfg: NerfConfig, net_c, net_f, o, d, t_row, u_row,
+                  thr: float, ert: bool, m=None):
+    """K2's tile body for rt rays. ``u_row``: the (n_fine,) resample grid;
+    ``thr``: a ray stays alive while acc_c < thr (under ``ert``); ``m``:
+    optional (rt,) mask, 0 = dead. Returns (rgb, rgb_coarse, acc,
+    acc_coarse, depth)."""
     rt = o.shape[0]
     Nc = t_row.shape[-1]
     t_c = torch.broadcast_to(t_row, (rt, Nc))
@@ -141,7 +142,7 @@ def two_pass_tile(cfg: NerfConfig, net_c, net_f, o, d, t_row, thr: float,
     acc_c = 1.0 - Tn_c[:, -1]
     depth_c = torch.sum(w_c * t_c, dim=-1)
 
-    t_f = sampling.importance_det(t_c, w_c, cfg.n_fine)
+    t_f = sampling.importance_det(t_c, w_c, cfg.n_fine, u_row=u_row)
     t_all = sampling.merge_sorted_ranks(t_c, t_f)
     dl_all = sampling.deltas_from_t(t_all)
     rgb, w, Tn = pass_body(cfg, net_f, o, d, t_all, dl_all, ped)
@@ -158,7 +159,7 @@ def two_pass_tile(cfg: NerfConfig, net_c, net_f, o, d, t_row, thr: float,
 
 
 def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
-                 rays_d, t_row, *, rt: int, ert_eps: float,
+                 rays_d, t_row, u_row, *, rt: int, ert_eps: float,
                  alive: Optional[torch.Tensor] = None):
     """K2's plain version over R rays, ``rt`` rays at a time."""
     net_c, net_f = net_arrays(cfg, packed_c), net_arrays(cfg, packed_f)
@@ -166,7 +167,7 @@ def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
     outs = []
     for s, e in _tiles(rays_o.shape[0], rt):
         outs.append(two_pass_tile(
-            cfg, net_c, net_f, rays_o[s:e], rays_d[s:e], t_row, thr,
+            cfg, net_c, net_f, rays_o[s:e], rays_d[s:e], t_row, u_row, thr,
             ert_eps > 0.0, None if alive is None else alive[s:e]))
     return tuple(torch.cat(x) for x in zip(*outs))
 

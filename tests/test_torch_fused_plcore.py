@@ -133,6 +133,21 @@ def test_plain_k2_tile_size_invariant(nets):
             torch.testing.assert_close(out[k], base[k], rtol=0, atol=1e-5)
 
 
+def test_k2_sample_rows_built_once_and_match_reference():
+    cfg = tiny()
+    t_row, u_row = ops.sample_rows(cfg, "cpu")
+    again = ops.sample_rows(cfg, torch.device("cpu"))
+    assert again[0] is t_row and again[1] is u_row
+    jc = jax_tiny()
+    np.testing.assert_array_equal(
+        t_row.numpy(), np.asarray(js.stratified(jc.near, jc.far, jc.n_coarse,
+                                                (1,), None)))
+    # torch.linspace and jnp.linspace round some points differently: at
+    # most one float32 ulp below 1.0
+    np.testing.assert_allclose(u_row.numpy(), np.asarray(js.det_u(jc.n_fine)),
+                               rtol=0, atol=2.0 ** -24)
+
+
 def test_dispatch_count_ticks_once_per_fused_call(nets):
     _, pt = _packed(*nets, False)
     o, d = map(torch.from_numpy, _rays(16))

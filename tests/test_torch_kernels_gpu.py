@@ -19,6 +19,10 @@ from repro_torch.core import plcore, rmcm, sampling
 from repro_torch.kernels import fused_plcore, ops, ref
 from repro_torch.models.params import init_params as torch_init
 
+# 67 rays in tiles of 4: every block walks several rays and the last tile
+# is ragged (3 rays)
+R, RT = 67, 4
+
 
 def _rays(n, seed=5):
     rng = np.random.default_rng(seed)
@@ -34,7 +38,9 @@ def _rays(n, seed=5):
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_card():
     """Full-width K1 and K2 on CUDA tensors against their plain versions
-    on the same tensors (what ``chip_smoke.py`` checks at scale)."""
+    on the same tensors (what ``chip_smoke.py`` checks at scale): f32 and
+    RMCM; K2 without ERT, with an ERT eps that kills some rays and not
+    others, and with an alive mask; K1 with an alive mask."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -42,7 +48,10 @@ def test_kernels_match_plain_versions_on_card():
     cfg = CONFIG
     params = torch_init(plcore.plcore_decls(cfg),
                         torch.Generator().manual_seed(0))
-    o, d = (torch.from_numpy(x).to(dev) for x in _rays(64))
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(R))
+    alive = (torch.arange(R, device=dev) % 3 != 0).to(torch.float32)
+    rows = ops.sample_rows(cfg, dev)
+    assert R % RT != 0 and RT > 1
     for quantized in (False, True):
         packed = {}
         for n in ("coarse", "fine"):
@@ -50,25 +59,37 @@ def test_kernels_match_plain_versions_on_card():
             packed[n] = bridge.to_device(
                 ops.stack_plcore_weights(cfg, params[n], q), dev)
         tol = 5e-3 if quantized else 1e-3
-        for eps in (0.0, 0.01):
-            tol_e = 5e-3 if eps else tol
-            t_row = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (1,),
-                                        device=dev)
-            k = fused_plcore.two_pass_plcore_call(
-                cfg, packed["coarse"], packed["fine"], o, d, t_row, rt=2,
-                ert_eps=eps)
-            p = ref.two_pass_ref(cfg, packed["coarse"], packed["fine"], o, d,
-                                 t_row, rt=64, ert_eps=eps)
+        args = (cfg, packed["coarse"], packed["fine"], o, d, *rows)
+
+        def both(eps, mask):
+            k = fused_plcore.two_pass_plcore_call(*args, rt=RT, ert_eps=eps,
+                                                  alive=mask)
+            p = ref.two_pass_ref(*args, rt=R, ert_eps=eps, alive=mask)
             torch.cuda.synchronize()
+            t = 5e-3 if (eps or mask is not None) else tol
             for i, (a, b) in enumerate(zip(k, p)):
                 torch.testing.assert_close(a, b, rtol=0,
-                                           atol=1e-2 if i == 4 else tol_e)
-        t = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (64,),
+                                           atol=1e-2 if i == 4 else t)
+            return p
+
+        acc_c = both(0.0, None)[3]
+        # the median of the distinct coarse acc values below 1 as the ERT
+        # threshold: some rays die, others do not
+        below = torch.unique(acc_c[acc_c < 1.0])
+        assert below.numel() >= 2, below
+        eps = 1.0 - float(below[below.numel() // 2])
+        dead = int((acc_c >= ref.ert_threshold(eps)).sum())
+        assert eps > 0.0 and 0 < dead < R, (eps, dead)
+        both(eps, None)
+        both(0.0, alive)
+
+        t = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse, (R,),
                                 device=dev)
         dl = sampling.deltas_from_t(t)
         k = fused_plcore.fused_plcore_call(cfg, packed["fine"], o, d, t, dl,
-                                           rt=2)
-        p = ref.fused_plcore_ref(cfg, packed["fine"], o, d, t, dl, rt=64)
+                                           rt=RT, alive=alive)
+        p = ref.fused_plcore_ref(cfg, packed["fine"], o, d, t, dl, rt=R,
+                                 alive=alive)
         torch.cuda.synchronize()
         for a, b in zip(k, p):
             torch.testing.assert_close(a, b, rtol=0, atol=tol)

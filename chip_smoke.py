@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and exits nonzero; nothing is caught):
-1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc.
-2. Hold each kernel against its plain PyTorch version at the full
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   one nvcc per source, all at once.
+2. Hold K1 and K2 against their plain PyTorch versions at the full
    ``NerfConfig()`` width and the main path's shape: one 128x128 camera
    view (16384 rays) at the main path's ray tile, which must be above 1
    and leave a ragged last tile. K1 (``fused_plcore_call``) at N=64 and
@@ -16,14 +17,35 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the least time the card could take (fp32 operations over SMs x 128
    FMA/clk x 2 x max SM clock, or bytes over 3.35 TB/s, whichever is
    larger).
-3. The main path through the serve entry point: full config,
+3. K3 (``rmcm_matmul``) against its plain version at the NeRF trunk layer
+   of one 512-ray tile's fine pass (131072 x 256 x 256), a decode-sized
+   product at qwen2-1.5b's MLP width (16 x 1536 x 8960) and a ragged
+   (33 x 512 x 65), f32 inputs at atol 2e-4 / rtol 1e-4 and bf16 inputs at
+   atol 0.3 / rtol 0.05 (the reference test's tolerances). The first two
+   are timed in f32 (cycling through weight copies that exceed the L2
+   cache) beside their bound and one ``torch.matmul`` on the dequantized
+   f32 weight (TF32 off; the dequantization is not counted in it). Then
+   its entry point ``ops.rmcm_matmul`` with leading dims, counted alone.
+4. The main path through the serve entry point: full config,
    ``--kernel --fuse-two-pass``, 3 views at 128x128, then one view with
    ``--rmcm --ert 0.01``. Launch counters are zeroed just before and read
    just after: K2 must have launched, no weights re-packed, images finite
    with pixel std > 0.
-4. The oracle path: one view-sized tile through ``render_tile_oracle`` (K1
+5. The oracle path: one view-sized tile through ``render_tile_oracle`` (K1
    twice, counters zeroed before and read after) against ``render_tile``
    at 1e-3.
+6. The serving engine, ``serve --mode engine`` at full width (3 scenes, 12
+   requests at 64x64 and 128x128, closed loop at concurrency 4, 4096-ray
+   tiles, pipeline depth 2, ``--check``), clean and then with
+   ``--inject-faults``. Counters are zeroed before each run and read after
+   it: K2 launches must equal the dispatch attempts that did not raise and
+   K1 launches twice the oracle fallbacks; the clean run has no retry and
+   no fallback, and in the chaos run every dispatch error, corrupt tile
+   and scene-load error traces back to an injected fault (straggler
+   redispatches, timed on the host's clock, are reported). Each ok image
+   equals a direct
+   ``PackedPlcore.render_image`` of its pose bit for bit (within 1e-3
+   where the oracle rung rendered one of its tiles).
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits nonzero with no
@@ -37,6 +59,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -52,6 +75,7 @@ from repro_torch.core.pipeline import PackedPlcore  # noqa: E402
 from repro_torch.core.plcore import plcore_decls  # noqa: E402
 from repro_torch.data import rays  # noqa: E402
 from repro_torch.kernels import build, fused_plcore, ops, ref  # noqa: E402
+from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 
@@ -59,9 +83,23 @@ DEV = torch.device("cuda")
 HW = 128
 PLAIN_RT = 1024          # rays per tensor batch of the plain versions
 HBM_BYTES_PER_S = 3.35e12
-SOURCE = "src/repro_torch/kernels/csrc/fused_plcore.cu"
+SOURCE = {"fused_plcore_call": "src/repro_torch/kernels/csrc/fused_plcore.cu",
+           "two_pass_plcore_call":
+               "src/repro_torch/kernels/csrc/fused_plcore.cu",
+           "rmcm_matmul": "src/repro_torch/kernels/csrc/rmcm_matmul.cu"}
 REPLACES = {"fused_plcore_call": "src/repro/kernels/fused_plcore.py:239",
-            "two_pass_plcore_call": "src/repro/kernels/fused_plcore.py:432"}
+            "two_pass_plcore_call": "src/repro/kernels/fused_plcore.py:432",
+            "rmcm_matmul": "src/repro/kernels/rmcm_matmul.py:58"}
+# K3's shapes (M, K, N): the NeRF trunk layer at one 512-ray tile's fine
+# pass (512 rays x 256 samples), a decode-sized product at qwen2-1.5b's MLP
+# width (src/repro/configs/qwen2_1_5b.py: d_model 1536, d_ff 8960, 16
+# rows), and a ragged shape of the reference's kernel test
+K3_SHAPES = {"nerf_trunk": (512 * 256, 256, 256),
+             "qwen2_1_5b_mlp_decode": (16, 1536, 8960),
+             "ragged": (33, 512, 65)}
+K3_TIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode")
+K3_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (0.3, 0.05)}
+L2_BYTES = 50 * 2 ** 20
 
 
 def smi(query: str) -> str:
@@ -117,6 +155,16 @@ def cuda_ms(fn, reps: int):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def cuda_ms_cycled(fns, reps: int):
+    """``cuda_ms`` over calls that cycle through ``fns`` (the same work on
+    separate copies of the inputs), so that inputs smaller than the L2
+    cache are read from device memory, as a caller with many such
+    operands would find them."""
+    calls = iter(range(reps + 1))
+    ms, out = cuda_ms(lambda: fns[next(calls) % len(fns)](), reps)
+    return ms, out, reps % len(fns)
 
 
 def check(name: str, got, want, tols) -> float:
@@ -241,15 +289,105 @@ def kernel_phase(cfg, params, peak: float) -> dict:
                 "bound_by": bounds[k][1]} for k in (K1, K2)}
 
 
+def k3_weights(k: int, n: int, gen, copies: int = 1) -> list:
+    """``copies`` RMCM-packed (k, n) weights drawn on the card."""
+    return [rmcm.pack(rmcm.quantize(torch.randn(k, n, generator=gen,
+                                                device=DEV)))
+            for _ in range(copies)]
+
+
+def k3_bytes(x, packed, y) -> int:
+    """Bytes K3 must move: x, 1.125 B per weight, the scales and y."""
+    return nbytes(x, packed["mag"], packed["sign_bits"], packed["scale"], y)
+
+
+def k3_phase(peak: float) -> dict:
+    """K3 against its plain version on the card at ``K3_SHAPES``, f32 and
+    bf16 inputs at the reference test's tolerances; the timed shapes (f32)
+    beside their bound and one PyTorch matmul on the dequantized weight.
+    Then the entry point a user calls, ``ops.rmcm_matmul`` with leading
+    dims, counts zeroed just before and read just after."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    errs, shapes = {torch.float32: [], torch.bfloat16: []}, {}
+    for label, (M, K, N) in K3_SHAPES.items():
+        timed = label in K3_TIMED
+        # enough weight copies that one cycle of calls moves twice the L2
+        io_bytes = 4 * (M * K + M * N)
+        copies = (-(-2 * L2_BYTES // (K * N + (-(-K // 8)) * N + io_bytes))
+                  if timed else 1)
+        packs = k3_weights(K, N, gen, copies)
+        x32 = torch.randn(M, K, generator=gen, device=DEV)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            atol, rtol = K3_TOL[dt]
+            got = k3.rmcm_matmul(x, packs[0])
+            want = ref.rmcm_matmul_ref(x, packs[0])
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == (M, N), (got.dtype,
+                                                             got.shape)
+            assert bool(torch.isfinite(got).all()), label
+            torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+            e = float((got.float() - want.float()).abs().max())
+            errs[dt].append(e)
+            print(f"check K3 {label} {tuple((M, K, N))} {dt}: max_abs_err "
+                  f"{e} (atol {atol}, rtol {rtol})", flush=True)
+            if not (timed and dt == torch.float32):
+                continue
+            ms, got, last = cuda_ms_cycled(
+                [lambda p=p: k3.rmcm_matmul(x, p) for p in packs], 20)
+            torch.testing.assert_close(
+                got, ref.rmcm_matmul_ref(x, packs[last]), atol=atol,
+                rtol=rtol)
+            plain_ms, _, _ = cuda_ms_cycled(
+                [lambda p=p: ref.rmcm_matmul_ref(x, p) for p in packs], 5)
+            dense = [rmcm.dequantize(rmcm.unpack(p), torch.float32)
+                     for p in packs[:-(-2 * L2_BYTES // (4 * K * N + io_bytes))]]
+            lib_ms, _, _ = cuda_ms_cycled(
+                [lambda w=w: torch.matmul(x, w) for w in dense], 20)
+            del dense
+            b_ms, b_by = bound_ms(2.0 * M * K * N,
+                                  k3_bytes(x, packs[0], got), peak)
+            shapes[label] = {"shape_mkn": [M, K, N], "dtype": "float32",
+                             "ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "weight_copies": len(packs)}
+            print(f"K3 {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
+                  f"plain {plain_ms:.4f} ms; torch.matmul on the dequantized "
+                  f"f32 weight, dequantization not counted, {lib_ms:.4f} ms)",
+                  flush=True)
+    # the entry point with leading dims, counted on its own
+    M, K, N = K3_SHAPES["qwen2_1_5b_mlp_decode"]
+    packed = k3_weights(K, N, gen)[0]
+    x = torch.randn(2, M // 2, K, generator=gen, device=DEV)
+    for c in k3.LAUNCHES:
+        k3.LAUNCHES[c] = 0
+    y = ops.rmcm_matmul(x, packed, bm=8, bn=8, bk=8)
+    torch.cuda.synchronize()
+    launches = k3.LAUNCHES["rmcm_matmul"]
+    assert launches == 1 and y.shape == (2, M // 2, N), (launches, y.shape)
+    torch.testing.assert_close(
+        y, ref.rmcm_matmul_ref(x.reshape(M, K), packed).reshape(y.shape),
+        atol=2e-4, rtol=1e-4)
+    row = shapes["nerf_trunk"]
+    return {"max_abs_err": max(errs[torch.float32]),
+            "max_abs_err_bf16": max(errs[torch.bfloat16]), "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_call": "torch.matmul(x, W_dequantized_f32), TF32 off, "
+                            "dequantization not counted",
+            "timed_shape": "nerf_trunk", "shapes": shapes,
+            "launches": launches}
+
+
 def serve_phase(out_dir: str, extra: list, views: int) -> dict:
     """Main path through the serve entry point; launch counts zeroed just
     before and read just after."""
-    for k in fused_plcore.LAUNCHES:
-        fused_plcore.LAUNCHES[k] = 0
+    zero_launches()
     stats = serve.main(["--mode", "nerf", "--full", "--kernel",
                         "--fuse-two-pass", "--views", str(views), "--hw",
                         str(HW), "--out", out_dir, *extra])
-    launches = dict(fused_plcore.LAUNCHES)
+    launches = read_launches()
     assert stats["device"].startswith("cuda"), stats["device"]
     assert stats["weight_packs_since_load"] == 0, stats
     assert launches["two_pass_plcore_call"] >= views, launches
@@ -260,13 +398,120 @@ def serve_phase(out_dir: str, extra: list, views: int) -> dict:
     return launches
 
 
+ENGINE_ARGV = ["--mode", "engine", "--full", "--kernel", "--fuse-two-pass",
+               "--scenes", "3", "--requests", "12", "--hw-mix", "64,128",
+               "--loop", "closed", "--concurrency", "4",
+               "--pipeline-depth", "2", "--tile-rays", "4096", "--check"]
+
+
+def zero_launches() -> None:
+    for counts in (fused_plcore.LAUNCHES, k3.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    return {**fused_plcore.LAUNCHES, **k3.LAUNCHES}
+
+
+def engine_phase(extra: list) -> dict:
+    """The serving engine through ``serve --mode engine`` (its run, then
+    its ``--check`` gates): launch counts zeroed just before the run and
+    read just after it, before the check's reruns. Every launch must be
+    accounted for by the engine's own counters, so the retry ladder cannot
+    hide a broken kernel; every request's image is held against a direct
+    ``PackedPlcore.render_image`` of its pose."""
+    args = serve.build_parser().parse_args(ENGINE_ARGV + extra)
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args)
+    launches = read_launches()
+    st, rb = report["engine"], report["robustness"]
+    assert report["device"].startswith("cuda"), report["device"]
+    label = "chaos" if args.inject_faults else "clean"
+    if args.inject_faults:
+        inj = rb["faults_injected"]["injected"]
+        # every recovery that a raised dispatch, a non-finite tile or a
+        # failed load set off traces back to an injected fault; straggler
+        # redispatches are timed on the host's clock and only reported
+        assert rb["dispatch_errors"] == inj["dispatch_error"], (rb, inj)
+        assert rb["corrupt_tiles"] <= inj["corrupt"], (rb, inj)
+        assert rb["scene_load_errors"] == inj["loader_error"], (rb, inj)
+    else:
+        assert (rb["dispatch_errors"], rb["tile_retries"],
+                rb["oracle_fallbacks"]) == (0, 0, 0), rb
+    # K2 runs once per dispatch attempt that did not raise; the oracle
+    # rung runs K1 twice
+    assert launches["two_pass_plcore_call"] == (
+        st["dispatches"] + st["tile_retries"] - st["dispatch_errors"]), (
+        launches, st)
+    assert launches["fused_plcore_call"] == 2 * st["oracle_fallbacks"], (
+        launches, st)
+    assert launches["two_pass_plcore_call"] >= 1, launches
+    n_exact = n_close = 0
+    direct_models = {}
+    for rid, item in enumerate(trace):
+        res = engine.completed[rid]
+        if res.status != "ok":
+            continue
+        req = item.request
+        ro, rd = rays.camera_rays(
+            rays.pose_spherical(req.theta, req.phi, req.radius), req.hw,
+            req.hw, 0.9 * req.hw)
+        if req.scene_id not in direct_models:
+            direct_models[req.scene_id] = serve.load_plcore(
+                serve.model_config(args), args,
+                args.seed + int(req.scene_id.removeprefix("scene")))
+        direct = direct_models[req.scene_id].render_image(
+            ro, rd, rays_per_batch=args.tile_rays).cpu().numpy()
+        if res.fallbacks:
+            assert np.allclose(res.image, direct, rtol=0,
+                               atol=serve.ORACLE_ATOL), rid
+            n_close += 1
+        else:
+            assert np.array_equal(res.image, direct), (
+                rid, float(np.abs(res.image - direct).max()))
+            n_exact += 1
+    assert n_exact >= 1 and n_exact + n_close == \
+        rb["status_counts"].get("ok", 0), (n_exact, n_close, rb)
+    compared = serve.check_engine(args, report, engine, rerun)
+    extra_summary = {}
+    if not args.inject_faults:
+        # the same trace at depth 1 (synchronous), timed the same way
+        t0 = time.perf_counter()
+        sync = rerun(1)
+        wall = time.perf_counter() - t0
+        extra_summary = {"depth1_wall_s": wall, "depth1_rays_per_s":
+                         sync.stats["rays_rendered"] / wall}
+    summary = {
+        "run": label, "rays_per_s": report["rays_per_s"],
+        "req_per_s": report["req_per_s"], "wall_s": report["wall_s"],
+        "latency_ms": report["latency_ms"],
+        "queueing_ms": report["queueing_ms"],
+        "service_ms": report["service_ms"],
+        "max_in_flight": st["max_in_flight"],
+        "dispatches": st["dispatches"],
+        "dispatch_baseline": st["dispatch_baseline"],
+        "padded_rays": st["padded_rays"], "goodput": rb["goodput"],
+        "status_counts": rb["status_counts"],
+        "tile_retries": rb["tile_retries"],
+        "oracle_fallbacks": rb["oracle_fallbacks"],
+        "straggler_redispatches": rb["straggler_redispatches"],
+        "cache_hit_rate": report["cache"]["hit_rate"],
+        "launches": launches, "images_exact_vs_direct": n_exact,
+        "images_within_oracle_atol": n_close, "check_compared": compared,
+        **extra_summary}
+    if args.inject_faults:
+        summary["faults_injected"] = rb["faults_injected"]["injected"]
+    print(f"engine {label}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def oracle_phase(cfg, params) -> int:
     model = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
                          device=DEV)
     o, d = view_rays(120.0)
     fused = model.render_tile(o, d)
-    for k in fused_plcore.LAUNCHES:
-        fused_plcore.LAUNCHES[k] = 0
+    zero_launches()
     oracle = model.render_tile_oracle(o, d)
     torch.cuda.synchronize()
     launches = fused_plcore.LAUNCHES["fused_plcore_call"]
@@ -296,20 +541,33 @@ def main() -> None:
     peak = fp32_peak_flops()
     rows = kernel_phase(cfg, params, peak)
 
+    k3_row = k3_phase(peak)
+
     out_dir = str(ROOT / "chiprun_out" / "smoke_views")
     main_launches = serve_phase(out_dir, [], 3)
     rmcm_launches = serve_phase(out_dir, ["--rmcm", "--ert", "0.01"], 1)
     oracle_launches = oracle_phase(cfg, params)
+    clean = engine_phase([])
+    chaos = engine_phase(["--inject-faults"])
 
+    main_path = {k: main_launches[k] + rmcm_launches[k]
+                 + clean["launches"][k] for k in main_launches}
     kernels = []
     for k in ("fused_plcore_call", "two_pass_plcore_call"):
-        launches = (main_launches[k] + rmcm_launches[k]
-                    if k == "two_pass_plcore_call" else oracle_launches)
-        kernels.append({"name": k, "route": "cuda", "source": SOURCE,
+        launches = (main_path[k] if k == "two_pass_plcore_call"
+                    else oracle_launches)
+        kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
                         "replaces": REPLACES[k], "launches": launches,
                         "launches_on": ("main path" if k == "two_pass_plcore_call"
                                         else "oracle path"),
                         **rows[k], "library_ms": None})
+    kernels.append({"name": "rmcm_matmul", "route": "cuda",
+                    "source": SOURCE["rmcm_matmul"],
+                    "replaces": REPLACES["rmcm_matmul"],
+                    "launches_on": "rmcm_matmul entry point",
+                    "main_path_launches": main_path["rmcm_matmul"],
+                    **k3_row})
+    print(json.dumps({"engine": {"clean": clean, "chaos": chaos}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,19 @@
   launch covers every tile of the image. Each ray's pixel depends only on
   that ray, so a tile rendered alone gives the same pixels.
 * ``PackedPlcore.render_tile`` / ``dispatch_tile`` — one coalesced ray tile
-  in, pixels out, for a serving engine; ``dispatch_tile`` returns without
-  waiting for the card. ``render_tile_oracle`` renders the tile through the
-  two-dispatch kernel chain, the fallback of a retry ladder.
+  in, pixels out, for a serving engine. ``dispatch_tile`` returns a
+  ``TileHandle`` without waiting for the card: the tile's rays go up and
+  its pixels come back through pinned host buffers with non-blocking
+  copies, and a CUDA event marks the end of the tile's own work, so
+  draining tile k never waits for tile k+1 queued behind it.
+  ``render_tile_oracle`` renders the tile through the two-dispatch kernel
+  chain, the fallback of a retry ladder.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.bridge import to_device
@@ -51,6 +56,24 @@ def _resolve_device(device) -> torch.device:
                            "CUDA device is available; pass device='cpu' to "
                            "run the plain versions")
     return dev
+
+
+class TileHandle:
+    """The pixels of one dispatched tile. ``result()`` waits for this
+    tile's own work (its event), not for the stream, and returns the
+    (n, 3) float32 host array; on the CPU the work is already done."""
+    __slots__ = ("_host", "_event", "_device_rgb")
+
+    def __init__(self, host: torch.Tensor, event=None, device_rgb=None):
+        self._host = host
+        self._event = event
+        self._device_rgb = device_rgb    # alive until the copy has run
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = self._device_rgb = None
+        return self._host.numpy()
 
 
 class PackedPlcore:
@@ -139,10 +162,32 @@ class PackedPlcore:
     def dispatch_tile(self, o_tile, d_tile, *,
                       ert_eps: Optional[float] = None,
                       coarse_only: bool = False):
-        """Enqueue ONE tile and return ``(rgb, cost)`` at once: ``rgb`` is
-        not synchronized (materialize it with ``.cpu()`` or an event at a
-        drain point); ``cost`` is the weight-gather record, zero with
-        replicated weights."""
-        rgb = self.render_tile(o_tile, d_tile, ert_eps=ert_eps,
-                               coarse_only=coarse_only)
-        return rgb, {"layers": 0, "bytes": 0}
+        """Enqueue ONE tile and return ``(handle, cost)`` at once. On the
+        card: the rays go up through pinned memory, the render is
+        launched on the current stream, a non-blocking copy of the pixels
+        into a pinned host buffer and a CUDA event follow it, and
+        ``handle.result()`` waits on that event only. On the CPU the
+        handle holds the finished pixels. ``cost`` is the weight-gather
+        record, ``tile_gather_cost()``."""
+        rgb = self.render_tile(self._upload(o_tile), self._upload(d_tile),
+                               ert_eps=ert_eps, coarse_only=coarse_only)
+        if self.device.type != "cuda":
+            return TileHandle(rgb), self.tile_gather_cost()
+        host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
+        host.copy_(rgb, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return TileHandle(host, event, rgb), self.tile_gather_cost()
+
+    def tile_gather_cost(self) -> dict:
+        """Weight-gather traffic of one tile dispatch: zero, since every
+        weight is replicated on the one device that renders the tile."""
+        return {"layers": 0, "bytes": 0}
+
+    def _upload(self, x) -> torch.Tensor:
+        """Host rays -> the device without a stream sync: a pageable
+        host-to-device copy would wait for every tile queued before it."""
+        t = torch.as_tensor(x, dtype=torch.float32)
+        if self.device.type != "cuda" or t.device.type == "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)

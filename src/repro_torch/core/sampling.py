@@ -7,6 +7,9 @@ deterministic forms ``importance_det`` and ``merge_sorted_ranks`` are the
 ones the fused two-pass kernel computes per ray (a binary search and a
 merge of two sorted lists); here they are written with ``searchsorted``,
 which gives the same values as the reference's comparison counts.
+
+Both grids are ``_linspace0``, which reproduces the reference's float32
+grid bit for bit (``torch.linspace`` rounds some points differently).
 """
 from __future__ import annotations
 
@@ -15,12 +18,28 @@ from typing import Optional
 import torch
 
 
+def _linspace0(stop: float, n: int, device=None) -> torch.Tensor:
+    """``n`` evenly spaced float32 points from 0 to ``stop``, rounded as
+    the reference's compiled ``jnp.linspace(0.0, stop, n)`` rounds them:
+    its compiler turns ``stop * (i / (n - 1))`` into
+    ``i * (stop * f32(1 / (n - 1)))``, each product rounded to float32,
+    and the last point is ``stop`` itself."""
+    f32 = torch.float32
+    if n < 2:
+        return torch.zeros(n, dtype=f32, device=device)
+    one = torch.ones((), dtype=f32, device=device)
+    step = torch.tensor(stop, dtype=f32, device=device) * (one / (n - 1))
+    i = torch.arange(n - 1, dtype=f32, device=device)
+    return torch.cat([i * step, torch.tensor([stop], dtype=f32,
+                                             device=device)])
+
+
 def stratified(near: float, far: float, n: int, shape=(),
                generator: Optional[torch.Generator] = None,
                device=None) -> torch.Tensor:
     """Jittered-uniform samples (bin midpoints without a generator).
     Returns t: (*shape, n), sorted ascending."""
-    edges = torch.linspace(0.0, 1.0, n + 1, device=device)
+    edges = _linspace0(1.0, n + 1, device)
     lo, hi = edges[:-1], edges[1:]
     if generator is not None:
         u = torch.rand(tuple(shape) + (n,), generator=generator,
@@ -34,7 +53,7 @@ def stratified(near: float, far: float, n: int, shape=(),
 def det_u(n: int, device=None) -> torch.Tensor:
     """The deterministic (inference-mode) u-grid, shared by the host sampler
     and the fused kernel's in-block resampler."""
-    return torch.linspace(0.0, 1.0 - 1e-6, n, device=device)
+    return _linspace0(1.0 - 1e-6, n, device)
 
 
 def _weights_to_cdf(weights, eps: float = 1e-5):

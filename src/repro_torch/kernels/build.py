@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The ``.cu`` sources under ``kernels/csrc`` have a plain C interface. At
-first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
+first use each is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and the objects are linked into one shared
 library under ``build/kernels/`` at the repository root (a directory that
 ``.gitignore`` lists), named by the hash of the sources and flags, so a
 changed source rebuilds and an unchanged one is reused. The library is
@@ -21,7 +22,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_LOG = {"seconds": None, "ptxas": ""}
@@ -48,21 +49,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if the library for their hash is missing."""
+    """Compile the sources if the library for their hash is missing: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, sources())],
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    for src, proc in zip(sources(), procs):
+        stdout, stderr = proc.communicate()
+        logs.append(stderr)
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                           capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG["ptxas"] = proc.stderr
+    BUILD_LOG["ptxas"] = "".join(logs)
     return out
 
 
@@ -76,5 +95,7 @@ def load():
         lib.plcore_fused.restype = ci
         lib.plcore_two_pass.argtypes = [vp, vp, ctypes.c_float, vp]
         lib.plcore_two_pass.restype = ci
+        lib.rmcm_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.rmcm_matmul.restype = ci
         _LIB = lib
     return _LIB

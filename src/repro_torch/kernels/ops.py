@@ -1,5 +1,9 @@
-"""Dispatch layer over the fused PLCore kernels.
+"""Dispatch layer over the port's kernels.
 
+* ``rmcm_matmul`` — y = x @ W for a weight in the 9-bit RMCM storage
+  format, leading dims of ``x`` flattened, through K3
+  (``kernels.rmcm_matmul``): the deploy-side product of weights kept in
+  ``core.rmcm.pack``'s 1.125-byte form.
 * ``stack_plcore_weights`` packs one network into the layout both kernels
   read: the trunk stacked (L, P, W) with per-layer row semantics (layer 0:
   PE rows; skip layer: [h | PE] rows; else h rows), color0 row-padded to
@@ -24,6 +28,7 @@ import torch
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.core import rmcm, sampling
 from repro_torch.kernels import fused_plcore as _fp
+from repro_torch.kernels import rmcm_matmul as _rm
 from repro_torch.kernels.ref import packed_rows
 
 _COUNTS = {"packs": 0, "dispatches": 0}
@@ -44,6 +49,17 @@ def pack_count() -> int:
 
 def dispatch_count() -> int:
     return _COUNTS["dispatches"]
+
+
+def rmcm_matmul(x: torch.Tensor, packed: dict, *, bm: int = 128,
+                bn: int = 128, bk: int = 256) -> torch.Tensor:
+    """y = x @ W_rmcm for (..., K) inputs (leading dims flattened).
+    ``bm``/``bn``/``bk`` are accepted for parity with the reference and do
+    not change the result."""
+    lead = x.shape[:-1]
+    y = _rm.rmcm_matmul(x.reshape(-1, x.shape[-1]), packed, bm=bm, bn=bn,
+                        bk=bk)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def _rup(v: int, m: int) -> int:

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two fused PLCore kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the kernels' tile bodies written as tensor code, computing what
 the reference's Pallas kernels compute: the double-angle PEU, direction
@@ -13,6 +13,9 @@ CUDA kernels against them on the card.
 * ``two_pass_ref`` — K2: coarse pass over the pinned ``t_row``, the
   deterministic inverse-CDF resample, the sorted merge, the fine pass.
   With ERT or a mask, a dead ray keeps its coarse rgb/acc/depth.
+* ``rmcm_matmul_ref`` — K3: the RMCM dequant-fused matmul, in the
+  kernel's order (f32 product with the signed magnitudes, then the
+  per-column scale, then the cast to ``x.dtype``).
 """
 from __future__ import annotations
 
@@ -170,6 +173,17 @@ def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
             cfg, net_c, net_f, rays_o[s:e], rays_d[s:e], t_row, u_row, thr,
             ert_eps > 0.0, None if alive is None else alive[s:e]))
     return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def rmcm_matmul_ref(x: torch.Tensor, packed: dict) -> torch.Tensor:
+    """K3's plain version. x (M, K) float; ``packed`` the ``rmcm.pack`` of
+    a (K, N) weight. Returns (M, N) in ``x.dtype``."""
+    K = packed["k"]
+    sg = rmcm.unpack_signs(packed["sign_bits"],
+                           packed["sign_bits"].shape[0] * 8)[:K]
+    w = packed["mag"].to(torch.float32) * (1.0 - 2.0 * sg.to(torch.float32))
+    y = (x.to(torch.float32) @ w) * packed["scale"].reshape(1, -1)
+    return y.to(x.dtype)
 
 
 def ert_threshold(ert_eps: float) -> float:

@@ -1,10 +1,21 @@
-"""Serving driver, ``--mode nerf``: the ICARUS use case on the card.
+"""Serving driver for the ICARUS use case on the card.
 
-Loads the model into a ``PackedPlcore`` (weights RMCM-quantized and packed
-ONCE at load), then serves ``--views`` requests, one camera pose each,
-rendering each image in one render call and writing it as a PPM under
-``runs/``. Prints per-view wall times, rays/s, samples/s and
-``weight_packs_since_load`` (0: no request re-packed weights) as JSON.
+``--mode nerf`` loads the model into a ``PackedPlcore`` (weights
+RMCM-quantized and packed ONCE at load), then serves ``--views`` requests,
+one camera pose each, rendering each image in one render call and writing
+it as a PPM under ``runs/``. Prints per-view wall times, rays/s, samples/s
+and ``weight_packs_since_load`` (0: no request re-packed weights) as JSON.
+
+``--mode engine`` serves many scenes through the multi-tenant
+``serving.RenderEngine``: ``--scenes`` synthetic scenes (scene i's weights
+drawn from a ``torch.Generator`` seeded ``--seed + i``) behind an LRU
+``SceneCache`` of ``--cache-mb``, and a seeded Poisson trace of
+``--requests`` requests (resolutions from ``--hw-mix``, priorities from
+``--priority-mix``) driven open-loop at ``--rate`` or closed-loop at
+``--concurrency``, coalesced into ``--tile-rays``-ray tiles with up to
+``--pipeline-depth`` tiles in flight. ``--inject-faults`` arms the seeded
+chaos mix (``--fault-seed``). Prints the loadgen report as JSON;
+``--check`` gates it (see ``check_engine``).
 
 Flags: ``--kernel`` routes each pass through the fused kernel (K1,
 two dispatches per render); ``--fuse-two-pass`` (with ``--kernel``) runs the
@@ -16,6 +27,9 @@ defaults to ``cuda``.
 
     python -m repro_torch.launch.serve --mode nerf --full --kernel \\
         --fuse-two-pass --views 3
+    python -m repro_torch.launch.serve --mode engine --full --kernel \\
+        --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
+        --loop closed --pipeline-depth 2 --tile-rays 4096 --check
 """
 from __future__ import annotations
 
@@ -51,24 +65,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def load_model(args):
-    """(cfg, PackedPlcore) for the flags: weights drawn from ``--seed``."""
+def model_config(args):
+    """The NeRF config for the flags."""
     cfg = NERF_FULL if args.full else nerf_tiny()
     if args.ert > 0.0:
         cfg = replace(cfg, ert_eps=args.ert)
     if args.fuse_two_pass and not args.kernel:
         raise SystemExit("--fuse-two-pass runs the whole chain in one kernel; "
                          "it requires --kernel")
-    gen = torch.Generator().manual_seed(args.seed)
+    return cfg
+
+
+def load_plcore(cfg, args, seed: int) -> PackedPlcore:
+    """A PackedPlcore for the flags, its weights drawn from a
+    ``torch.Generator`` seeded ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
     params = init_params(plcore_decls(cfg), gen, "float32")
     quant = None
     if args.rmcm:
         quant = {net: rmcm.quantize_tree(params[net])
                  for net in ("coarse", "fine")}
-    engine = PackedPlcore(cfg, params, quant=quant, use_kernel=args.kernel,
-                          fuse_two_pass=args.fuse_two_pass,
-                          device=args.device)
-    return cfg, engine
+    return PackedPlcore(cfg, params, quant=quant, use_kernel=args.kernel,
+                        fuse_two_pass=args.fuse_two_pass,
+                        device=args.device)
+
+
+def load_model(args):
+    """(cfg, PackedPlcore) for the flags: weights drawn from ``--seed``."""
+    cfg = model_config(args)
+    return cfg, load_plcore(cfg, args, args.seed)
 
 
 def serve_nerf(args) -> dict:
@@ -113,9 +138,151 @@ def serve_nerf(args) -> dict:
     return stats
 
 
+#: Pixel tolerance for a request that a tile's oracle rung touched: on
+#: the card the two-dispatch chain (K1 twice, resample on the host) agrees
+#: with K2 to the K1-vs-K2 tolerance, not bit for bit
+ORACLE_ATOL = 1e-3
+
+
+def run_engine(args):
+    """Serve the trace of ``--mode engine``: returns ``(report, engine,
+    trace, rerun)``. Request ids follow the trace order. ``rerun(depth)``
+    serves the same trace again on a clean engine at ``depth`` (no fault
+    plan, a fresh cache) and returns that engine."""
+    from repro_torch.serving import (FaultConfig, FaultPlan, RenderEngine,
+                                     SceneCache, loadgen)
+
+    cfg = model_config(args)
+    scene_ids = [f"scene{i}" for i in range(args.scenes)]
+
+    def load_scene(scene_id: str) -> PackedPlcore:
+        # one synthetic model per scene id: a distinct weight draw stands
+        # in for a distinct trained checkpoint
+        return load_plcore(cfg, args, args.seed + scene_ids.index(scene_id))
+
+    plan = (FaultPlan(FaultConfig.chaos(args.fault_seed))
+            if args.inject_faults else None)
+    prior_s = (None if args.service_prior_ms is None
+               else args.service_prior_ms / 1e3)
+
+    def make_engine(depth: int, chaos: bool) -> RenderEngine:
+        # reference reruns are clean: no fault plan (reusing this run's
+        # plan would continue its streams, not replay them) and a fresh
+        # cache with the unwrapped loader
+        loader = (plan.wrap_loader(load_scene) if chaos and plan is not None
+                  else load_scene)
+        return RenderEngine(SceneCache(loader, capacity_mb=args.cache_mb),
+                            tile_rays=args.tile_rays, pipeline_depth=depth,
+                            max_queue=args.max_queue,
+                            degrade_on_overload=args.degrade_on_overload,
+                            faults=plan if chaos else None,
+                            tile_service_prior_s=prior_s)
+
+    engine = make_engine(args.pipeline_depth, chaos=True)
+    deadline_choices = ((None,) if args.deadline_ms is None
+                        else (args.deadline_ms / 1e3,))
+    trace = loadgen.poisson_trace(
+        args.requests, scene_ids, rate_rps=args.rate,
+        hw_choices=tuple(int(h) for h in args.hw_mix.split(",")),
+        priorities=tuple(int(p) for p in args.priority_mix.split(",")),
+        deadline_choices=deadline_choices, seed=args.seed)
+    report = loadgen.run_trace(engine, trace, mode=args.loop,
+                               concurrency=args.concurrency)
+    dev = torch.device(args.device)
+    report = {"device": str(dev),
+              "device_name": (torch.cuda.get_device_name(dev)
+                              if dev.type == "cuda" else "cpu"),
+              "config": "full" if args.full else "tiny",
+              "scenes": args.scenes, "tile_rays": args.tile_rays,
+              "kernel": bool(args.kernel),
+              "fuse_two_pass": bool(args.fuse_two_pass),
+              "rmcm": bool(args.rmcm), "ert_eps": cfg.ert_eps,
+              "pipeline_depth": args.pipeline_depth,
+              "inject_faults": bool(args.inject_faults),
+              "deadline_ms": args.deadline_ms, **report}
+
+    def rerun(depth: int) -> RenderEngine:
+        ref = make_engine(depth, chaos=False)
+        loadgen.run_trace(ref, trace, mode=args.loop,
+                          concurrency=args.concurrency)
+        return ref
+    return report, engine, trace, rerun
+
+
+def compare_images(engine, ref, label: str) -> int:
+    """Hold every request that ended ``ok`` in both runs: bit for bit, or
+    within ``ORACLE_ATOL`` where the oracle rung rendered one of its tiles
+    in either run. Returns the count compared; raises ``SystemExit`` on a
+    difference or when nothing could be compared."""
+    n_cmp = 0
+    for rid, res in engine.completed.items():
+        other = ref.completed.get(rid)
+        if res.status != "ok" or other is None or other.status != "ok":
+            continue
+        n_cmp += 1
+        if res.fallbacks or other.fallbacks:
+            ok = np.allclose(res.image, other.image, rtol=0,
+                             atol=ORACLE_ATOL)
+        else:
+            ok = np.array_equal(res.image, other.image)
+        if not ok:
+            raise SystemExit(f"engine check: image for request {rid} "
+                             f"differs from the {label} reference render")
+    if n_cmp == 0:
+        raise SystemExit(f"engine check: no ok-status requests to compare "
+                         f"against the {label} reference")
+    return n_cmp
+
+
+def check_engine(args, report: dict, engine, rerun) -> dict:
+    """The ``--check`` gates of one host: every request completes, the
+    scene cache hits, coalescing issues no more dispatches than the
+    per-request baseline; under ``--inject-faults`` the plan injected
+    something, goodput is at least 0.75 and ok images equal a clean
+    rerun's; at depth >= 2 (closed loop) two tiles were in flight at once
+    and the images equal a depth-1 rerun's. Returns the counts compared."""
+    if report["requests_completed"] != args.requests:
+        raise SystemExit(f"engine check: {report['requests_completed']}"
+                         f"/{args.requests} requests completed")
+    if report["cache"]["hit_rate"] <= 0.0:
+        raise SystemExit("engine check: scene-cache hit rate is 0")
+    if report["dispatch_savings"] < 0:
+        raise SystemExit("engine check: coalescing issued MORE dispatches "
+                         "than the per-request baseline")
+    compared = {}
+    if args.inject_faults:
+        rb = report["robustness"]
+        if rb["faults_injected"]["total_injected"] < 1:
+            raise SystemExit("engine check: --inject-faults armed but the "
+                             "plan injected nothing")
+        if rb["goodput"] is None or rb["goodput"] < 0.75:
+            raise SystemExit(f"engine check: chaos goodput {rb['goodput']} "
+                             f"< 0.75")
+        compared["clean"] = compare_images(
+            engine, rerun(args.pipeline_depth), "clean (no-fault)")
+    if args.pipeline_depth > 1:
+        # occupancy is deterministic only in the clockless closed loop
+        if args.loop == "closed" and report["engine"]["max_in_flight"] < 2:
+            raise SystemExit(f"engine check: pipeline_depth "
+                             f"{args.pipeline_depth} never had 2 tiles in "
+                             f"flight")
+        compared["depth1"] = compare_images(engine, rerun(1),
+                                            "synchronous depth=1")
+    return compared
+
+
+def serve_engine(args) -> dict:
+    report, engine, _, rerun = run_engine(args)
+    print(json.dumps(report, indent=2))
+    if args.check:
+        report["check_compared"] = check_engine(args, report, engine, rerun)
+        print("engine check OK", json.dumps(report["check_compared"]))
+    return report
+
+
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=["nerf"], default="nerf")
+    ap.add_argument("--mode", choices=["nerf", "engine"], default="nerf")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scene", default="blobs", choices=sorted(R.SCENES))
@@ -134,11 +301,46 @@ def build_parser():
     ap.add_argument("--out", default=None,
                     help="directory for the PPMs (default runs/)")
     ap.add_argument("--device", default="cuda")
+    # --mode engine
+    ap.add_argument("--scenes", type=int, default=3,
+                    help="synthetic scenes behind the scene cache")
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--rate", type=float, default=50.0,
+                    help="open-loop Poisson arrival rate, requests/s")
+    ap.add_argument("--tile-rays", type=int, default=512,
+                    help="rays per coalesced tile (the dispatch shape)")
+    ap.add_argument("--cache-mb", type=float, default=256.0,
+                    help="scene-cache capacity in MB of resident tensors")
+    ap.add_argument("--loop", choices=["open", "closed"], default="open")
+    ap.add_argument("--concurrency", type=int, default=4,
+                    help="requests in flight in the closed loop")
+    ap.add_argument("--pipeline-depth", type=int, default=1,
+                    help="tiles in flight in the executor (1 = synchronous)")
+    ap.add_argument("--hw-mix", default="16,32",
+                    help="comma-separated request resolutions")
+    ap.add_argument("--priority-mix", default="0",
+                    help="comma-separated request priorities")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline (SLO admission + expiry)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded request queue (admission rejects beyond)")
+    ap.add_argument("--degrade-on-overload", action="store_true",
+                    help="coarse-only rendering for low-priority requests "
+                         "under backlog")
+    ap.add_argument("--inject-faults", action="store_true",
+                    help="arm the seeded chaos fault plan")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--service-prior-ms", type=float, default=None,
+                    help="per-tile service time assumed by admission "
+                         "control before the first tile drains")
+    ap.add_argument("--check", action="store_true",
+                    help="gate the engine run (see check_engine)")
     return ap
 
 
 def main(argv=None) -> dict:
-    return serve_nerf(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return serve_engine(args) if args.mode == "engine" else serve_nerf(args)
 
 
 if __name__ == "__main__":

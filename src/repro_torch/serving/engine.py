@@ -1,0 +1,943 @@
+"""Multi-tenant render engine: scheduler / executor / completion layers.
+
+ICARUS scales by putting a ray dispatcher in front of many PLCores; once
+the per-sample kernel is fused, the remaining throughput levers are
+scheduling and memory traffic. The engine is that dispatcher, in three
+layers:
+
+* ``TileScheduler`` — the policy layer. Owns the request queue
+  (``submit`` allocates a NaN-filled framebuffer: every pixel must arrive
+  via a tile scatter, so gaps or cross-request leaks surface as NaN),
+  picks the next scene by (priority, FIFO) with sticky-scene grouping, and
+  coalesces one fixed-shape tile of ``tile_rays`` rays across that scene's
+  pending requests, padding only the tail.
+* ``TileExecutor`` — the dispatch layer. Keeps up to ``pipeline_depth``
+  tiles in flight: ``PackedPlcore.dispatch_tile`` returns a handle whose
+  drain waits on that tile's own CUDA event, so the executor dispatches
+  tile k+1 and drains tile k-(depth-1) while the card computes the tiles
+  in between. ``pipeline_depth=1`` drains every dispatch at once: the
+  synchronous dispatch -> wait -> scatter loop. The executor pins each
+  tile's scene in the ``SceneCache`` for the life of the slot.
+* ``CompletionSink`` — the output layer. Scatters a drained tile's pixels
+  to each contributing request's framebuffer and completes requests OUT
+  OF ORDER as their last ray lands.
+
+``RenderEngine`` wires the three behind ``submit``/``step``/``drain``/
+``take``. Every per-ray operation depends only on its own ray, so the
+images are the same at any pipeline depth and tile partition.
+
+Fault tolerance
+---------------
+
+A loader exception, a NaN-poisoned tile or a straggling dispatch does not
+crash or corrupt the other requests: ``step()`` and ``drain()`` do not
+raise for those fault classes. Every submitted request reaches exactly ONE
+terminal status:
+
+* ``ok``       — every pixel delivered at full quality.
+* ``degraded`` — completed coarse-only under the overload-degradation
+  policy, flagged.
+* ``partial``  — deadline expired mid-render; delivered with the pixels
+  that landed (the rest stay NaN).
+* ``expired``  — deadline expired before the first ray was tiled.
+* ``rejected`` — refused: at admission (bounded queue full, or the
+  predicted queueing delay alone exceeds the deadline) or because its
+  scene's loader failed ``max_load_failures`` consecutive times.
+
+Recovery ladder for a failed tile (the dispatch raised, or the drained
+buffer is non-finite): up to ``max_tile_retries`` fresh dispatches with
+capped exponential backoff (a retry renders the same rays through the same
+resident weights, so its pixels are the same bits), then the two-dispatch
+oracle program (``PackedPlcore.render_tile_oracle``: K1 twice with the
+resample on the host, for a fused instance). On the card the oracle agrees
+with K2 to the K1-vs-K2 tolerance, not bit for bit. A ``StragglerMonitor``
+watches per-tile in-flight latency; a tile past the deadline factor is
+abandoned and redispatched. ``serving.faults.FaultPlan`` injects each
+fault class deterministically.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.data import rays as R
+from repro_torch.obs.metrics import MetricsRegistry, engine_stats_view
+from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving.faults import FaultPlan, InjectedDispatchError
+from repro_torch.serving.scene_cache import SceneCache, SceneLoadError
+
+#: Terminal request statuses (see module docstring).
+STATUSES = ("ok", "degraded", "partial", "expired", "rejected")
+
+
+@dataclass(frozen=True)
+class RenderRequest:
+    """One render-an-image request. The camera is a spherical orbit pose;
+    ``priority`` is higher-wins, ties FIFO. ``deadline_s`` (relative to
+    submit) arms SLO admission control and expiry; ``None`` never
+    expires."""
+    scene_id: str
+    hw: int = 64
+    theta: float = 45.0
+    phi: float = -25.0
+    radius: float = 4.0
+    priority: int = 0
+    deadline_s: Optional[float] = None
+
+
+@dataclass
+class RenderResult:
+    request_id: int
+    scene_id: str
+    image: np.ndarray            # (hw, hw, 3) float32
+    n_rays: int
+    submit_s: float              # engine-clock timestamps
+    service_start_s: float       # first ray handed to a tile
+    complete_s: float
+    dispatch_baseline: int       # tiles a request-at-a-time server pays
+    status: str = "ok"           # terminal status (STATUSES)
+    error: Optional[str] = None  # human-readable failure reason
+    retries: int = 0             # tile retry attempts touching this request
+    fallbacks: int = 0           # oracle-fallback tiles touching it
+
+    @property
+    def latency_s(self) -> float:
+        return self.complete_s - self.submit_s
+
+    @property
+    def queueing_s(self) -> float:
+        """Time in the queue before the first ray was handed to a tile."""
+        return self.service_start_s - self.submit_s
+
+    @property
+    def service_s(self) -> float:
+        """First-ray-dispatched -> last-pixel-scattered."""
+        return self.complete_s - self.service_start_s
+
+    @property
+    def delivered(self) -> bool:
+        """Whether the image carries fully rendered pixels (``ok`` /
+        ``degraded``): the goodput numerator."""
+        return self.status in ("ok", "degraded")
+
+
+class _Active:
+    """Queue entry: request + flattened rays + framebuffer + cursors."""
+    __slots__ = ("req", "rid", "seq", "rays_o", "rays_d", "fb",
+                 "next_ray", "n_done", "n_rays", "submit_s",
+                 "service_start_s", "deadline_abs", "terminal",
+                 "degraded", "retries", "fallbacks",
+                 "dispatches_at_submit", "trace_span")
+
+    def __init__(self, req: RenderRequest, rid: int, seq: int, now: float):
+        self.req, self.rid, self.seq, self.submit_s = req, rid, seq, now
+        c2w = R.pose_spherical(req.theta, req.phi, req.radius)
+        ro, rd = R.camera_rays(c2w, req.hw, req.hw, 0.9 * req.hw)
+        self.rays_o = ro.numpy().astype(np.float32).reshape(-1, 3)
+        self.rays_d = rd.numpy().astype(np.float32).reshape(-1, 3)
+        self.n_rays = self.rays_o.shape[0]
+        # NaN framebuffer: a pixel the scatter never wrote, or a padded
+        # tail ray leaking into a neighbor, cannot hide as black
+        self.fb = np.full((self.n_rays, 3), np.nan, np.float32)
+        self.next_ray = 0            # rays handed to tiles so far
+        self.n_done = 0              # rays scattered back so far
+        self.service_start_s = None  # set when the first ray is tiled
+        self.deadline_abs = (None if req.deadline_s is None
+                             else now + req.deadline_s)
+        self.terminal = False        # a terminal RenderResult exists
+        self.degraded = False        # overload policy: coarse-only tiles
+        self.retries = 0
+        self.fallbacks = 0
+        self.dispatches_at_submit = 0   # priority-aging anchor
+        self.trace_span = None          # open request-lifecycle span
+
+    @property
+    def remaining(self) -> int:
+        return self.n_rays - self.next_ray
+
+
+@dataclass
+class _Tile:
+    """One coalesced dispatch unit flowing scheduler -> executor ->
+    completion. ``spans`` records which request contributed which rays
+    (``(_Active, start, take)``), so completion can scatter out of order."""
+    scene_id: str
+    pp: object                  # resident PackedPlcore
+    spans: List[tuple]
+    rays_o: np.ndarray
+    rays_d: np.ndarray
+    n_real: int                 # non-pad rays
+    degraded: bool = False      # coarse-only program
+    tid: int = -1               # deterministic trace id
+
+
+# ---------------------------------------------------------------------------
+class TileScheduler:
+    """Layer 1 — policy. Queue, admission control, priority/sticky-scene
+    pick (with optional deterministic priority aging), overload
+    degradation, deadline expiry and tile coalescing. Produces ``_Tile``s
+    and never touches the device. A scene whose ``SceneCache.get`` raises
+    is skipped for the current tile, and its queued requests are
+    terminated once the cache reports ``max_load_failures`` consecutive
+    real failures."""
+
+    def __init__(self, cache: SceneCache, *, tile_rays: int,
+                 max_sticky_tiles: int, stats: dict, clock,
+                 max_queue: Optional[int] = None,
+                 aging_tiles: Optional[int] = None,
+                 degrade_on_overload: bool = False,
+                 degrade_queue_tiles: int = 8,
+                 degrade_max_priority: int = 0,
+                 max_load_failures: int = 3,
+                 tile_service_prior_s: Optional[float] = None,
+                 tracer=None):
+        self.cache = cache
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tile_rays = int(tile_rays)
+        # after this many consecutive tiles for one scene the best-ranked
+        # request wins even at equal priority: residency amortizes, but
+        # an early request for another scene is not starved forever
+        self.max_sticky_tiles = int(max_sticky_tiles)
+        self.stats = stats
+        self._clock = clock
+        self.max_queue = max_queue
+        self.aging_tiles = aging_tiles
+        self.degrade_on_overload = bool(degrade_on_overload)
+        self.degrade_queue_tiles = int(degrade_queue_tiles)
+        self.degrade_max_priority = int(degrade_max_priority)
+        self.max_load_failures = int(max_load_failures)
+        self.tile_service_prior_s = tile_service_prior_s
+        self.queue: List[_Active] = []
+        self._seq = 0
+        self._tile_seq = 0           # deterministic per-engine tile ids
+        self._current_scene: Optional[str] = None
+        self._sticky_run = 0         # consecutive tiles for current scene
+        self._deadlines_armed = False
+        self.completion: Optional["CompletionSink"] = None   # wired by engine
+        self.executor: Optional["TileExecutor"] = None       # wired by engine
+
+    # ------------------------------------------------------- admission ----
+    def _estimated_queueing_s(self) -> Optional[float]:
+        """Predicted wait until a NEW request's first ray is tiled: the
+        backlog ahead of it (queued tiles + in-flight slots) times the
+        observed per-tile service EWMA, or ``tile_service_prior_s`` before
+        any tile has drained; ``None`` (admit) with neither."""
+        ewma = (self.stats.get("tile_service_s_ewma")
+                or self.tile_service_prior_s)
+        if not ewma:
+            return None
+        backlog = -(-sum(a.remaining for a in self.queue) // self.tile_rays)
+        in_flight = self.executor.in_flight if self.executor else 0
+        return (backlog + in_flight) * ewma
+
+    def submit(self, req: RenderRequest) -> int:
+        """Enqueue a request; returns its request id. A request refused by
+        admission control still gets an id: its terminal ``rejected``
+        result is recorded at once, so every submit is answered once."""
+        if req.hw < 1:
+            raise ValueError(f"request resolution must be >= 1, got "
+                             f"hw={req.hw}")
+        rid = self._seq
+        self._seq += 1
+        a = _Active(req, rid, rid, self._clock())
+        a.dispatches_at_submit = self.stats["dispatches"]
+        tr = self.tracer
+        if tr.enabled and tr.sampled_request(rid):
+            a.trace_span = tr.begin("request", cat="request", request=rid,
+                                    scene=req.scene_id, hw=req.hw,
+                                    priority=req.priority)
+            tr.event("request.submit", cat="request", request=rid,
+                     scene=req.scene_id)
+        if req.deadline_s is not None:
+            self._deadlines_armed = True
+        reason = None
+        if (self.max_queue is not None
+                and len(self.queue) >= self.max_queue):
+            reason = (f"queue full ({len(self.queue)} >= "
+                      f"max_queue={self.max_queue})")
+        elif req.deadline_s is not None:
+            est = self._estimated_queueing_s()
+            if est is not None and est > req.deadline_s:
+                reason = (f"admission control: predicted queueing delay "
+                          f"{est:.4f}s exceeds deadline {req.deadline_s}s")
+        if reason is not None:
+            if a.trace_span is not None:
+                tr.event("request.reject", cat="request", request=rid,
+                         reason=reason)
+            self.completion.terminate(a, "rejected", error=reason)
+            return rid
+        if a.trace_span is not None:
+            tr.event("request.admit", cat="request", request=rid,
+                     queue_depth=len(self.queue))
+        self.queue.append(a)
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.queue_depth.set(len(self.queue))
+            m.queue_depth_hist.observe(len(self.queue))
+        self.stats["dispatch_baseline"] += -(-a.n_rays // self.tile_rays)
+        return rid
+
+    def remove(self, a: _Active) -> None:
+        self.queue.remove(a)
+
+    def expire(self, now: float) -> None:
+        """Terminate overdue requests: ``partial`` if any pixels landed,
+        ``expired`` otherwise. In-flight tiles of a terminated request
+        scatter harmlessly into the void (``late_rays``)."""
+        if not self._deadlines_armed:
+            return
+        for a in [a for a in self.queue
+                  if a.deadline_abs is not None and now >= a.deadline_abs]:
+            self.completion.terminate(
+                a, "partial" if a.n_done > 0 else "expired",
+                error=f"deadline {a.req.deadline_s}s exceeded")
+
+    # ----------------------------------------------------------- policy ----
+    def _eff_priority(self, a: _Active) -> int:
+        """Priority with deterministic aging: every ``aging_tiles`` engine
+        dispatches a request has waited, its effective priority rises by
+        one. Counted in dispatches, not seconds, so closed-loop decisions
+        stay clockless."""
+        if not self.aging_tiles:
+            return a.req.priority
+        waited = self.stats["dispatches"] - a.dispatches_at_submit
+        return a.req.priority + waited // self.aging_tiles
+
+    def _rank(self, a: _Active):
+        return (-self._eff_priority(a), a.seq)
+
+    def _schedulable(self) -> List[_Active]:
+        """Requests with rays left to hand out. Requests whose rays are
+        all in flight stay queued but do not influence the scene choice,
+        so any pipeline depth walks the same policy path."""
+        return [a for a in self.queue if a.remaining > 0]
+
+    def _pick_scene(self, cands: List[_Active]) -> str:
+        """Scene of the best-ranked schedulable request, but sticky to
+        the current scene while it has queued rays at the same top
+        priority; a strictly higher priority preempts, and
+        ``max_sticky_tiles`` bounds the stickiness."""
+        best = min(cands, key=self._rank)
+        if (self._current_scene is not None
+                and self._sticky_run < self.max_sticky_tiles):
+            mine = [self._eff_priority(a) for a in cands
+                    if a.req.scene_id == self._current_scene]
+            if mine and self._eff_priority(best) <= max(mine):
+                return self._current_scene
+        return best.req.scene_id
+
+    def _mark_degraded(self, cands: List[_Active]) -> None:
+        """Overload degradation: when the queued backlog exceeds
+        ``degrade_queue_tiles`` tiles, requests at or below
+        ``degrade_max_priority`` that have NOT started rendering switch
+        to the coarse-only program for their whole image, flagged in the
+        stats and in the terminal status (``degraded``)."""
+        if not self.degrade_on_overload:
+            return
+        backlog = -(-sum(a.remaining for a in cands) // self.tile_rays)
+        if backlog <= self.degrade_queue_tiles:
+            return
+        for a in cands:
+            if (not a.degraded and a.service_start_s is None
+                    and self._eff_priority(a) <= self.degrade_max_priority):
+                a.degraded = True
+                self.stats["degraded_requests"] += 1
+
+    def _note_load_failure(self, scene: str, err: SceneLoadError) -> None:
+        """Account one failed ``cache.get``; once the cache reports
+        ``max_load_failures`` consecutive real failures, terminate every
+        queued request for the scene (``partial`` if pixels landed, else
+        ``rejected``), so the loop always makes progress."""
+        key = "scene_load_fail_fasts" if err.fail_fast else "scene_load_errors"
+        self.stats[key] += 1
+        if (not err.fail_fast
+                and self.cache.consecutive_failures(scene)
+                >= self.max_load_failures):
+            for a in [a for a in self.queue if a.req.scene_id == scene]:
+                self.completion.terminate(
+                    a, "partial" if a.n_done > 0 else "rejected",
+                    error=f"scene load failed: {err}")
+
+    def _resolve_scene(self):
+        """The best loadable scene and its resident weights:
+        ``(scene_id, pp, cands)``, or ``None`` when no request has rays
+        left (or every candidate scene's loader is failing)."""
+        tried = set()
+        while True:
+            cands = [a for a in self._schedulable()
+                     if a.req.scene_id not in tried]
+            if not cands:
+                return None
+            self._mark_degraded(cands)
+            scene = self._pick_scene(cands)
+            try:
+                pp = self.cache.get(scene)
+            except SceneLoadError as e:
+                tried.add(scene)
+                self._note_load_failure(scene, e)
+                continue
+            return scene, pp, cands
+
+    def next_tile(self) -> Optional[_Tile]:
+        """Coalesce ONE tile from the best loadable scene's pending
+        requests in rank order; ``None`` when nothing is schedulable."""
+        t_coalesce0 = self._clock()
+        resolved = self._resolve_scene()
+        if resolved is None:
+            return None
+        scene, pp, cands = resolved
+        if scene != self._current_scene:
+            self.stats["scene_switches"] += 1
+            self._current_scene = scene
+            self._sticky_run = 0
+        self._sticky_run += 1
+
+        now = self._clock()
+        scene_cands = sorted((a for a in cands if a.req.scene_id == scene),
+                             key=self._rank)
+        # a tile is mode-pure: degraded (coarse-only) and full-quality
+        # rays cannot share a dispatch program
+        degraded = scene_cands[0].degraded
+        spans, chunks_o, chunks_d, n = [], [], [], 0
+        for a in scene_cands:
+            if a.degraded != degraded:
+                continue
+            take = min(a.remaining, self.tile_rays - n)
+            if take <= 0:
+                continue
+            if a.service_start_s is None:
+                a.service_start_s = now
+            spans.append((a, a.next_ray, take))
+            chunks_o.append(a.rays_o[a.next_ray:a.next_ray + take])
+            chunks_d.append(a.rays_d[a.next_ray:a.next_ray + take])
+            a.next_ray += take
+            n += take
+            if n == self.tile_rays:
+                break
+        pad = self.tile_rays - n
+        if pad:                       # tail tile: repeat the last real ray
+            chunks_o.append(np.repeat(chunks_o[-1][-1:], pad, axis=0))
+            chunks_d.append(np.repeat(chunks_d[-1][-1:], pad, axis=0))
+            self.stats["padded_rays"] += pad
+        tid = self._tile_seq
+        self._tile_seq += 1
+        tile = _Tile(scene, pp, spans, np.concatenate(chunks_o),
+                     np.concatenate(chunks_d), n, degraded=degraded,
+                     tid=tid)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("tile.coalesce", t_coalesce0, cat="tile", tile=tid,
+                        scene=scene, rays=n, pad=pad, requests=len(spans),
+                        degraded=degraded)
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.coalesce_seconds.observe(self._clock() - t_coalesce0)
+        return tile
+
+
+# ---------------------------------------------------------------------------
+class TileExecutor:
+    """Layer 2 — dispatch. A ring of up to ``depth`` in-flight tile
+    slots: ``dispatch`` enqueues the tile on the card and returns without
+    waiting; the oldest slot is drained (its event waited on, its pixels
+    handed to completion) only when the ring is full or at an explicit
+    flush. ``depth=1`` drains every dispatch at once.
+
+    A dispatch that RAISES, or a drained buffer with non-finite real rays,
+    enters the synchronous retry ladder: up to ``max_tile_retries`` fresh
+    dispatches with capped exponential backoff, then the oracle program,
+    so ``dispatch``/``drain_one`` do not raise for these fault classes.
+    The optional ``StragglerMonitor`` abandons and redispatches tiles past
+    its deadline factor. A ``FaultPlan`` injects failures at exactly these
+    boundaries; the ladder's oracle is never wrapped."""
+
+    def __init__(self, completion: "CompletionSink", cache: SceneCache,
+                 stats: dict, depth: int = 1, *,
+                 faults: Optional[FaultPlan] = None,
+                 straggler=None, max_tile_retries: int = 2,
+                 retry_backoff_s: float = 0.0,
+                 max_retry_backoff_s: float = 0.05,
+                 check_finite: bool = True, clock=time.perf_counter,
+                 sleep=time.sleep, tracer=None):
+        if depth < 1:
+            raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+        self.completion = completion
+        self.cache = cache
+        self.stats = stats
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.depth = int(depth)
+        self.faults = faults
+        self.straggler = straggler
+        self.max_tile_retries = int(max_tile_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.max_retry_backoff_s = float(max_retry_backoff_s)
+        self.check_finite = bool(check_finite)
+        self._clock = clock
+        self._sleep = sleep
+        self._slots: deque = deque()    # (tile, handle, t0, extra_s, span)
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._slots)
+
+    # ------------------------------------------------------- internals ----
+    def _attempt(self, tile: _Tile, allow_straggle: bool = True):
+        """ONE dispatch attempt through the fault plan. Returns
+        ``(handle, gather_cost, injected_extra_latency_s)``; raises on an
+        injected or real dispatch failure."""
+        fault = (self.faults.draw_dispatch(allow_straggle=allow_straggle)
+                 if self.faults is not None else None)
+        if fault is not None and fault["kind"] == "dispatch_error":
+            raise InjectedDispatchError(
+                f"injected dispatch failure (tile scene={tile.scene_id})")
+        handle, cost = tile.pp.dispatch_tile(tile.rays_o, tile.rays_d,
+                                             coarse_only=tile.degraded)
+        extra = (fault["extra_s"]
+                 if fault is not None and fault["kind"] == "straggle"
+                 else 0.0)
+        return handle, cost, extra
+
+    def _is_finite(self, arr: np.ndarray, tile: _Tile) -> bool:
+        """Real (non-pad) rays must be finite; checked when
+        ``check_finite`` is on (the default) or faults are injected."""
+        if not self.check_finite and self.faults is None:
+            return True
+        return bool(np.isfinite(arr[:tile.n_real]).all())
+
+    def _bump_retries(self, tile: _Tile) -> None:
+        for a, _, _ in tile.spans:
+            if not a.terminal:
+                a.retries += 1
+
+    def _resolve_sync(self, tile: _Tile):
+        """The synchronous retry ladder for a tile whose primary dispatch
+        failed or drained corrupt: up to ``max_tile_retries`` fresh
+        dispatches (each a new fault-plan event, with capped exponential
+        backoff between them), then the oracle program, which the fault
+        plan never touches. Returns ``(finite rgb ndarray, gather_cost)``."""
+        st = self.stats
+        tr = self.tracer
+        for attempt in range(self.max_tile_retries):
+            st["tile_retries"] += 1
+            self._bump_retries(tile)
+            if tr.enabled:
+                tr.event("tile.retry", cat="tile", tile=tile.tid,
+                         attempt=attempt + 1)
+            if self.retry_backoff_s > 0.0:
+                self._sleep(min(self.retry_backoff_s * (2 ** attempt),
+                                self.max_retry_backoff_s))
+            try:
+                handle, cost, _ = self._attempt(tile, allow_straggle=False)
+            except Exception:
+                # a boundary that must keep serving: any failed attempt
+                # is counted and the ladder moves on to the next rung
+                st["dispatch_errors"] += 1
+                continue
+            arr = handle.result()
+            if self.faults is not None:
+                bad = self.faults.corrupt_tile(arr)
+                if bad is not None:
+                    arr = bad
+            if self._is_finite(arr, tile):
+                return arr, cost
+            st["corrupt_tiles"] += 1
+        st["oracle_fallbacks"] += 1
+        if tr.enabled:
+            tr.event("tile.fallback", cat="tile", tile=tile.tid)
+        for a, _, _ in tile.spans:
+            if not a.terminal:
+                a.fallbacks += 1
+        pp = tile.pp
+        rgb = (pp.render_tile(tile.rays_o, tile.rays_d, coarse_only=True)
+               if tile.degraded
+               else pp.render_tile_oracle(tile.rays_o, tile.rays_d))
+        return rgb.cpu().numpy(), pp.tile_gather_cost()
+
+    def _account(self, tile: _Tile, cost: dict) -> None:
+        st = self.stats
+        st["dispatches"] += 1
+        st["rays_rendered"] += tile.n_real
+        st["plcore_gather_count"] += cost["layers"]
+        st["plcore_gather_bytes"] += cost["bytes"]
+        if tile.degraded:
+            st["degraded_tiles"] += 1
+
+    def _update_service_ewma(self, dt: float) -> None:
+        prev = self.stats.get("tile_service_s_ewma")
+        self.stats["tile_service_s_ewma"] = (
+            dt if not prev else 0.7 * prev + 0.3 * dt)
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.service_seconds.observe(dt)
+
+    # ----------------------------------------------------------- public ----
+    def dispatch(self, tile: _Tile) -> None:
+        """Issue one tile (without waiting), pin its scene for the life of
+        the slot, account it, then drain down to ``depth - 1`` slots so at
+        most ``depth`` tiles are ever enqueued. A dispatch-time failure is
+        resolved synchronously through the retry ladder and never occupies
+        a slot."""
+        self.cache.pin(tile.scene_id)
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("tile.dispatch", cat="tile", tile=tile.tid,
+                     scene=tile.scene_id, slot=len(self._slots),
+                     degraded=tile.degraded)
+        try:
+            handle, cost, extra = self._attempt(tile)
+        except Exception as e:
+            # the dispatch boundary keeps serving: the failure is counted
+            # and the tile goes down the retry ladder
+            self.stats["dispatch_errors"] += 1
+            if tr.enabled:
+                tr.event("tile.dispatch_error", cat="tile", tile=tile.tid,
+                         error=str(e)[:120])
+            arr, cost = self._resolve_sync(tile)
+            self._account(tile, cost)
+            self.completion.scatter(tile, arr)
+            self.cache.unpin(tile.scene_id)
+            return
+        sp = (tr.begin("tile.device_compute", cat="tile", tile=tile.tid,
+                       slot=len(self._slots))
+              if tr.enabled else None)
+        self._slots.append((tile, handle, self._clock(), extra, sp))
+        self._account(tile, cost)
+        self.stats["max_in_flight"] = max(self.stats["max_in_flight"],
+                                          len(self._slots))
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.in_flight_tiles.set(len(self._slots))
+        while len(self._slots) >= self.depth:
+            self.drain_one()
+
+    def drain_one(self) -> bool:
+        """Materialize the OLDEST in-flight tile (the only wait in the
+        loop), recover it if it drained corrupt or straggled, scatter it
+        and release its scene pin. Does not raise for handled faults."""
+        if not self._slots:
+            return False
+        self._finish_slot(*self._slots.popleft())
+        return True
+
+    def _finish_slot(self, tile, handle, t0, extra, sp) -> None:
+        arr = handle.result()
+        tr = self.tracer
+        tr.end(sp)
+        if tr.enabled:
+            tr.event("tile.drain", cat="tile", tile=tile.tid)
+        if self.faults is not None:
+            bad = self.faults.corrupt_tile(arr)
+            if bad is not None:
+                arr = bad
+        redispatched = False
+        if self.straggler is not None:
+            # the in-flight latency includes any injected straggle; past
+            # the monitor's deadline the slow result is abandoned and the
+            # tile redispatched instead of paying the stall
+            verdict = self.straggler.record_step(
+                self._clock() - t0 + extra)
+            if verdict["deadline_exceeded"]:
+                self.stats["straggler_redispatches"] += 1
+                if tr.enabled:
+                    tr.event("tile.straggler_redispatch", cat="tile",
+                             tile=tile.tid)
+                arr, _ = self._resolve_sync(tile)
+                redispatched = True
+            elif extra > 0.0:
+                self._sleep(extra)    # the monitor missed it: pay the stall
+                self.stats["straggle_wait_s"] += extra
+        elif extra > 0.0:
+            self._sleep(extra)
+            self.stats["straggle_wait_s"] += extra
+        if not redispatched and not self._is_finite(arr, tile):
+            self.stats["corrupt_tiles"] += 1
+            if tr.enabled:
+                tr.event("tile.corrupt", cat="tile", tile=tile.tid)
+            arr, _ = self._resolve_sync(tile)
+        dt = self._clock() - t0
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.inflight_seconds.observe(dt)
+            m.in_flight_tiles.set(len(self._slots))
+        self._update_service_ewma(dt)
+        self.completion.scatter(tile, arr)
+        self.cache.unpin(tile.scene_id)
+
+
+# ---------------------------------------------------------------------------
+class CompletionSink:
+    """Layer 3 — output. Scatters drained tiles to per-request
+    framebuffers and completes requests out of order as their last ray
+    lands, and owns TERMINATION: every request ends here exactly once."""
+
+    def __init__(self, scheduler: TileScheduler, stats: dict, clock,
+                 check_finite: bool = True, tracer=None):
+        self.scheduler = scheduler
+        self.stats = stats
+        self._clock = clock
+        self.check_finite = bool(check_finite)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.completed: Dict[int, RenderResult] = {}
+        self.completion_order: List[int] = []
+
+    def scatter(self, tile: _Tile, rgb: np.ndarray) -> None:
+        t0 = self._clock()
+        off = 0
+        late = 0
+        for a, start, take in tile.spans:
+            if a.terminal:
+                # the request already reached a terminal status (expired
+                # or rejected mid-flight): its late pixels drop
+                self.stats["late_rays"] += take
+                late += take
+                off += take
+                continue
+            a.fb[start:start + take] = rgb[off:off + take]
+            a.n_done += take
+            off += take
+            if a.n_done == a.n_rays:
+                self._complete(a)
+        tr = self.tracer
+        if tr.enabled:
+            tr.complete("tile.scatter", t0, cat="tile", tile=tile.tid,
+                        scene=tile.scene_id, late=late)
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.scatter_seconds.observe(self._clock() - t0)
+
+    def _finish(self, a: _Active, status: str,
+                error: Optional[str] = None) -> None:
+        a.terminal = True
+        if a in self.scheduler.queue:
+            self.scheduler.remove(a)
+        hw = a.req.hw
+        res = RenderResult(
+            request_id=a.rid, scene_id=a.req.scene_id,
+            image=a.fb.reshape(hw, hw, 3), n_rays=a.n_rays,
+            submit_s=a.submit_s,
+            service_start_s=(a.submit_s if a.service_start_s is None
+                             else a.service_start_s),
+            complete_s=self._clock(),
+            dispatch_baseline=-(-a.n_rays // self.scheduler.tile_rays),
+            status=status, error=error, retries=a.retries,
+            fallbacks=a.fallbacks)
+        self.completed[a.rid] = res
+        self.completion_order.append(a.rid)
+        self.stats["requests_completed"] += 1
+        counts = self.stats["status_counts"]
+        counts[status] = counts.get(status, 0) + 1
+        sp = a.trace_span
+        if sp is not None:
+            a.trace_span = None
+            tr = self.tracer
+            tr.event("request.complete", cat="request", request=a.rid,
+                     status=status)
+            tr.end(sp, status=status)
+        m = getattr(self.stats, "m", None)
+        if m is not None:
+            m.queue_depth.set(len(self.scheduler.queue))
+            if res.delivered:
+                m.request_latency_seconds.observe(res.latency_s)
+
+    def _complete(self, a: _Active) -> None:
+        if self.check_finite and not np.isfinite(a.fb).all():
+            # a fully scattered framebuffer with a non-finite pixel: the
+            # recovery ladder guarantees finite tiles, so this is an
+            # engine invariant violation (a scatter gap or a leaked
+            # sentinel), not a handled fault: raise, do not ship it
+            bad = int((~np.isfinite(a.fb)).any(axis=-1).sum())
+            raise RuntimeError(
+                f"delivered framebuffer for request {a.rid} "
+                f"(scene {a.req.scene_id!r}) has {bad} non-finite pixels "
+                f"— NaN scatter sentinel not fully overwritten")
+        self._finish(a, "degraded" if a.degraded else "ok")
+
+    def terminate(self, a: _Active, status: str,
+                  error: Optional[str] = None) -> None:
+        """Force a request to a terminal status (expiry, rejection, dead
+        scene). Idempotent: the first terminal status wins."""
+        if a.terminal:
+            return
+        self._finish(a, status, error)
+
+
+# ---------------------------------------------------------------------------
+class RenderEngine:
+    """Continuous-batching serving loop over a ``SceneCache``: the
+    scheduler/executor/completion stack behind one facade.
+
+    ``tile_rays`` is the fixed dispatch shape: every tile that reaches the
+    card has exactly this many rays, and only a tail tile carries padding.
+    ``pipeline_depth`` bounds the executor's in-flight slots (1 =
+    synchronous; >= 2 overlaps host coalescing and scatter with the card's
+    work).
+
+    Fault-tolerance knobs (all default to the fault-free behavior):
+    ``max_queue`` bounds the request queue; requests with a ``deadline_s``
+    get SLO admission control and expiry; ``aging_tiles`` arms
+    deterministic priority aging; ``degrade_on_overload`` arms coarse-only
+    rendering for low-priority requests under backlog;
+    ``max_tile_retries``/``retry_backoff_s`` shape the retry ladder;
+    ``faults`` injects a seeded ``FaultPlan``; ``straggler_mitigation``
+    wires the ``runtime.straggler`` monitor into the executor (default: on
+    exactly when faults are injected); ``check_finite`` asserts delivered
+    framebuffers are finite; ``tile_service_prior_s`` seeds the admission
+    estimate before any tile has drained."""
+
+    def __init__(self, cache: SceneCache, *, tile_rays: int = 512,
+                 max_sticky_tiles: int = 64, clock=time.perf_counter,
+                 pipeline_depth: int = 1,
+                 max_queue: Optional[int] = None,
+                 aging_tiles: Optional[int] = None,
+                 degrade_on_overload: bool = False,
+                 degrade_queue_tiles: int = 8,
+                 degrade_max_priority: int = 0,
+                 max_load_failures: int = 3,
+                 max_tile_retries: int = 2,
+                 retry_backoff_s: float = 0.0,
+                 faults: Optional[FaultPlan] = None,
+                 straggler_mitigation: Optional[bool] = None,
+                 straggler_cfg=None,
+                 check_finite: bool = True,
+                 tile_service_prior_s: Optional[float] = None,
+                 tracer=None, registry=None):
+        self.cache = cache
+        self.faults = faults
+        self._clock = clock
+        # a per-engine registry backs the stats dict; the tracer records
+        # the request/tile lifecycle (NULL_TRACER no-ops when off)
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.stats = engine_stats_view(self.registry)
+        cache.tracer = self.tracer
+        self.scheduler = TileScheduler(
+            cache, tile_rays=tile_rays, max_sticky_tiles=max_sticky_tiles,
+            stats=self.stats, clock=clock, max_queue=max_queue,
+            aging_tiles=aging_tiles,
+            degrade_on_overload=degrade_on_overload,
+            degrade_queue_tiles=degrade_queue_tiles,
+            degrade_max_priority=degrade_max_priority,
+            max_load_failures=max_load_failures,
+            tile_service_prior_s=tile_service_prior_s, tracer=self.tracer)
+        self.completion = CompletionSink(self.scheduler, self.stats, clock,
+                                         check_finite=check_finite,
+                                         tracer=self.tracer)
+        if straggler_mitigation is None:
+            straggler_mitigation = faults is not None
+        monitor = None
+        if straggler_mitigation:
+            from repro_torch.runtime.straggler import (StragglerConfig,
+                                                       StragglerMonitor)
+            monitor = StragglerMonitor(
+                straggler_cfg if straggler_cfg is not None
+                else StragglerConfig(warmup_steps=2, deadline_factor=4.0,
+                                     ewma_alpha=0.2))
+        self.executor = TileExecutor(
+            self.completion, cache, self.stats, depth=pipeline_depth,
+            faults=faults, straggler=monitor,
+            max_tile_retries=max_tile_retries,
+            retry_backoff_s=retry_backoff_s,
+            check_finite=check_finite, clock=clock, tracer=self.tracer)
+        # admission control needs the in-flight count; termination needs
+        # the sink
+        self.scheduler.completion = self.completion
+        self.scheduler.executor = self.executor
+
+    # ------------------------------------------------------------ queue ----
+    @property
+    def tile_rays(self) -> int:
+        return self.scheduler.tile_rays
+
+    @property
+    def pipeline_depth(self) -> int:
+        return self.executor.depth
+
+    @property
+    def pending(self) -> int:
+        """Requests not yet completed (queued, partly tiled, or fully in
+        flight awaiting their scatter)."""
+        return len(self.scheduler.queue)
+
+    @property
+    def pending_rays(self) -> int:
+        return sum(a.remaining for a in self.scheduler.queue)
+
+    @property
+    def in_flight_tiles(self) -> int:
+        return self.executor.in_flight
+
+    @property
+    def completed(self) -> Dict[int, RenderResult]:
+        return self.completion.completed
+
+    @property
+    def completion_order(self) -> List[int]:
+        return self.completion.completion_order
+
+    def submit(self, req: RenderRequest) -> int:
+        """Enqueue a request; returns its request id. Admission control
+        may terminate it at once (status ``rejected``): the result is
+        then already in ``completed``."""
+        return self.scheduler.submit(req)
+
+    # ------------------------------------------------------------- loop ----
+    def step(self) -> bool:
+        """One engine iteration: expire overdue requests, then coalesce
+        and dispatch the next tile if any request has rays to hand out,
+        else drain one in-flight slot. Returns False only when idle (no
+        schedulable rays AND nothing in flight). Does not raise for
+        handled fault classes."""
+        self.scheduler.expire(self._clock())
+        tile = self.scheduler.next_tile()
+        if tile is not None:
+            self.executor.dispatch(tile)
+            return True
+        if self.executor.in_flight:
+            self.executor.drain_one()
+            return True
+        return False
+
+    def take(self, request_id: int) -> RenderResult:
+        """Pop a completed result, releasing its framebuffer."""
+        return self.completion.completed.pop(request_id)
+
+    def drain(self, max_steps: Optional[int] = None) -> int:
+        """Run until idle: queue empty AND every in-flight slot flushed
+        (or ``max_steps``); returns the steps taken."""
+        steps = 0
+        while ((self.scheduler.queue or self.executor.in_flight)
+               and (max_steps is None or steps < max_steps)):
+            self.step()
+            steps += 1
+        return steps
+
+    # ------------------------------------------------------- reporting ----
+    def robustness(self) -> dict:
+        """The fault accounting: per-status terminal counts, goodput
+        (delivered ok or degraded / all terminal), the retry/fallback
+        ladder counters and, with a ``FaultPlan``, what it injected."""
+        st = self.stats
+        counts = dict(st["status_counts"])
+        n = sum(counts.values())
+        good = counts.get("ok", 0) + counts.get("degraded", 0)
+        out = {
+            "status_counts": counts,
+            "goodput": round(good / n, 4) if n else None,
+            "tile_retries": st["tile_retries"],
+            "oracle_fallbacks": st["oracle_fallbacks"],
+            "corrupt_tiles": st["corrupt_tiles"],
+            "dispatch_errors": st["dispatch_errors"],
+            "scene_load_errors": st["scene_load_errors"],
+            "scene_load_fail_fasts": st["scene_load_fail_fasts"],
+            "straggler_redispatches": st["straggler_redispatches"],
+            "degraded_requests": st["degraded_requests"],
+            "late_rays": st["late_rays"],
+        }
+        if self.faults is not None:
+            out["faults_injected"] = self.faults.summary()
+        return out

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.nerf_icarus import tiny as jax_tiny
+from repro.configs.nerf_icarus import NerfConfig, tiny as jax_tiny
 from repro.core import encoding as je, mlp as jm, rmcm as jr
 from repro.core import sampling as js, volume as jv
 from repro.models.params import init_params
@@ -121,3 +121,16 @@ def test_stratified_and_deltas_match_reference():
     tj = sampling.stratified(2.0, 6.0, 16, (5,), g)
     assert bool((tj.diff(dim=-1) >= 0).all())
     assert bool(((tj >= 2.0) & (tj <= 6.0)).all())
+
+
+@pytest.mark.parametrize("n", [16, 64, 128, 192])
+def test_sample_grids_equal_reference_bit_for_bit(n):
+    """``det_u`` and the coarse bin midpoints at the full config's near/far
+    equal the reference's float32 values exactly (``torch.linspace``
+    rounds some points differently)."""
+    np.testing.assert_array_equal(sampling.det_u(n).numpy(),
+                                  np.asarray(js.det_u(n)))
+    near, far = NerfConfig().near, NerfConfig().far
+    np.testing.assert_array_equal(
+        sampling.stratified(near, far, n, (1,)).numpy(),
+        np.asarray(js.stratified(near, far, n, (1,), None)))

@@ -142,10 +142,8 @@ def test_k2_sample_rows_built_once_and_match_reference():
     np.testing.assert_array_equal(
         t_row.numpy(), np.asarray(js.stratified(jc.near, jc.far, jc.n_coarse,
                                                 (1,), None)))
-    # torch.linspace and jnp.linspace round some points differently: at
-    # most one float32 ulp below 1.0
-    np.testing.assert_allclose(u_row.numpy(), np.asarray(js.det_u(jc.n_fine)),
-                               rtol=0, atol=2.0 ** -24)
+    np.testing.assert_array_equal(u_row.numpy(),
+                                  np.asarray(js.det_u(jc.n_fine)))
 
 
 def test_dispatch_count_ticks_once_per_fused_call(nets):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions on the card.
+"""The port's CUDA kernels (K1, K2, K3) against their plain versions on
+the card.
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with a card and no JAX (``--noconftest`` skips the suite's JAX-based
@@ -17,6 +18,7 @@ from repro_torch import bridge
 from repro_torch.configs.nerf_icarus import CONFIG
 from repro_torch.core import plcore, rmcm, sampling
 from repro_torch.kernels import fused_plcore, ops, ref
+from repro_torch.kernels import rmcm_matmul as k3
 from repro_torch.models.params import init_params as torch_init
 
 # 67 rays in tiles of 4: every block walks several rays and the last tile
@@ -93,3 +95,37 @@ def test_kernels_match_plain_versions_on_card():
         torch.cuda.synchronize()
         for a, b in zip(k, p):
             torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (7, 13, 5), (128, 256, 128),
+                                   (64, 300, 96), (33, 512, 65),
+                                   (512, 256, 256), (16, 1536, 896)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmcm_matmul_matches_plain_version_on_card(m, k, n, dtype):
+    """K3 against its plain version on the same CUDA tensors, at the
+    reference test's tolerances (f32 2e-4/1e-4, bf16 0.3/0.05): ragged
+    M, N and K, a trunk-layer and a decode-shaped product, and the entry
+    point with leading dims and the reference's block sizes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(m * 7919 + k * 31 + n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    packed = bridge.to_device(rmcm.pack(rmcm.quantize(w)), dev)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, dt)
+    atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (0.3, 0.05)
+    n0 = k3.LAUNCHES["rmcm_matmul"]
+    got = k3.rmcm_matmul(x, packed)
+    want = ref.rmcm_matmul_ref(x, packed)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["rmcm_matmul"] == n0 + 1
+    assert got.dtype == dt and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    y = ops.rmcm_matmul(x.reshape(1, m, k), packed, bm=8, bn=16, bk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(y.reshape(m, n), got)

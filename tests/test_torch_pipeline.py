@@ -85,9 +85,9 @@ def test_tiles_equal_image_bit_for_bit_and_pack_once(model):
     img = m.render_image(ro, rd, rays_per_batch=RPB).reshape(-1, 3)
     flat_o, flat_d = ro.reshape(-1, 3), rd.reshape(-1, 3)
     for s in range(0, HW * HW, RPB):
-        rgb, cost = m.dispatch_tile(flat_o[s:s + RPB], flat_d[s:s + RPB])
-        assert cost == {"layers": 0, "bytes": 0}
-        assert torch.equal(rgb, img[s:s + RPB])
+        handle, cost = m.dispatch_tile(flat_o[s:s + RPB], flat_d[s:s + RPB])
+        assert cost == {"layers": 0, "bytes": 0} == m.tile_gather_cost()
+        assert torch.equal(torch.from_numpy(handle.result()), img[s:s + RPB])
     m.render_tile(flat_o[:RPB], flat_d[:RPB], coarse_only=True)
     m.render_tile_oracle(flat_o[:RPB], flat_d[:RPB])
     assert ops.pack_count() == packs

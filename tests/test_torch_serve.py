@@ -1,5 +1,7 @@
-"""The port's serve CLI, ``--mode nerf``, on the CPU at tiny size."""
+"""The port's serve CLI, ``--mode nerf`` and ``--mode engine``, on the CPU
+at tiny size."""
 import numpy as np
+import pytest
 
 from repro_torch.launch import serve
 
@@ -22,3 +24,44 @@ def test_serve_views_through_fused_path(tmp_path):
         img = _read_ppm(v["image"])
         assert img.shape == (12, 12, 3)
         assert img.std() > 0 and v["finite"]
+
+
+def _engine_argv(*extra):
+    return ["--mode", "engine", "--device", "cpu", "--kernel",
+            "--fuse-two-pass", "--scenes", "3", "--requests", "8",
+            "--hw-mix", "8,12", "--loop", "closed", "--concurrency", "4",
+            "--pipeline-depth", "2", "--tile-rays", "64", "--check", *extra]
+
+
+def test_serve_engine_check_clean():
+    rep = serve.main(_engine_argv())
+    assert rep["device"] == "cpu" and rep["pipeline_depth"] == 2
+    assert rep["requests_completed"] == rep["requests_delivered"] == 8
+    assert rep["engine"]["max_in_flight"] == 2
+    rb = rep["robustness"]
+    assert rb["dispatch_errors"] == rb["tile_retries"] == 0
+    assert rb["oracle_fallbacks"] == 0
+    assert rep["check_compared"] == {"depth1": 8}
+
+
+def test_serve_engine_check_under_chaos():
+    """Every recovery that a tile's result or a scene load triggered traces
+    back to an injected fault, and the check held the ok images against a
+    clean rerun and a depth-1 rerun. Straggler redispatches are not held
+    to the injected straggles: the monitor times tiles on the wall clock,
+    so a tile slowed by a loaded host is redispatched too."""
+    rep = serve.main(_engine_argv("--inject-faults", "--requests", "12"))
+    rb = rep["robustness"]
+    inj = rb["faults_injected"]["injected"]
+    assert rb["faults_injected"]["total_injected"] > 0
+    assert rb["goodput"] >= 0.75
+    assert rb["dispatch_errors"] == inj["dispatch_error"]
+    assert rb["corrupt_tiles"] <= inj["corrupt"]
+    assert rb["scene_load_errors"] == inj["loader_error"]
+    assert set(rep["check_compared"]) == {"clean", "depth1"}
+
+
+def test_serve_engine_check_fails_when_pipelining_never_engages():
+    with pytest.raises(SystemExit, match="never had 2 tiles"):
+        serve.main(_engine_argv("--concurrency", "1", "--requests", "2",
+                                "--hw-mix", "8"))

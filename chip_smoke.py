@@ -11,21 +11,29 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and leave a ragged last tile. K1 (``fused_plcore_call``) at N=64 and
    N=192, f32 and RMCM, with an alive mask; K2 (``two_pass_plcore_call``)
    f32, RMCM, ERT at 0.01 and at an eps where some rays terminate and
-   some do not, and an alive mask. Tolerances: rgb/acc/weights 1e-3,
-   depth 1e-2, 5e-3 with RMCM, ERT or a mask. K1 at N=192 and K2 in f32,
-   unmasked, are timed with CUDA events, their timed outputs checked, beside
-   the least time the card could take (fp32 operations over SMs x 128
-   FMA/clk x 2 x max SM clock, or bytes over 3.35 TB/s, whichever is
-   larger).
+   some do not (the threshold midway between two neighbouring coarse acc
+   values), and an alive mask. Tolerances: rgb/acc/weights 1e-3, depth
+   1e-2, 5e-3 with RMCM, ERT or a mask. K1 at N=192 in f32 and K2 in f32
+   and in RMCM, unmasked, are timed with CUDA events, their timed outputs
+   checked, beside the least time the card could take: the larger of the
+   bytes over 3.35 TB/s and the operations over the peak of the tensor
+   cores that the route uses (3xTF32: three TF32 products; bf16x3: three
+   bf16 products; SMs x 2048 or 4096 FLOP/clk x max SM clock), the exact
+   heads at the fp32 peak (SMs x 128 FMA/clk x 2 x max SM clock); the
+   fp32-core bound (every operation at the fp32 peak) is printed beside it.
 3. K3 (``rmcm_matmul``) against its plain version at the NeRF trunk layer
    of one 512-ray tile's fine pass (131072 x 256 x 256), a decode-sized
-   product at qwen2-1.5b's MLP width (16 x 1536 x 8960) and a ragged
-   (33 x 512 x 65), f32 inputs at atol 2e-4 / rtol 1e-4 and bf16 inputs at
-   atol 0.3 / rtol 0.05 (the reference test's tolerances). The first two
-   are timed in f32 (cycling through weight copies that exceed the L2
-   cache) beside their bound and one ``torch.matmul`` on the dequantized
-   f32 weight (TF32 off; the dequantization is not counted in it). Then
-   its entry point ``ops.rmcm_matmul`` with leading dims, counted alone.
+   product at qwen2-1.5b's MLP width (16 x 1536 x 8960), the rows around
+   its route switch at the trunk width (M = 63, 64, 65 x 256 x 256) and a
+   ragged (33 x 512 x 65), f32 inputs at atol 2e-4 / rtol 1e-4 and bf16
+   inputs at atol 0.3 / rtol 0.05 (the reference test's tolerances); each
+   call is repeated
+   and must give the same bits, and takes the route its M names. All but
+   the ragged shape are timed in f32 and bf16 (cycling through weight
+   copies that exceed the L2 cache) beside their bounds and one
+   ``torch.matmul`` on the dequantized weight in x's type (TF32 off; the
+   dequantization is not counted in it). Then its entry point
+   ``ops.rmcm_matmul`` with leading dims, counted alone.
 4. The main path through the serve entry point: full config,
    ``--kernel --fuse-two-pass``, 3 views at 128x128, then one view with
    ``--rmcm --ert 0.01``. Launch counters are zeroed just before and read
@@ -83,6 +91,7 @@ DEV = torch.device("cuda")
 HW = 128
 PLAIN_RT = 1024          # rays per tensor batch of the plain versions
 HBM_BYTES_PER_S = 3.35e12
+HEADER = "src/repro_torch/kernels/csrc/mma_split.cuh"
 SOURCE = {"fused_plcore_call": "src/repro_torch/kernels/csrc/fused_plcore.cu",
            "two_pass_plcore_call":
                "src/repro_torch/kernels/csrc/fused_plcore.cu",
@@ -93,11 +102,16 @@ REPLACES = {"fused_plcore_call": "src/repro/kernels/fused_plcore.py:239",
 # K3's shapes (M, K, N): the NeRF trunk layer at one 512-ray tile's fine
 # pass (512 rays x 256 samples), a decode-sized product at qwen2-1.5b's MLP
 # width (src/repro/configs/qwen2_1_5b.py: d_model 1536, d_ff 8960, 16
-# rows), and a ragged shape of the reference's kernel test
+# rows), the rows on both sides of the route switch at the trunk width,
+# and a ragged shape of the reference's kernel test
 K3_SHAPES = {"nerf_trunk": (512 * 256, 256, 256),
              "qwen2_1_5b_mlp_decode": (16, 1536, 8960),
+             "switch_m63": (63, 256, 256),
+             "switch_m64": (64, 256, 256),
+             "switch_m65": (65, 256, 256),
              "ragged": (33, 512, 65)}
-K3_TIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode")
+K3_TIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode", "switch_m63",
+            "switch_m64", "switch_m65")
 K3_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (0.3, 0.05)}
 L2_BYTES = 50 * 2 ** 20
 
@@ -108,17 +122,28 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def fp32_peak_flops() -> float:
-    """SMs x 128 FP32 lanes x 2 FLOP per FMA x the max SM clock."""
+def peak_flops() -> dict:
+    """Dense FLOP/s of the card by operand type: SMs x (128 FP32 lanes x 2
+    FLOP per FMA, 2048 TF32 or 4096 bf16 tensor-core FLOP per clock) x the
+    max SM clock."""
     n_sm = torch.cuda.get_device_properties(DEV).multi_processor_count
-    mhz = float(smi("clocks.max.sm").split()[0])
-    return n_sm * 128 * 2 * mhz * 1e6
+    hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    return {"fp32": n_sm * 128 * 2 * hz, "tf32": n_sm * 2048 * hz,
+            "bf16": n_sm * 4096 * hz}
+
+
+def mma_macs_per_sample(cfg) -> int:
+    """Multiply-adds of the layers on the tensor cores: trunk, feature
+    head, the feature part of the color layer."""
+    W, C, pe = cfg.trunk_width, cfg.color_width, cfg.pos_enc_dim
+    trunk = pe * W + (cfg.trunk_layers - 1) * W * W + len(cfg.skip_at) * pe * W
+    return trunk + W * W + W * C
 
 
 def macs_per_sample(cfg) -> int:
-    W, C, pe = cfg.trunk_width, cfg.color_width, cfg.pos_enc_dim
-    trunk = pe * W + (cfg.trunk_layers - 1) * W * W + len(cfg.skip_at) * pe * W
-    return trunk + W * (1 + W) + W * C + C * 3
+    """All multiply-adds of a sample: the MMA layers and the exact sigma
+    and rgb heads."""
+    return mma_macs_per_sample(cfg) + cfg.trunk_width + 3 * cfg.color_width
 
 
 def macs_per_ray_pass(cfg) -> int:
@@ -137,10 +162,44 @@ def nbytes(*ts) -> int:
     return total
 
 
-def bound_ms(flops: float, n_bytes: int, peak: float):
-    t_ops, t_bytes = flops / peak, n_bytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def bound_ms(op_seconds: float, n_bytes: int):
+    """(ms, "operations" | "bytes"): the larger of the operations' time at
+    their peaks and the bytes' time at the memory rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(op_seconds, t_bytes), ("operations"
+                                            if op_seconds >= t_bytes
+                                            else "bytes")
+
+
+def plcore_bounds(cfg, rays: int, samples: int, passes: int, n_bytes: int,
+                  quantized: bool, peaks: dict) -> dict:
+    """Tensor-core and fp32-core bounds of ``rays`` x ``samples`` network
+    evaluations plus ``passes`` per-ray direction parts: the MMA layers
+    three times (3xTF32 or bf16x3) at the route's tensor-core peak, the
+    exact heads and the direction part at the fp32 peak."""
+    mma = 2.0 * rays * samples * mma_macs_per_sample(cfg)
+    rest = 2.0 * rays * (samples * (macs_per_sample(cfg)
+                                    - mma_macs_per_sample(cfg))
+                         + passes * macs_per_ray_pass(cfg))
+    tc = 3 * mma / peaks["bf16" if quantized else "tf32"] + rest / peaks["fp32"]
+    tc_ms, tc_by = bound_ms(tc, n_bytes)
+    fp_ms, fp_by = bound_ms((mma + rest) / peaks["fp32"], n_bytes)
+    return {"bound_ms": tc_ms, "bound_by": tc_by, "bound_ms_fp32": fp_ms,
+            "bound_by_fp32": fp_by}
+
+
+def ert_eps_between(acc_c: torch.Tensor) -> float:
+    """An ERT eps whose threshold lies midway between two neighbouring
+    distinct coarse acc values below 1, the pair with the widest gap in
+    the middle half of them: some rays terminate and others go on, and a
+    last-ulp difference in one ray's acc cannot move it across."""
+    below = torch.unique(acc_c[acc_c < 1.0]).double()
+    n = below.numel()
+    assert n >= 4, ("too few distinct coarse acc values", n)
+    lo, hi = n // 4, max(n // 4 + 1, 3 * n // 4)
+    gaps = below[lo + 1:hi + 1] - below[lo:hi]
+    i = lo + int(torch.argmax(gaps))
+    return 1.0 - float((below[i] + below[i + 1]) / 2)
 
 
 def cuda_ms(fn, reps: int):
@@ -183,8 +242,7 @@ def packed_nets(cfg, params, quantized: bool) -> dict:
     out = {}
     for n in ("coarse", "fine"):
         q = rmcm.quantize_tree(params[n]) if quantized else None
-        out[n] = bridge.to_device(ops.stack_plcore_weights(cfg, params[n], q),
-                                  DEV)
+        out[n] = bridge.to_device(ops.kernel_weights(cfg, params[n], q), DEV)
     return out
 
 
@@ -194,28 +252,30 @@ def view_rays(theta: float):
     return ro.reshape(-1, 3).to(DEV), rd.reshape(-1, 3).to(DEV)
 
 
-def kernel_phase(cfg, params, peak: float) -> dict:
+def kernel_phase(cfg, params, peaks: dict) -> dict:
     """Each kernel against its plain version at the main path's shape: one
     128x128 view (16384 rays) at the main path's ray tile, so every block
     walks several rays and the last tile is ragged. The timed calls'
     outputs are checked too."""
     o, d = view_rays(45.0)
     R = o.shape[0]
-    rt = ops.pick_ray_tile(R, DEV)
+    Nc, Nf = cfg.n_coarse, cfg.n_fine
+    per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, Nf), (0, 0), DEV)
+    rt = ops.pick_ray_tile(R, DEV, per_sm)
     assert rt > 1 and R % rt != 0, ("no multi-ray ragged tiling", R, rt)
     alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
     rows = ops.sample_rows(cfg, DEV)
     nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
     errs, times = {}, {}
 
-    def hold(name, label, kern, plain, tols, timed=False):
+    def hold(name, label, kern, plain, tols, timed=None):
         """Run the kernel and its plain version on the same inputs, check
-        the kernel's output; with ``timed``, time both and check the
-        output of the last timed call."""
+        the kernel's output; with ``timed`` (a key), time both and check
+        the output of the last timed call."""
         if timed:
             ms, got = cuda_ms(kern, 3)
             plain_ms, want = cuda_ms(plain, 3)
-            times[name] = (ms, plain_ms)
+            times[timed] = (ms, plain_ms)
         else:
             got, want = kern(), plain()
         errs[name] = max(errs.get(name, 0.0), check(label, got, want, tols))
@@ -224,10 +284,10 @@ def kernel_phase(cfg, params, peak: float) -> dict:
     # ---- K1: coarse (N=64) and fine-shaped (N=192) sample sets ----------
     K1 = "fused_plcore_call"
     g = torch.Generator(device=DEV).manual_seed(1)
-    Nt = cfg.n_coarse + cfg.n_fine
+    Nt = Nc + Nf
     for quantized in (False, True):
         tol = 5e-3 if quantized else 1e-3
-        for N in (cfg.n_coarse, Nt):
+        for N in (Nc, Nt):
             t = sampling.stratified(cfg.near, cfg.far, N, (R,), g, device=DEV)
             dl = sampling.deltas_from_t(t)
             k1 = (cfg, nets[quantized]["fine"], o, d, t, dl)
@@ -239,14 +299,14 @@ def kernel_phase(cfg, params, peak: float) -> dict:
                          *k1, rt=rt, alive=mask),
                      lambda: ref.fused_plcore_ref(*k1, rt=PLAIN_RT,
                                                   alive=mask),
-                     (tol, tol, tol), timed=mask is None)
+                     (tol, tol, tol), timed=K1 if mask is None else None)
                 if mask is None:
                     k1_in = (o, d, t, dl, k1[1])
 
-    # ---- K2: f32 (timed), RMCM, ERT, alive mask ---------------------------
+    # ---- K2: f32 and RMCM (both timed), ERT, alive mask --------------------
     K2 = "two_pass_plcore_call"
 
-    def k2_hold(quantized, eps, mask=None, timed=False):
+    def k2_hold(quantized, eps, mask=None, timed=None):
         k2 = (cfg, nets[quantized]["coarse"], nets[quantized]["fine"], o, d,
               *rows)
         tol = 5e-3 if (quantized or eps or mask is not None) else 1e-3
@@ -258,13 +318,11 @@ def kernel_phase(cfg, params, peak: float) -> dict:
                                              alive=mask),
                     (tol, tol, tol, tol, 1e-2), timed=timed)
 
-    acc_c = k2_hold(False, 0.0, timed=True)[3]
-    k2_hold(True, 0.0)
-    # ERT at the serve eps, then at the median of the distinct coarse acc
-    # values below 1, where some rays terminate and others go on to their
-    # fine pass
-    below = torch.unique(acc_c[acc_c < 1.0])
-    eps_mix = 1.0 - float(below[below.numel() // 2]) if below.numel() else 0.0
+    acc_c = k2_hold(False, 0.0, timed=K2)[3]
+    k2_hold(True, 0.0, timed=K2 + ".rmcm")
+    # ERT at the serve eps, then at a threshold between two coarse acc
+    # values, where some rays terminate and others go on to their fine pass
+    eps_mix = ert_eps_between(acc_c)
     for eps in (0.01, eps_mix):
         dead = int((acc_c >= ref.ert_threshold(eps)).sum())
         print(f"ERT eps {eps}: {dead} of {R} rays skip the fine pass",
@@ -274,19 +332,35 @@ def kernel_phase(cfg, params, peak: float) -> dict:
     k2_hold(False, 0.0, alive)
 
     # the least time for the timed calls' work: every ray alive
-    k1_flops = 2 * R * (Nt * macs_per_sample(cfg) + macs_per_ray_pass(cfg))
     k1_bytes = nbytes(*k1_in) + 4 * R * (3 + Nt + 1)
-    k2_flops = 2 * R * ((cfg.n_coarse + Nt) * macs_per_sample(cfg)
-                        + 2 * macs_per_ray_pass(cfg))
-    k2_bytes = nbytes(o, d, rows, nets[False]) + 4 * R * 9
-    bounds = {K1: bound_ms(k1_flops, k1_bytes, peak),
-              K2: bound_ms(k2_flops, k2_bytes, peak)}
+    k2_bytes = {q: nbytes(o, d, rows, {n: {k: v for k, v in nets[q][n].items()
+                                           if k != "mma"}
+                                       for n in nets[q]}) + 4 * R * 9
+                for q in (False, True)}
+    bounds = {K1: plcore_bounds(cfg, R, Nt, 1, k1_bytes, False, peaks),
+              K2: plcore_bounds(cfg, R, Nc + Nt, 2, k2_bytes[False], False,
+                                peaks),
+              K2 + ".rmcm": plcore_bounds(cfg, R, Nc + Nt, 2, k2_bytes[True],
+                                          True, peaks)}
     print(f"checked and timed at {R} rays (one {HW}x{HW} view), ray tile "
-          f"{rt} (last tile {R % rt} rays), K1 timed at N={Nt}; fp32 peak "
-          f"{peak / 1e12:.2f} TFLOP/s", flush=True)
-    return {k: {"max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1]} for k in (K1, K2)}
+          f"{rt} (last tile {R % rt} rays, {per_sm} K2 block(s) per SM), K1 "
+          f"timed at N={Nt}; peaks TFLOP/s "
+          f"{ {k: round(v / 1e12, 2) for k, v in peaks.items()} }",
+          flush=True)
+    for k, (ms, plain_ms) in times.items():
+        b = bounds[k]
+        print(f"{k}: {ms:.3f} ms; tensor-core bound {b['bound_ms']:.3f} ms "
+              f"({100 * b['bound_ms'] / ms:.1f}% of it, by {b['bound_by']}); "
+              f"fp32-core bound {b['bound_ms_fp32']:.3f} ms; plain "
+              f"{plain_ms:.3f} ms", flush=True)
+    rows_out = {k: {"max_abs_err": errs[k], "ms": times[k][0],
+                    "plain_ms": times[k][1], **bounds[k]} for k in (K1, K2)}
+    rmcm_row = K2 + ".rmcm"
+    rows_out[K2].update({
+        "ms_rmcm": times[rmcm_row][0], "plain_ms_rmcm": times[rmcm_row][1],
+        "bound_ms_rmcm": bounds[rmcm_row]["bound_ms"],
+        "bound_ms_fp32_rmcm": bounds[rmcm_row]["bound_ms_fp32"]})
+    return rows_out
 
 
 def k3_weights(k: int, n: int, gen, copies: int = 1) -> list:
@@ -301,12 +375,13 @@ def k3_bytes(x, packed, y) -> int:
     return nbytes(x, packed["mag"], packed["sign_bits"], packed["scale"], y)
 
 
-def k3_phase(peak: float) -> dict:
+def k3_phase(peaks: dict) -> dict:
     """K3 against its plain version on the card at ``K3_SHAPES``, f32 and
-    bf16 inputs at the reference test's tolerances; the timed shapes (f32)
-    beside their bound and one PyTorch matmul on the dequantized weight.
-    Then the entry point a user calls, ``ops.rmcm_matmul`` with leading
-    dims, counts zeroed just before and read just after."""
+    bf16 inputs at the reference test's tolerances, each call repeated for
+    identical bits and counted by route; the timed shapes beside their
+    bounds and one PyTorch matmul on the dequantized weight. Then the
+    entry point a user calls, ``ops.rmcm_matmul`` with leading dims, counts
+    zeroed just before and read just after."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     errs, shapes = {torch.float32: [], torch.bfloat16: []}, {}
     for label, (M, K, N) in K3_SHAPES.items():
@@ -320,63 +395,80 @@ def k3_phase(peak: float) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             x = x32.to(dt)
             atol, rtol = K3_TOL[dt]
+            before = dict(k3.ROUTE_LAUNCHES)
             got = k3.rmcm_matmul(x, packs[0])
+            again = k3.rmcm_matmul(x, packs[0])
             want = ref.rmcm_matmul_ref(x, packs[0])
             torch.cuda.synchronize()
+            route = k3.route(M)
+            assert k3.ROUTE_LAUNCHES[route] == before[route] + 2, (
+                label, route, k3.ROUTE_LAUNCHES)
             assert got.dtype == dt and got.shape == (M, N), (got.dtype,
                                                              got.shape)
             assert bool(torch.isfinite(got).all()), label
+            assert torch.equal(got, again), f"K3 {label} {dt}: not repeatable"
             torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                        rtol=rtol)
             e = float((got.float() - want.float()).abs().max())
             errs[dt].append(e)
-            print(f"check K3 {label} {tuple((M, K, N))} {dt}: max_abs_err "
-                  f"{e} (atol {atol}, rtol {rtol})", flush=True)
-            if not (timed and dt == torch.float32):
+            print(f"check K3 {label} {tuple((M, K, N))} {dt} route {route}: "
+                  f"max_abs_err {e} (atol {atol}, rtol {rtol}), two calls "
+                  "bit-identical", flush=True)
+            if not timed:
                 continue
             ms, got, last = cuda_ms_cycled(
                 [lambda p=p: k3.rmcm_matmul(x, p) for p in packs], 20)
             torch.testing.assert_close(
-                got, ref.rmcm_matmul_ref(x, packs[last]), atol=atol,
-                rtol=rtol)
+                got.float(), ref.rmcm_matmul_ref(x, packs[last]).float(),
+                atol=atol, rtol=rtol)
             plain_ms, _, _ = cuda_ms_cycled(
                 [lambda p=p: ref.rmcm_matmul_ref(x, p) for p in packs], 5)
-            dense = [rmcm.dequantize(rmcm.unpack(p), torch.float32)
-                     for p in packs[:-(-2 * L2_BYTES // (4 * K * N + io_bytes))]]
+            dense_bytes = K * N * x.element_size() + io_bytes
+            dense = [rmcm.dequantize(rmcm.unpack(p), dt)
+                     for p in packs[:-(-2 * L2_BYTES // dense_bytes)]]
             lib_ms, _, _ = cuda_ms_cycled(
                 [lambda w=w: torch.matmul(x, w) for w in dense], 20)
             del dense
-            b_ms, b_by = bound_ms(2.0 * M * K * N,
-                                  k3_bytes(x, packs[0], got), peak)
-            shapes[label] = {"shape_mkn": [M, K, N], "dtype": "float32",
-                             "ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "weight_copies": len(packs)}
-            print(f"K3 {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; "
-                  f"plain {plain_ms:.4f} ms; torch.matmul on the dequantized "
-                  f"f32 weight, dequantization not counted, {lib_ms:.4f} ms)",
+            flops = 2.0 * M * K * N
+            n_bytes = k3_bytes(x, packs[0], got)
+            passes = 3 if dt == torch.float32 else 1     # bf16x3 or exact
+            b_ms, b_by = bound_ms(passes * flops / peaks["bf16"], n_bytes)
+            f_ms, f_by = bound_ms(flops / peaks["fp32"], n_bytes)
+            shapes[f"{label}.{str(dt).removeprefix('torch.')}"] = {
+                "shape_mkn": [M, K, N], "route": route, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_ms_fp32": f_ms,
+                "bound_by_fp32": f_by, "weight_copies": len(packs)}
+            print(f"K3 {label} {dt}: {ms:.4f} ms, route {route} (tensor-core "
+                  f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
+                  f"it; fp32-core bound {f_ms:.4f} ms by {f_by}; plain "
+                  f"{plain_ms:.4f} ms; torch.matmul on the dequantized "
+                  f"weight, dequantization not counted, {lib_ms:.4f} ms)",
                   flush=True)
     # the entry point with leading dims, counted on its own
     M, K, N = K3_SHAPES["qwen2_1_5b_mlp_decode"]
     packed = k3_weights(K, N, gen)[0]
     x = torch.randn(2, M // 2, K, generator=gen, device=DEV)
-    for c in k3.LAUNCHES:
-        k3.LAUNCHES[c] = 0
+    zero_launches()
     y = ops.rmcm_matmul(x, packed, bm=8, bn=8, bk=8)
     torch.cuda.synchronize()
     launches = k3.LAUNCHES["rmcm_matmul"]
-    assert launches == 1 and y.shape == (2, M // 2, N), (launches, y.shape)
+    assert launches == 1 and k3.ROUTE_LAUNCHES["small_m"] == 1, (
+        launches, k3.ROUTE_LAUNCHES)
+    assert y.shape == (2, M // 2, N), y.shape
     torch.testing.assert_close(
         y, ref.rmcm_matmul_ref(x.reshape(M, K), packed).reshape(y.shape),
         atol=2e-4, rtol=1e-4)
-    row = shapes["nerf_trunk"]
+    row = shapes["nerf_trunk.float32"]
     return {"max_abs_err": max(errs[torch.float32]),
             "max_abs_err_bf16": max(errs[torch.bfloat16]), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "library_call": "torch.matmul(x, W_dequantized_f32), TF32 off, "
-                            "dequantization not counted",
-            "timed_shape": "nerf_trunk", "shapes": shapes,
+            "bound_by": row["bound_by"],
+            "bound_ms_fp32": row["bound_ms_fp32"],
+            "library_ms": row["library_ms"],
+            "library_call": "torch.matmul(x, W_dequantized) in x's type, "
+                            "TF32 off, dequantization not counted",
+            "timed_shape": "nerf_trunk.float32", "shapes": shapes,
             "launches": launches}
 
 
@@ -405,7 +497,7 @@ ENGINE_ARGV = ["--mode", "engine", "--full", "--kernel", "--fuse-two-pass",
 
 
 def zero_launches() -> None:
-    for counts in (fused_plcore.LAUNCHES, k3.LAUNCHES):
+    for counts in (fused_plcore.LAUNCHES, k3.LAUNCHES, k3.ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -538,10 +630,10 @@ def main() -> None:
 
     cfg = CONFIG
     params = init_params(plcore_decls(cfg), torch.Generator().manual_seed(0))
-    peak = fp32_peak_flops()
-    rows = kernel_phase(cfg, params, peak)
+    peaks = peak_flops()
+    rows = kernel_phase(cfg, params, peaks)
 
-    k3_row = k3_phase(peak)
+    k3_row = k3_phase(peaks)
 
     out_dir = str(ROOT / "chiprun_out" / "smoke_views")
     main_launches = serve_phase(out_dir, [], 3)
@@ -557,12 +649,16 @@ def main() -> None:
         launches = (main_path[k] if k == "two_pass_plcore_call"
                     else oracle_launches)
         kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
+                        "header": HEADER,
+                        "mma_route": "3xTF32 (f32 weights), bf16x3 (RMCM)",
                         "replaces": REPLACES[k], "launches": launches,
                         "launches_on": ("main path" if k == "two_pass_plcore_call"
                                         else "oracle path"),
                         **rows[k], "library_ms": None})
     kernels.append({"name": "rmcm_matmul", "route": "cuda",
-                    "source": SOURCE["rmcm_matmul"],
+                    "source": SOURCE["rmcm_matmul"], "header": HEADER,
+                    "mma_route": "bf16x3 (f32 x), bf16 (bf16 x); large_m "
+                                 "or small_m (split K) by M",
                     "replaces": REPLACES["rmcm_matmul"],
                     "launches_on": "rmcm_matmul entry point",
                     "main_path_launches": main_path["rmcm_matmul"],

@@ -1,7 +1,7 @@
 """Serving pipeline — a loaded PLCore that packs its weights once.
 
 * ``PackedPlcore`` — loads a param set ONCE: packs the kernel weight layout
-  (``stack_plcore_weights``, RMCM included) a single time, moves it to the
+  (``kernel_weights``, RMCM included) a single time, moves it to the
   device, and reuses it for every ray batch, tile and image
   (``kernels.ops.pack_count`` does not move after load).
 * ``render_image_single`` — a whole image in one render call: the padded
@@ -100,7 +100,7 @@ class PackedPlcore:
             from repro_torch.kernels import ops as kops
             q = self.quant or {}
             self.packed = {
-                net: kops.stack_plcore_weights(cfg, self.params[net],
+                net: kops.kernel_weights(cfg, self.params[net],
                                                q.get(net))
                 for net in ("coarse", "fine")}
 

@@ -76,8 +76,8 @@ def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,
                              "path — no sampling generator")
         from repro_torch.kernels import ops as kops
         if pc is None or pf is None:
-            pc = kops.stack_plcore_weights(cfg, params["coarse"], qc)
-            pf = kops.stack_plcore_weights(cfg, params["fine"], qf)
+            pc = kops.kernel_weights(cfg, params["coarse"], qc)
+            pf = kops.kernel_weights(cfg, params["fine"], qf)
         out = kops.fused_render_two_pass(
             cfg, {"coarse": pc, "fine": pf}, rays_o, rays_d,
             ert_eps=ert_eps, alive=alive)

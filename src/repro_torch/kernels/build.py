@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The ``.cu`` sources under ``kernels/csrc`` have a plain C interface. At
-first use each is compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+The ``.cu`` sources under ``kernels/csrc`` have a plain C interface and
+share the device helpers of ``mma_split.cuh``. At first use each is
+compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
 source, all started together, and the objects are linked into one shared
 library under ``build/kernels/`` at the repository root (a directory that
 ``.gitignore`` lists), named by the hash of the sources and flags, so a
@@ -42,7 +43,7 @@ def sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(_CSRC.glob("*.cu*")):     # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libplcore_{h.hexdigest()[:16]}.so"
@@ -95,7 +96,12 @@ def load():
         lib.plcore_fused.restype = ci
         lib.plcore_two_pass.argtypes = [vp, vp, ctypes.c_float, vp]
         lib.plcore_two_pass.restype = ci
-        lib.rmcm_matmul.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.plcore_blocks_per_sm.argtypes = [vp, ci, vp]
+        lib.plcore_blocks_per_sm.restype = ci
+        lib.rmcm_matmul_plan.argtypes = [ci, ci, ci, ci, vp]
+        lib.rmcm_matmul_plan.restype = ci
+        lib.rmcm_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                    vp, vp]
         lib.rmcm_matmul.restype = ci
         _LIB = lib
     return _LIB

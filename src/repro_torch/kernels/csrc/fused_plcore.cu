@@ -12,29 +12,45 @@
 // sigma|feat head, 128-wide color branch); a rendered pixel runs 64 coarse
 // + 192 fine samples, about 151 M multiply-adds (302 MFLOP). Bytes are
 // negligible: 24 B of rays in, 44 B of pixels out, weights re-read from L2.
-// So the bound is fp32 FMA throughput of the CUDA cores.
+// So the bound is the tensor cores' rate for the split products below.
 //
 // What the design does about it:
+// * The MLP layers (trunk, feature head, the feature part of the color
+//   layer) run on the tensor cores with exact split products
+//   (mma_split.cuh). RMCM (Q): bf16x3 activations x exact bf16 signed
+//   magnitudes, the column scale, bias and ReLU in the epilogue. f32:
+//   3xTF32 over weights split into hi/lo at pack time.
 // * A block owns whole rays and walks its tile one ray at a time, 64
-//   samples per chunk. Activations of a chunk live in shared memory as
-//   (features x samples) rows; a layer is computed with every thread
-//   holding 2 output columns x 32 samples in registers (64 accumulators),
-//   so each broadcast float4 read of shared memory feeds 8 FMAs and each
-//   weight read from L2 feeds 32. The layer's output overwrites its input
-//   in place after a barrier, so one buffer holds the chunk.
-// * Weights (7.2 MB for both f32 networks) stay resident in the 50 MB L2
-//   and stream through registers, one k-row per step; RMCM weights are
-//   dequantized in registers as mag * (1 - 2 sign) * scale, as the
-//   reference's _dq does, so the dequantized values are bit-identical.
-// * fp32 FMA throughout: no TF32, no tensor cores.
-// * The VRU prefix, the coarse CDF, the inverse-CDF binary search and the
-//   sorted merge run inside the block: coarse weights, sample positions
-//   and resample scratch never leave shared memory. The prefix sums run
-//   sequentially per ray, in the order cumsum adds, with explicitly
-//   rounded operations (no FMA contraction), because the resampler turns
-//   last-ulp differences into moved samples.
+//   samples per chunk. The activations of a chunk live in shared memory
+//   as (sample x feature) rows; each of the 8 warps computes every sample
+//   of a layer for its interleaved 8-column tiles (up to 4 of them), 64
+//   f32 accumulators a thread. Two blocks share an SM (the launch bound
+//   caps a thread at 128 registers): 16 warps hide the MMA and L2
+//   latencies better than one block of 128-sample chunks, which halved
+//   the L2 weight traffic but left 8 warps and spilled at 255 registers. The A fragments are loaded from shared memory and split as
+//   they are loaded; the split pieces never take shared memory. A layer's
+//   output overwrites its input after a barrier, so one buffer holds the
+//   chunk.
+// * Weights stay resident in the 50 MB L2 in copies made at pack time in
+//   the MMA fragment order (kernels/ops.py, mma_weights), so each lane
+//   reads its B fragments for a k step with one 8- or 16-byte load per
+//   column tile, one k step ahead of the MMAs.
+// * The rest keeps its fp32 code and its explicitly rounded order: the
+//   exact sigma and rgb heads, the per-ray direction part of the color
+//   layer, the VRU prefix, the coarse CDF, the inverse-CDF binary search
+//   and the sorted merge. The prefix sums run sequentially per ray, in the
+//   order cumsum adds, with explicitly rounded operations (no FMA
+//   contraction), because the resampler turns last-ulp differences into
+//   moved samples. Coarse weights, sample positions and resample scratch
+//   never leave shared memory.
 // * With early ray termination or an alive mask, a dead ray skips its
 //   fine pass and keeps its coarse rgb/acc/depth (per ray, no compaction).
+//
+// Shared memory of one block at full width (W = 256, pe = 63 padded to
+// 64), bf16x3 strides: activations 64 x 264 f32 (67,584 B), position
+// encoding 64 x 72 f32 (18,432 B), per-sample and resample scratch for
+// 64 + 192 samples (8,160 B): 94,176 B, two blocks per SM. The host
+// reads the resident blocks per SM from plcore_blocks_per_sm.
 //
 // Interface: plain C entry points for ctypes. Pointers arrive as an array
 // of addresses, shapes as an array of ints; each entry point launches one
@@ -43,14 +59,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_split.cuh"
+
 namespace {
 
-constexpr int NT = 256;       // threads per block
-constexpr int S = 64;         // samples per chunk
-constexpr int HS = S / 2;     // samples per thread
-constexpr int AS = S + 4;     // activation row stride in floats (16 B aligned)
-constexpr int CH = NT / 2;    // a thread owns columns jp and jp + CH
-constexpr int MAXW = 2 * CH;  // widest layer a block computes
+using namespace mma_split;
+
+constexpr int NT = 256;       // threads per block, 8 warps
+constexpr int NWARP = NT / 32;
+constexpr int MT = 4;         // 16-sample m tiles per chunk
+constexpr int S = MT * 16;    // samples per chunk
+constexpr int NTW = 4;        // column tiles per warp at most
+constexpr int MAXW = NWARP * NTW * 8;   // widest layer a block computes
 
 struct Mat {
   const float* w;       // f32 (rows, ncol), or null under RMCM
@@ -61,26 +83,38 @@ struct Mat {
 };
 
 struct Net {
-  Mat trunk;            // layer 0 of the (L, P, W) stack
   const float* tb;      // (L, W)
   const float* sw;      // (W, 1)
   const float* sb;      // (1)
-  Mat feat;             // (W, W)
   const float* fb;      // (W)
-  Mat color;            // (P2, C)
+  Mat color;            // (P2, C): its direction rows, per ray
   const float* cb;      // (C)
   const float* rw;      // (C, 3)
   const float* rb;      // (3)
+  const float* tscl;    // RMCM column scales of the trunk (L, W), or null
+  const float* fscl;    // ... of the feature head (W), or null
+  // MMA fragment copies (ops.mma_weights): bf16 pairs under RMCM, TF32
+  // hi/lo otherwise
+  const void* tmma;     // (L, KH + KPE rows)
+  const void* fmma;     // (W rows)
+  const void* cmma;     // (W rows of color0)
 };
 
 struct Dims {
-  int R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, pe, de, P, P2;
+  int R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, pe, de, P, P2, kpe;
 };
+
+// rows of the activation / encoding buffers: the stride is the width
+// rounded up to 32 floats, plus 8 (bf16x3: conflict-free float2 loads of
+// the A fragments) or 4 (3xTF32: conflict-free scalar loads)
+__host__ __device__ inline int stride(int n, bool q) {
+  return ((n + 31) & ~31) + (q ? 8 : 4);
+}
 
 // the shared-memory carve-up of one block
 struct Smem {
-  float* act;   // max(W, C) rows x AS: hidden activations of a chunk
-  float* pe;    // pe rows x AS: position encoding of a chunk
+  float* act;   // S x stride(max(W, C)): hidden activations of a chunk
+  float* pe;    // S x stride(kpe): position encoding of a chunk
   float* ped;   // de: direction encoding of the ray
   float* cold;  // C: direction part of the color layer
   float* ray;   // 8: o, d
@@ -100,10 +134,10 @@ __host__ __device__ inline size_t carve(Smem* sm, float* base, const Dims& D,
                                         int N, int Nc, int Nf) {
   float* p = base;
   auto take = [&](int n) { float* q = p; p += rup4(n); return q; };
-  int rows = D.W > D.C ? D.W : D.C;
+  const int rows = D.W > D.C ? D.W : D.C;
   Smem s;
-  s.act = take(rows * AS);
-  s.pe = take(D.pe * AS);
+  s.act = take(S * stride(rows, true));   // the wider of the two strides
+  s.pe = take(S * stride(D.kpe, true));
   s.ped = take(D.de);
   s.cold = take(D.C);
   s.ray = take(8);
@@ -122,18 +156,6 @@ __host__ __device__ inline size_t carve(Smem* sm, float* base, const Dims& D,
   return (size_t)(p - base) * sizeof(float);
 }
 
-__device__ __forceinline__ Mat trunk_layer(const Mat& t, int i, const Dims& D) {
-  Mat m = t;
-  size_t off = (size_t)i * D.P * D.W;
-  if (m.w) m.w += off;
-  if (m.mag) {
-    m.mag += off;
-    m.sgn += (size_t)i * (D.P / 8) * D.W;
-    m.scl += (size_t)i * D.W;
-  }
-  return m;
-}
-
 template <bool Q>
 __device__ __forceinline__ float wget(const Mat& m, int k, int j, float scl) {
   if constexpr (Q) {
@@ -145,62 +167,167 @@ __device__ __forceinline__ float wget(const Mat& m, int k, int j, float scl) {
   }
 }
 
-// acc[c][s] += sum_k in[k][sh*HS + s] * W[row0 + k][col c]
+// one lane's B fragment of one k step and column tile: two bf16 pairs, or
+// TF32 {hi0, hi1, lo0, lo1}
 template <bool Q>
-__device__ __forceinline__ void mac(float (&acc)[2][HS], const Mat& m,
-                                    int row0, const float* in, int kin,
-                                    int j0, int j1, int sh) {
-  const float s0 = (Q && j0 >= 0) ? m.scl[j0] : 0.f;
-  const float s1 = (Q && j1 >= 0) ? m.scl[j1] : 0.f;
-  const float* base = in + sh * HS;
-#pragma unroll 2
-  for (int k = 0; k < kin; ++k) {
-    const float w0 = j0 >= 0 ? wget<Q>(m, row0 + k, j0, s0) : 0.f;
-    const float w1 = j1 >= 0 ? wget<Q>(m, row0 + k, j1, s1) : 0.f;
-    const float4* x = reinterpret_cast<const float4*>(base + k * AS);
+using Frag = typename std::conditional<Q, uint2, uint4>::type;
+
+template <bool Q>
+__host__ __device__ constexpr int kstep() { return Q ? 16 : 8; }
+
+using Acc = float[MT][NTW][4];
+
+__device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
-    for (int q = 0; q < HS / 4; ++q) {
-      const float4 v = x[q];
-      acc[0][4 * q + 0] = fmaf(v.x, w0, acc[0][4 * q + 0]);
-      acc[0][4 * q + 1] = fmaf(v.y, w0, acc[0][4 * q + 1]);
-      acc[0][4 * q + 2] = fmaf(v.z, w0, acc[0][4 * q + 2]);
-      acc[0][4 * q + 3] = fmaf(v.w, w0, acc[0][4 * q + 3]);
-      acc[1][4 * q + 0] = fmaf(v.x, w1, acc[1][4 * q + 0]);
-      acc[1][4 * q + 1] = fmaf(v.y, w1, acc[1][4 * q + 1]);
-      acc[1][4 * q + 2] = fmaf(v.z, w1, acc[1][4 * q + 2]);
-      acc[1][4 * q + 3] = fmaf(v.w, w1, acc[1][4 * q + 3]);
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NTW; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
+}
+
+// acc[m][i] += in[rows of m tile m][nkb k steps] . W[.., column tile
+// i * 8 + warp], for the m tiles below mtv. `in` is (sample x feature)
+// with row stride ld; `wf` the fragment copy of these weight rows, laid
+// out (k step, column tile, lane). Two m tiles at a time: each split piece
+// goes through both m tiles and every column tile before the next piece,
+// so 8 independent MMAs lie between two into the same accumulator. An odd
+// mtv computes one m tile past it, on rows that are never stored (a row
+// of an MMA's result depends only on that row of A).
+template <bool Q>
+__device__ __forceinline__ void mma_rows(Acc& acc, const float* in, int ld,
+                                         int nkb, const void* wf, int ntiles,
+                                         int mtv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const Frag<Q>* w = static_cast<const Frag<Q>*>(wf) + lane;
+  bool col[NTW];
+#pragma unroll
+  for (int i = 0; i < NTW; ++i) col[i] = i * NWARP + warp < ntiles;
+  Frag<Q> b[NTW], bn[NTW];
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+    if (col[i]) b[i] = __ldg(w + (size_t)(i * NWARP + warp) * 32);
+  const int rs = 16 * ld;              // floats between two m tiles
+  const float* a = in + g * ld + (Q ? 2 * t : t);
+#pragma unroll 1
+  for (int kb = 0; kb < nkb; ++kb, a += kstep<Q>()) {
+    if (kb + 1 < nkb) {
+      const Frag<Q>* wn = w + (size_t)(kb + 1) * ntiles * 32;
+#pragma unroll
+      for (int i = 0; i < NTW; ++i)
+        if (col[i]) bn[i] = __ldg(wn + (size_t)(i * NWARP + warp) * 32);
     }
+#pragma unroll
+    for (int mt = 0; mt < MT; mt += 2) {
+      if (mt >= mtv) break;
+      const float* ar = a + mt * rs;
+      if constexpr (Q) {
+        Bf16x3 p[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* r = ar + u * rs;
+          const float2 v0 = *reinterpret_cast<const float2*>(r);
+          const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * ld);
+          const float2 v2 = *reinterpret_cast<const float2*>(r + 8);
+          const float2 v3 = *reinterpret_cast<const float2*>(r + 8 * ld + 8);
+          p[u][0] = split_bf16x3(v0.x, v0.y);
+          p[u][1] = split_bf16x3(v1.x, v1.y);
+          p[u][2] = split_bf16x3(v2.x, v2.y);
+          p[u][3] = split_bf16x3(v3.x, v3.y);
+        }
+        // the small pieces first
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_bf16(acc[mt + u][i], p[u][0].l, p[u][1].l, p[u][2].l,
+                       p[u][3].l, b[i].x, b[i].y);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_bf16(acc[mt + u][i], p[u][0].m, p[u][1].m, p[u][2].m,
+                       p[u][3].m, b[i].x, b[i].y);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_bf16(acc[mt + u][i], p[u][0].h, p[u][1].h, p[u][2].h,
+                       p[u][3].h, b[i].x, b[i].y);
+      } else {
+        Tf32x2 p[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float* r = ar + u * rs;
+          p[u][0] = split_tf32(r[0]);
+          p[u][1] = split_tf32(r[8 * ld]);
+          p[u][2] = split_tf32(r[4]);
+          p[u][3] = split_tf32(r[8 * ld + 4]);
+        }
+        // a_lo . b_hi, a_hi . b_lo, then a_hi . b_hi
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_tf32(acc[mt + u][i], p[u][0].lo, p[u][1].lo, p[u][2].lo,
+                       p[u][3].lo, b[i].x, b[i].y);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_tf32(acc[mt + u][i], p[u][0].hi, p[u][1].hi, p[u][2].hi,
+                       p[u][3].hi, b[i].z, b[i].w);
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int i = 0; i < NTW; ++i)
+            if (col[i])
+              mma_tf32(acc[mt + u][i], p[u][0].hi, p[u][1].hi, p[u][2].hi,
+                       p[u][3].hi, b[i].x, b[i].y);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NTW; ++i) b[i] = bn[i];
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[2][HS]) {
+// out[s][j] = act(((acc * scl[j]) + b1[j]) + b2[j]) for the warp's column
+// tiles; scl only under RMCM, b2 may be null
+template <bool Q>
+__device__ __forceinline__ void store(float* out, int ld, Acc& acc,
+                                      int ntiles, int mtv, const float* scl,
+                                      const float* b1, const float* b2,
+                                      bool relu) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int c = 0; c < 2; ++c)
+  for (int i = 0; i < NTW; ++i) {
+    const int nt = i * NWARP + warp;
+    if (nt >= ntiles) continue;
+    const int j = nt * 8 + 2 * t;
+    const float s0 = Q ? scl[j] : 1.f, s1 = Q ? scl[j + 1] : 1.f;
+    const float c0 = b1[j], c1 = b1[j + 1];
+    const float d0 = b2 ? b2[j] : 0.f, d1 = b2 ? b2[j + 1] : 0.f;
 #pragma unroll
-    for (int s = 0; s < HS; ++s) acc[c][s] = 0.f;
-}
-
-// out[j][sh*HS + s] = act((acc + b1[j]) + b2[j]); b2 may be null
-__device__ __forceinline__ void store(float* out, float (&acc)[2][HS], int j0,
-                                      int j1, int sh, const float* b1,
-                                      const float* b2, bool relu) {
+    for (int mt = 0; mt < MT; ++mt) {
+      if (mt >= mtv) continue;
 #pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int j = c ? j1 : j0;
-    if (j < 0) continue;
-    const float bb1 = b1[j];
-    const float bb2 = b2 ? b2[j] : 0.f;
-    float4* row = reinterpret_cast<float4*>(out + j * AS + sh * HS);
-#pragma unroll
-    for (int q = 0; q < HS / 4; ++q) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float y = __fadd_rn(acc[c][4 * q + e], bb1);
-        if (b2) y = __fadd_rn(y, bb2);
-        v[e] = relu ? fmaxf(y, 0.f) : y;
+      for (int h = 0; h < 2; ++h) {
+        float y0 = acc[mt][i][2 * h], y1 = acc[mt][i][2 * h + 1];
+        if (Q) { y0 = __fmul_rn(y0, s0); y1 = __fmul_rn(y1, s1); }
+        y0 = __fadd_rn(y0, c0);
+        y1 = __fadd_rn(y1, c1);
+        if (b2) { y0 = __fadd_rn(y0, d0); y1 = __fadd_rn(y1, d1); }
+        if (relu) { y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f); }
+        *reinterpret_cast<float2*>(out + (mt * 16 + g + 8 * h) * ld + j) =
+            make_float2(y0, y1);
       }
-      row[q] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -241,8 +368,13 @@ template <bool Q>
 __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
                          const float* ts, const float* dl, int N) {
   const int tid = threadIdx.x;
-  const int sh = tid / CH, jp = tid % CH;
   const int W = D.W, C = D.C;
+  const int as = stride(W > C ? W : C, Q), ps = stride(D.kpe, Q);
+  const int nkh = W / kstep<Q>(), nkp = D.kpe / kstep<Q>();
+  const int ntw = W / 8, ntc = C / 8;
+  // fragments of one trunk layer: its h rows, then its PE rows
+  const size_t hfr = (size_t)nkh * ntw * 32, lfr = hfr + (size_t)nkp * ntw * 32;
+  const Frag<Q>* tw = static_cast<const Frag<Q>*>(net.tmma);
   const float* o = sm.ray;
   const float* d = sm.ray + 3;
 
@@ -255,62 +387,66 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     sm.cold[j] = s;
   }
 
-  float acc[2][HS];
+  Acc acc;
   for (int c0 = 0; c0 < N; c0 += S) {
-    // ---- PEU: positions of this chunk, double-angle encoded ----------
-    for (int idx = tid; idx < 3 * S; idx += NT) {
+    const int rows = min(S, N - c0);
+    const int mtv = (rows + 15) / 16, rows16 = mtv * 16;
+    // ---- PEU: positions of this chunk, double-angle encoded; the rows of
+    // the last m tile past N repeat sample N - 1; the K padding is zero
+    for (int idx = tid; idx < 3 * rows16; idx += NT) {
       const int s = idx / 3, a = idx % 3;
       const int n = min(c0 + s, N - 1);
       const float x = __fadd_rn(o[a], __fmul_rn(ts[n], d[a]));
-      encode(x, a, D.pos_freqs, sm.pe, AS, s);
+      encode(x, a, D.pos_freqs, sm.pe + s * ps, 1, 0);
     }
+    const int npad = D.kpe - D.pe;
+    for (int idx = tid; idx < rows16 * npad; idx += NT)
+      sm.pe[(idx / npad) * ps + D.pe + idx % npad] = 0.f;
     __syncthreads();
 
     // ---- trunk ---------------------------------------------------------
-    int j0 = jp < W ? jp : -1;
-    int j1 = jp + CH < W ? jp + CH : -1;
     for (int i = 0; i < D.L; ++i) {
-      const Mat m = trunk_layer(net.trunk, i, D);
+      const Frag<Q>* wl = tw + i * lfr;
       zero(acc);
       if (i == 0) {
-        mac<Q>(acc, m, 0, sm.pe, D.pe, j0, j1, sh);
+        mma_rows<Q>(acc, sm.pe, ps, nkp, wl + hfr, ntw, mtv);
       } else {
-        mac<Q>(acc, m, 0, sm.act, W, j0, j1, sh);
-        if ((D.skip_mask >> i) & 1) mac<Q>(acc, m, W, sm.pe, D.pe, j0, j1, sh);
+        mma_rows<Q>(acc, sm.act, as, nkh, wl, ntw, mtv);
+        if ((D.skip_mask >> i) & 1)
+          mma_rows<Q>(acc, sm.pe, ps, nkp, wl + hfr, ntw, mtv);
       }
       __syncthreads();
-      store(sm.act, acc, j0, j1, sh, net.tb + i * W, nullptr, true);
+      store<Q>(sm.act, as, acc, ntw, mtv, Q ? net.tscl + i * W : nullptr,
+               net.tb + i * W, nullptr, true);
       __syncthreads();
     }
 
     // ---- heads: sigma (exact) and feature ------------------------------
     zero(acc);
-    mac<Q>(acc, net.feat, 0, sm.act, W, j0, j1, sh);
-    if (tid < S) {
+    mma_rows<Q>(acc, sm.act, as, nkh, net.fmma, ntw, mtv);
+    if (tid < rows) {
       float s = 0.f;
-      for (int k = 0; k < W; ++k) s = fmaf(sm.act[k * AS + tid], net.sw[k], s);
-      if (c0 + tid < N) sm.sig[c0 + tid] = __fadd_rn(s, net.sb[0]);
+      for (int k = 0; k < W; ++k) s = fmaf(sm.act[tid * as + k], net.sw[k], s);
+      sm.sig[c0 + tid] = __fadd_rn(s, net.sb[0]);
     }
     __syncthreads();
-    store(sm.act, acc, j0, j1, sh, net.fb, nullptr, false);
+    store<Q>(sm.act, as, acc, ntw, mtv, net.fscl, net.fb, nullptr, false);
     __syncthreads();
 
     // ---- color branch: feature rows per sample + direction part per ray
-    j0 = jp < C ? jp : -1;
-    j1 = jp + CH < C ? jp + CH : -1;
     zero(acc);
-    mac<Q>(acc, net.color, 0, sm.act, W, j0, j1, sh);
+    mma_rows<Q>(acc, sm.act, as, nkh, net.cmma, ntc, mtv);
     __syncthreads();
-    store(sm.act, acc, j0, j1, sh, sm.cold, net.cb, true);
+    store<Q>(sm.act, as, acc, ntc, mtv, net.color.scl, sm.cold, net.cb, true);
     __syncthreads();
 
     // ---- rgb head (exact) + sigmoid ------------------------------------
-    for (int idx = tid; idx < 3 * S; idx += NT) {
-      const int c = idx / S, s = idx % S;
+    for (int idx = tid; idx < 3 * rows; idx += NT) {
+      const int c = idx / rows, s = idx % rows;
       float r = 0.f;
-      for (int k = 0; k < C; ++k) r = fmaf(sm.act[k * AS + s], net.rw[k * 3 + c], r);
+      for (int k = 0; k < C; ++k) r = fmaf(sm.act[s * as + k], net.rw[k * 3 + c], r);
       r = __fadd_rn(r, net.rb[c]);
-      if (c0 + s < N) sm.rgb[(c0 + s) * 3 + c] = 1.0f / (1.0f + expf(-r));
+      sm.rgb[(c0 + s) * 3 + c] = 1.0f / (1.0f + expf(-r));
     }
     __syncthreads();
   }
@@ -497,18 +633,18 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
 }
 
 // ------------------------------------------------------------ host side ---
-Net make_net(const void* const* p, int W, int C) {
-  // order: tw tb sw sb fw fb cw cb rw rb tmag tsgn tscl fmag fsgn fscl
-  //        cmag csgn cscl
+constexpr int NET_PTRS = 16;
+
+Net make_net(const void* const* p, int C) {
+  // order: tb sw sb fb cw cb rw rb tscl fscl cmag csgn cscl tmma fmma cmma
   auto f = [&](int i) { return static_cast<const float*>(p[i]); };
   auto b = [&](int i) { return static_cast<const uint8_t*>(p[i]); };
   Net n;
-  n.trunk = Mat{f(0), b(10), b(11), f(12), W};
-  n.tb = f(1); n.sw = f(2); n.sb = f(3);
-  n.feat = Mat{f(4), b(13), b(14), f(15), W};
-  n.fb = f(5);
-  n.color = Mat{f(6), b(16), b(17), f(18), C};
-  n.cb = f(7); n.rw = f(8); n.rb = f(9);
+  n.tb = f(0); n.sw = f(1); n.sb = f(2); n.fb = f(3);
+  n.color = Mat{f(4), b(10), b(11), f(12), C};
+  n.cb = f(5); n.rw = f(6); n.rb = f(7);
+  n.tscl = f(8); n.fscl = f(9);
+  n.tmma = p[13]; n.fmma = p[14]; n.cmma = p[15];
   return n;
 }
 
@@ -518,12 +654,14 @@ Dims make_dims(const int* v) {
   D.C = v[5]; D.pos_freqs = v[6]; D.dir_freqs = v[7];
   D.pe = 3 + 6 * D.pos_freqs; D.de = 3 + 6 * D.dir_freqs;
   D.P = v[8]; D.P2 = v[9];
+  D.kpe = (D.pe + 15) & ~15;
   return D;
 }
 
 bool dims_ok(const Dims& D) {
-  return D.W > 0 && D.W <= MAXW && D.C > 0 && D.C <= MAXW && D.rt > 0 &&
-         D.R > 0 && D.P % 8 == 0 && D.P >= D.W + D.pe && D.P2 >= D.W + D.de;
+  return D.W > 0 && D.W <= MAXW && D.W % 16 == 0 && D.C > 0 &&
+         D.C <= MAXW && D.C % 8 == 0 && D.rt > 0 && D.R > 0 &&
+         D.P % 8 == 0 && D.P >= D.W + D.pe && D.P2 >= D.W + D.de;
 }
 
 template <typename K>
@@ -532,17 +670,25 @@ cudaError_t launch_setup(K kernel, size_t smem) {
                               (int)smem);
 }
 
+template <typename K>
+cudaError_t resident(K kernel, size_t smem, int* blocks) {
+  cudaError_t e = launch_setup(kernel, smem);
+  if (e) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, NT,
+                                                       smem);
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1. ptrs: rays_o, rays_d, t, deltas, alive|null, rgb, w, acc, net[19].
+// K1. ptrs: rays_o, rays_d, t, deltas, alive|null, rgb, w, acc, net[16].
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, N, quantized.
 int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
   const Dims D = make_dims(dims);
   const int N = dims[10], q = dims[11];
   if (!dims_ok(D) || N < 1) return (int)cudaErrorInvalidValue;
-  const Net net = make_net(ptrs + 8, D.W, D.C);
+  const Net net = make_net(ptrs + 8, D.C);
   const size_t smem = carve(nullptr, nullptr, D, N, 0, 0);
   const dim3 grid((D.R + D.rt - 1) / D.rt);
   const float* o = static_cast<const float*>(ptrs[0]);
@@ -568,7 +714,7 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
 }
 
 // K2. ptrs: rays_o, rays_d, t_row, u_row, alive|null, rgb, rgb_c, acc, acc_c,
-// depth, net_c[19], net_f[19].
+// depth, net_c[16], net_f[16].
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, Nc, Nf,
 // qc, qf, ert. thr: a ray stays alive while acc_c < thr (under ert).
 int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
@@ -577,8 +723,8 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
   const int Nc = dims[10], Nf = dims[11], qc = dims[12], qf = dims[13];
   const int ert = dims[14];
   if (!dims_ok(D) || Nc < 3 || Nf < 1) return (int)cudaErrorInvalidValue;
-  const Net nc = make_net(ptrs + 10, D.W, D.C);
-  const Net nf = make_net(ptrs + 29, D.W, D.C);
+  const Net nc = make_net(ptrs + 10, D.C);
+  const Net nf = make_net(ptrs + 10 + NET_PTRS, D.C);
   const size_t smem = carve(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
   const dim3 grid((D.R + D.rt - 1) / D.rt);
   const float* in[5];
@@ -599,6 +745,28 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
   else { PLCORE_K2(false, false) }
 #undef PLCORE_K2
   return (int)cudaGetLastError();
+}
+
+// Blocks of K1 (kernel 0, dims as plcore_fused's) or K2 (kernel 1, dims as
+// plcore_two_pass's) resident on one SM, from the occupancy calculator at
+// the launch's shared memory; written to *blocks.
+int plcore_blocks_per_sm(const int* dims, int kernel, int* blocks) {
+  const Dims D = make_dims(dims);
+  if (!dims_ok(D)) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (kernel == 0) {
+    const size_t smem = carve(nullptr, nullptr, D, dims[10], 0, 0);
+    e = dims[11] ? resident(plcore_fused_kernel<true>, smem, blocks)
+                 : resident(plcore_fused_kernel<false>, smem, blocks);
+  } else {
+    const int Nc = dims[10], Nf = dims[11], qc = dims[12], qf = dims[13];
+    const size_t smem = carve(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
+    if (qc && qf) e = resident(plcore_two_pass_kernel<true, true>, smem, blocks);
+    else if (qc) e = resident(plcore_two_pass_kernel<true, false>, smem, blocks);
+    else if (qf) e = resident(plcore_two_pass_kernel<false, true>, smem, blocks);
+    else e = resident(plcore_two_pass_kernel<false, false>, smem, blocks);
+  }
+  return (int)e;
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// RMCM dequant-fused matrix product for Hopper (sm_90a):
+// RMCM dequant-fused matrix product for Hopper (sm_90a), on the tensor
+// cores:
 //   y[m, n] = (sum_k x[m, k] * mag[k, n] * (1 - 2 s[k, n])) * scale[n]
 // with x (M, K) f32 or bf16, mag (K, N) uint8, the signs bit-packed along K
 // as (ceil(K / 8), N) uint8 (bit j of byte i is row 8i + j), scale (N,)
@@ -9,158 +10,506 @@
 //   rmcm_matmul_kernel  <- kernels/rmcm_matmul.py :: rmcm_matmul
 //                          (body _kernel, sign decode _unpack_signs)
 //
-// What bounds it on this card depends on M. A weight costs 1.125 bytes;
-// with few rows (decode, M = 16 at K = 1536, N = 8960) the product does
-// 2 * M operations per weight byte and the bound is the weight bytes over
-// the memory rate. With many rows (the NeRF trunk at one engine tile,
-// M = 131072, K = N = 256) it is the fp32 multiply-adds of the CUDA cores.
+// What bounds it on this card: bytes, at both shapes it serves. A weight
+// costs 1.125 bytes. At the NeRF trunk layer of one engine tile (M =
+// 131072, K = N = 256, f32) x and y are 134 MB each, about 80 us at
+// 3.35 TB/s, while the three bf16 passes take about 48 us at the bf16
+// peak. At a decode shape (M = 16, K = 1536, N = 8960) the 15.5 MB of
+// packed weight take about 4.8 us.
 //
-// What the design does about it (a first, simple version):
-// * One block computes one 64 x 64 tile of y with 256 threads, each
-//   holding a 4 x 4 block of sums in registers. K is walked in chunks of
-//   32 rows: the block stages the x chunk (converted to f32), the
-//   magnitude bytes and the sign bytes in shared memory, so the weight
-//   crosses device memory in its packed 1.125-byte form, once per block.
-// * The sign bit is decoded in the inner loop, beside the multiply-add:
-//   the dequantized weight never exists in device memory.
+// What the design does about it:
+// * Tensor cores with exact split products (mma_split.cuh): the signed
+//   magnitude is exact in bf16; an f32 x is split into three bf16 pieces
+//   as it is loaded into the A fragment, a bf16 x is taken as it is (one
+//   MMA per k step is then exact). f32 accumulators, scale in the epilogue.
+// * The weight crosses device memory in its packed 1.125-byte form: the
+//   magnitude and sign bytes of a 32-row chunk are staged with cp.async in
+//   a ring of stages and decoded in shared memory into a bf16 signed
+//   magnitude tile, (n, k) with k contiguous, which the B fragments read.
+// * Persistent blocks walk their output tiles (and K chunks) as one
+//   stream, so the loads of the next tile are in flight during the
+//   epilogue of this one.
+// * Two routes chosen by M. Large M: 128 x 128 tiles, 8 warps of 32 x 64.
+//   Small M (M <= 64): 64 x 128 tiles, 8 warps of 64 x 16 and a deeper
+//   ring. Where the output tiles cannot fill the card's resident blocks
+//   (always at decode shapes), K is split across blocks so that every SM
+//   keeps several weight chunks in flight; the partial sums go to a
+//   scratch buffer and a second launch adds them in a fixed order and
+//   applies the scale. No float atomics: two calls on the same inputs
+//   give the same bits.
 // * The ragged edges of M, N and K are masked in the kernel; nothing is
-//   padded. Rows of the last K chunk beyond K enter as zeros.
-// * Consecutive blocks along grid x walk M over the same N tile, so the
-//   weight tile they share is read from L2.
-// * fp32 FMA throughout: no TF32, no tensor cores.
+//   padded. Where rows or the pointers are not 16-byte aligned the same
+//   kernel stages with plain loads instead of cp.async.
 //
-// Interface: a plain C entry point for ctypes; it launches one kernel on
-// the given stream and returns cudaGetLastError().
+// Interface: plain C entry points for ctypes. rmcm_matmul_plan says which
+// route a shape takes and how many K splits (the caller allocates the
+// scratch); rmcm_matmul launches and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_split.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // rows of y per block
-constexpr int BN = 64;        // columns of y per block
-constexpr int BK = 32;        // K rows per staged chunk (a multiple of 8)
-constexpr int TM = 4;         // rows per thread
-constexpr int TN = 4;         // columns per thread
-constexpr int NT = (BM / TM) * (BN / TN);   // 256 threads
-constexpr int XS = BK + 1;    // x row stride in shared memory (no conflicts)
+using namespace mma_split;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+constexpr int NT = 256;       // threads per block, 8 warps
+constexpr int BK = 32;        // K rows per staged chunk (a multiple of 8)
+constexpr int XS = 40;        // x row stride in shared memory, elements
+constexpr int BS = 40;        // decoded weight row stride, bf16
+constexpr int SMALL_M = 64;   // M at or below this takes the small route
+
+template <int WM_, int MT_, int NTW_, int STAGES_>
+struct Route {
+  static constexpr int WM = WM_;          // warps along M
+  static constexpr int WN = 8 / WM_;      // warps along N
+  static constexpr int MT = MT_;          // 16-row m tiles per warp
+  static constexpr int NTW = NTW_;        // 8-column n tiles per warp
+  static constexpr int STAGES = STAGES_;
+  static constexpr int BM = WM * MT * 16;
+  static constexpr int BN = WN * NTW * 8;
+};
+using Large = Route<4, 2, 8, 3>;    // 128 x 128, warp tile 32 x 64
+using Small = Route<1, 4, 2, 6>;    // 64 x 128, warp tile 64 x 16
+
+template <typename T, class R>
+struct Smem {
+  static constexpr int X = R::BM * XS * (int)sizeof(T);
+  static constexpr int MAG = BK * R::BN;
+  static constexpr int SGN = (BK / 8) * R::BN;
+  static constexpr int STAGE = X + MAG + SGN;
+  static constexpr int B = R::BN * BS * 2;
+  static constexpr int BYTES = R::STAGES * STAGE + B;
+};
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-rmcm_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mag,
-                   const uint8_t* __restrict__ sgn,
-                   const float* __restrict__ scale, T* __restrict__ y,
-                   int M, int K, int N) {
-  __shared__ float xs[BM * XS];                  // x chunk, (BM, BK) + pad
-  __shared__ __align__(16) uint8_t ms[BK * BN];  // magnitudes, (BK, BN)
-  __shared__ __align__(16) uint8_t ss[(BK / 8) * BN];  // sign bytes
+// which output tile, K split and K chunks a work item is
+struct Cursor {
+  int item, kc, kend;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);     // column group
-  const int ty = tid / (BN / TN);     // row group
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+struct Shape {
+  int M, K, N, nsplit, cps;   // cps: K chunks per split
+  int ntn, nk, nwork;
+};
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+__device__ __forceinline__ void seek(Cursor& c, int item, const Shape& s) {
+  c.item = item;
+  if (item < s.nwork) {
+    c.kc = (item % s.nsplit) * s.cps;
+    c.kend = min(s.nk, c.kc + s.cps);
+  }
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // x chunk: consecutive threads read consecutive k of one row
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int r = e / BK, c = e % BK;
-      const int gm = m0 + r, gk = k0 + c;
-      xs[r * XS + c] =
-          (gm < M && gk < K) ? to_f32(x[(size_t)gm * K + gk]) : 0.0f;
+__device__ __forceinline__ void advance(Cursor& c, const Shape& s) {
+  if (++c.kc == c.kend) seek(c, c.item + gridDim.x, s);
+}
+
+template <class R>
+__device__ __forceinline__ int tile_m0(const Cursor& c, const Shape& s) {
+  return c.item / (s.nsplit * s.ntn) * R::BM;
+}
+template <class R>
+__device__ __forceinline__ int tile_n0(const Cursor& c, const Shape& s) {
+  return c.item / s.nsplit % s.ntn * R::BN;
+}
+
+// stage one K chunk: x rows (as T), magnitude and sign bytes
+template <typename T, class R, bool ALIGNED>
+__device__ void load_stage(uint8_t* st, const T* x, const uint8_t* mag,
+                           const uint8_t* sgn, const Cursor& c,
+                           const Shape& s) {
+  using SM = Smem<T, R>;
+  using U = typename std::conditional<sizeof(T) == 4, uint32_t,
+                                      uint16_t>::type;
+  U* xs = reinterpret_cast<U*>(st);
+  uint8_t* ms = st + SM::X;
+  uint8_t* ss = ms + SM::MAG;
+  const int m0 = tile_m0<R>(c, s), n0 = tile_n0<R>(c, s), k0 = c.kc * BK;
+  const int M = s.M, K = s.K, N = s.N;
+  const U* xu = reinterpret_cast<const U*>(x);
+  if constexpr (ALIGNED) {
+    constexpr int XE = 16 / sizeof(T);          // elements per 16 bytes
+    constexpr int XC = BK / XE;                 // 16-byte pieces per row
+    for (int e = threadIdx.x; e < R::BM * XC; e += NT) {
+      const int r = e / XC, q = e % XC;
+      const int gm = m0 + r, gk = k0 + q * XE;
+      const bool ok = gm < M && gk < K;
+      cp_async16(xs + r * XS + q * XE, ok ? xu + (size_t)gm * K + gk : xu,
+                 ok ? 16 : 0);
     }
-    // magnitude chunk: consecutive threads read consecutive n of one k row
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int r = e / BN, c = e % BN;
-      const int gk = k0 + r, gn = n0 + c;
+    constexpr int NC = R::BN / 16;
+    for (int e = threadIdx.x; e < BK * NC; e += NT) {
+      const int r = e / NC, q = e % NC;
+      const int gk = k0 + r, gn = n0 + q * 16;
+      const bool ok = gk < K && gn < N;
+      cp_async16(ms + r * R::BN + q * 16, ok ? mag + (size_t)gk * N + gn : mag,
+                 ok ? 16 : 0);
+    }
+    for (int e = threadIdx.x; e < (BK / 8) * NC; e += NT) {
+      const int r = e / NC, q = e % NC;
+      const int gb = k0 / 8 + r, gn = n0 + q * 16;
+      const bool ok = gb * 8 < K && gn < N;
+      cp_async16(ss + r * R::BN + q * 16, ok ? sgn + (size_t)gb * N + gn : sgn,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R::BM * BK; e += NT) {
+      const int r = e / BK, q = e % BK;
+      const int gm = m0 + r, gk = k0 + q;
+      xs[r * XS + q] = (gm < M && gk < K) ? xu[(size_t)gm * K + gk] : U(0);
+    }
+    for (int e = threadIdx.x; e < BK * R::BN; e += NT) {
+      const int r = e / R::BN, q = e % R::BN;
+      const int gk = k0 + r, gn = n0 + q;
       ms[e] = (gk < K && gn < N) ? mag[(size_t)gk * N + gn] : 0;
     }
-    // sign chunk: BK / 8 packed rows; k0 is a multiple of 8
-    for (int e = tid; e < (BK / 8) * BN; e += NT) {
-      const int r = e / BN, c = e % BN;
-      const int gb = k0 / 8 + r, gn = n0 + c;
+    for (int e = threadIdx.x; e < (BK / 8) * R::BN; e += NT) {
+      const int r = e / R::BN, q = e % R::BN;
+      const int gb = k0 / 8 + r, gn = n0 + q;
       ss[e] = (gb * 8 < K && gn < N) ? sgn[(size_t)gb * N + gn] : 0;
     }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[(ty * TM + i) * XS + k];
-      const uchar4 mq = *reinterpret_cast<const uchar4*>(&ms[k * BN + tx * TN]);
-      const uchar4 sq =
-          *reinterpret_cast<const uchar4*>(&ss[(k / 8) * BN + tx * TN]);
-      const int bit = k % 8;
-      // signed magnitude, exact in f32: mag * (1 - 2 s)
-      const float w[TN] = {
-          ((sq.x >> bit) & 1) ? -(float)mq.x : (float)mq.x,
-          ((sq.y >> bit) & 1) ? -(float)mq.y : (float)mq.y,
-          ((sq.z >> bit) & 1) ? -(float)mq.z : (float)mq.z,
-          ((sq.w >> bit) & 1) ? -(float)mq.w : (float)mq.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+}
 
-  // epilogue: the per-column scale once, after the whole K sum
+// magnitude and sign bytes of a stage -> bf16 signed magnitudes, (n, k)
+// with k contiguous; one thread per column and half of the 32 rows
+template <class R>
+__device__ void decode(const uint8_t* ms, const uint8_t* ss,
+                       __nv_bfloat16* bs) {
+  for (int e = threadIdx.x; e < 2 * R::BN; e += NT) {
+    const int n = e % R::BN, hk = e / R::BN;
+    const uint32_t sb = ss[(2 * hk) * R::BN + n] |
+                        ((uint32_t)ss[(2 * hk + 1) * R::BN + n] << 8);
+    uint32_t w[8];
 #pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int gn = n0 + tx * TN + j;
-    if (gn >= N) continue;
-    const float s = scale[gn];
+    for (int i = 0; i < 8; ++i) {
+      const int k = 16 * hk + 2 * i;
+      float a = (float)ms[k * R::BN + n];
+      float b = (float)ms[(k + 1) * R::BN + n];
+      if ((sb >> (2 * i)) & 1) a = -a;
+      if ((sb >> (2 * i + 1)) & 1) b = -b;
+      w[i] = bits(__floats2bfloat162_rn(a, b));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(bs + n * BS + 16 * hk);
+    dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+  }
+}
+
+// acc += x chunk . decoded weight chunk, for the warp's tile
+template <typename T, class R>
+__device__ __forceinline__ void mma_chunk(float (&acc)[R::MT][R::NTW][4],
+                                          const uint8_t* st,
+                                          const __nv_bfloat16* bs, int mtv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % R::WM, wn = warp / R::WM;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty * TM + i;
-      if (gm < M) store(&y[(size_t)gm * N + gn], acc[i][j] * s);
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t b[R::NTW][2];
+#pragma unroll
+    for (int nt = 0; nt < R::NTW; ++nt) {
+      const __nv_bfloat16* bp =
+          bs + ((wn * R::NTW + nt) * 8 + g) * BS + ks + 2 * t;
+      b[nt][0] = *reinterpret_cast<const uint32_t*>(bp);
+      b[nt][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < R::MT; ++mt) {
+      if (mt >= mtv) continue;
+      const int r = (wm * R::MT + mt) * 16 + g;
+      if constexpr (std::is_same<T, float>::value) {
+        const float* xr = reinterpret_cast<const float*>(st) + r * XS + ks +
+                          2 * t;
+        const float2 v[4] = {*reinterpret_cast<const float2*>(xr),
+                             *reinterpret_cast<const float2*>(xr + 8 * XS),
+                             *reinterpret_cast<const float2*>(xr + 8),
+                             *reinterpret_cast<const float2*>(xr + 8 * XS + 8)};
+        Bf16x3 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = split_bf16x3(v[i].x, v[i].y);
+#pragma unroll
+        for (int nt = 0; nt < R::NTW; ++nt)
+          mma_bf16x3(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      } else {
+        const __nv_bfloat16* xr =
+            reinterpret_cast<const __nv_bfloat16*>(st) + r * XS + ks + 2 * t;
+        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xr + 8 * XS);
+        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xr + 8);
+        const uint32_t a3 =
+            *reinterpret_cast<const uint32_t*>(xr + 8 * XS + 8);
+#pragma unroll
+        for (int nt = 0; nt < R::NTW; ++nt)
+          mma_bf16(acc[mt][nt], a0, a1, a2, a3, b[nt][0], b[nt][1]);
+      }
     }
   }
 }
 
+// the finished sums of one work item: y = acc * scale, or (split K) the
+// raw partial sums into part[split]
+template <typename T, class R>
+__device__ void epilogue(float (&acc)[R::MT][R::NTW][4], const Cursor& c,
+                         const Shape& s, const float* scale, T* y,
+                         float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % R::WM, wn = warp / R::WM;
+  const int m0 = tile_m0<R>(c, s), n0 = tile_n0<R>(c, s);
+  const int M = s.M, N = s.N;
+  const bool pairs = (N & 1) == 0;
+  float* pdst = part ? part + (size_t)(c.item % s.nsplit) * M * N : nullptr;
+#pragma unroll
+  for (int nt = 0; nt < R::NTW; ++nt) {
+    const int col = n0 + (wn * R::NTW + nt) * 8 + 2 * t;
+    if (col >= N) continue;
+    const bool two = col + 1 < N;
+    const float s0 = pdst ? 1.f : scale[col];
+    const float s1 = (pdst || !two) ? 1.f : scale[col + 1];
+#pragma unroll
+    for (int mt = 0; mt < R::MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + (wm * R::MT + mt) * 16 + g + 8 * h;
+        if (row >= M) continue;
+        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+        const size_t o = (size_t)row * N + col;
+        if (pdst) {
+          if (two && pairs) {
+            store2(pdst + o, v0, v1);
+          } else {
+            pdst[o] = v0;
+            if (two) pdst[o + 1] = v1;
+          }
+        } else {
+          const float y0 = __fmul_rn(v0, s0), y1 = __fmul_rn(v1, s1);
+          if (two && pairs) {
+            store2(y + o, y0, y1);
+          } else {
+            store1(y + o, y0);
+            if (two) store1(y + o + 1, y1);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, class R, bool ALIGNED>
+__global__ void __launch_bounds__(NT)
+rmcm_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ mag,
+                const uint8_t* __restrict__ sgn,
+                const float* __restrict__ scale, T* __restrict__ y,
+                float* __restrict__ part, Shape s) {
+  using SM = Smem<T, R>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __nv_bfloat16* bs =
+      reinterpret_cast<__nv_bfloat16*>(smem + R::STAGES * SM::STAGE);
+  uint8_t* const base = smem;
+  auto stage = [=](int i) { return base + i * SM::STAGE; };
+  const int warp = threadIdx.x >> 5, wm = warp % R::WM;
+
+  Cursor pc, cc;
+  seek(pc, blockIdx.x, s);
+  seek(cc, blockIdx.x, s);
+#pragma unroll 1
+  for (int i = 0; i < R::STAGES - 1; ++i) {
+    if (pc.item < s.nwork) {
+      load_stage<T, R, ALIGNED>(stage(i), x, mag, sgn, pc, s);
+      advance(pc, s);
+    }
+    cp_async_commit();
+  }
+
+  float acc[R::MT][R::NTW][4];
+#pragma unroll
+  for (int i = 0; i < R::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < R::NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  int st = 0;
+#pragma unroll 1
+  while (cc.item < s.nwork) {
+    cp_async_wait<R::STAGES - 2>();
+    __syncthreads();   // stage st landed; every warp is done with st - 1
+    const int ps = (st + R::STAGES - 1) % R::STAGES;
+    if (pc.item < s.nwork) {
+      load_stage<T, R, ALIGNED>(stage(ps), x, mag, sgn, pc, s);
+      advance(pc, s);
+    }
+    cp_async_commit();
+    decode<R>(stage(st) + SM::X, stage(st) + SM::X + SM::MAG, bs);
+    __syncthreads();
+    const int rows = s.M - tile_m0<R>(cc, s) - wm * R::MT * 16;
+    mma_chunk<T, R>(acc, stage(st), bs, min(R::MT, (rows + 15) / 16));
+    if (cc.kc + 1 == cc.kend) {
+      epilogue<T, R>(acc, cc, s, scale, y, s.nsplit > 1 ? part : nullptr);
+#pragma unroll
+      for (int i = 0; i < R::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < R::NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    advance(cc, s);
+    st = (st + 1) % R::STAGES;
+  }
+  cp_async_wait<0>();
+}
+
+// y = (part[0] + part[1] + ... ) * scale, the splits added in order
 template <typename T>
+__global__ void rmcm_reduce_kernel(const float* __restrict__ part,
+                                   const float* __restrict__ scale,
+                                   T* __restrict__ y, int M, int N,
+                                   int nsplit) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t MN = (size_t)M * N;
+  if (i >= MN) return;
+  float acc = part[i];
+  for (int p = 1; p < nsplit; ++p) acc = __fadd_rn(acc, part[p * MN + i]);
+  store1(y + i, __fmul_rn(acc, scale[i % N]));
+}
+
+template <typename T, class R, bool A>
+cudaError_t occupancy(int* blocks) {
+  auto k = rmcm_mma_kernel<T, R, A>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T, R>::BYTES);
+  if (e) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, NT,
+                                                       Smem<T, R>::BYTES);
+}
+
+// route 0 (large M) or 1 (small M), K splits, chunks per split, grid
+template <typename T, class R>
+cudaError_t plan(int M, int K, int N, bool small, int* out) {
+  int dev, sms, per_sm;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev))) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)))
+    return e;
+  int per_sm_plain;
+  if ((e = occupancy<T, R, true>(&per_sm))) return e;
+  if ((e = occupancy<T, R, false>(&per_sm_plain))) return e;
+  const int resident = min(per_sm, per_sm_plain) * sms;
+  if (resident < 1) return cudaErrorInvalidConfiguration;
+  const int nk = (K + BK - 1) / BK;
+  const int tiles = ((M + R::BM - 1) / R::BM) * ((N + R::BN - 1) / R::BN);
+  // split K where the tiles alone cannot fill the card's resident blocks
+  int nsplit = max(1, min(nk, resident / tiles));
+  const int cps = (nk + nsplit - 1) / nsplit;
+  nsplit = (nk + cps - 1) / cps;
+  out[0] = small ? 1 : 0;
+  out[1] = nsplit;
+  out[2] = cps;
+  out[3] = min(tiles * nsplit, resident);
+  return cudaSuccess;
+}
+
+template <typename T, class R>
 int launch(const void* x, const void* mag, const void* sgn, const void* scale,
-           void* y, int M, int K, int N, cudaStream_t st) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  rmcm_matmul_kernel<T><<<grid, NT, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(mag),
-      static_cast<const uint8_t*>(sgn), static_cast<const float*>(scale),
-      static_cast<T*>(y), M, K, N);
+           void* y, void* part, int M, int K, int N, const int* p,
+           cudaStream_t st) {
+  Shape s;
+  s.M = M; s.K = K; s.N = N; s.nsplit = p[1]; s.cps = p[2];
+  s.ntn = (N + R::BN - 1) / R::BN;
+  s.nk = (K + BK - 1) / BK;
+  s.nwork = ((M + R::BM - 1) / R::BM) * s.ntn * s.nsplit;
+  if (s.nsplit > 1 && !part) return (int)cudaErrorInvalidValue;
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+      ((size_t)K * sizeof(T)) % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(mag) % 16 == 0) &&
+      (reinterpret_cast<uintptr_t>(sgn) % 16 == 0) && N % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  const uint8_t* mg = static_cast<const uint8_t*>(mag);
+  const uint8_t* sg = static_cast<const uint8_t*>(sgn);
+  const float* sc = static_cast<const float*>(scale);
+  T* yt = static_cast<T*>(y);
+  float* pt = static_cast<float*>(part);
+  const int smem = Smem<T, R>::BYTES;
+  cudaError_t e = aligned
+      ? cudaFuncSetAttribute(rmcm_mma_kernel<T, R, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+      : cudaFuncSetAttribute(rmcm_mma_kernel<T, R, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return (int)e;
+  if (aligned)
+    rmcm_mma_kernel<T, R, true><<<p[3], NT, smem, st>>>(xt, mg, sg, sc, yt,
+                                                        pt, s);
+  else
+    rmcm_mma_kernel<T, R, false><<<p[3], NT, smem, st>>>(xt, mg, sg, sc, yt,
+                                                         pt, s);
+  e = cudaGetLastError();
+  if (e || s.nsplit == 1) return (int)e;
+  const size_t mn = (size_t)M * N;
+  rmcm_reduce_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      pt, sc, yt, M, N, s.nsplit);
   return (int)cudaGetLastError();
 }
+
+bool shape_ok(int M, int K, int N) { return M >= 1 && K >= 1 && N >= 1; }
 
 }  // namespace
 
 extern "C" {
 
+// plan[4]: route (0 large M, 1 small M), K splits (> 1: the caller passes a
+// (splits, M, N) f32 scratch), K chunks per split, blocks. Also sets the
+// kernels' shared-memory limit.
+int rmcm_matmul_plan(int M, int K, int N, int x_bf16, int* plan_out) {
+  if (!shape_ok(M, K, N)) return (int)cudaErrorInvalidValue;
+  const bool small = M <= SMALL_M;
+  cudaError_t e;
+  if (x_bf16)
+    e = small ? plan<__nv_bfloat16, Small>(M, K, N, true, plan_out)
+              : plan<__nv_bfloat16, Large>(M, K, N, false, plan_out);
+  else
+    e = small ? plan<float, Small>(M, K, N, true, plan_out)
+              : plan<float, Large>(M, K, N, false, plan_out);
+  return (int)e;
+}
+
 // x (M, K) and y (M, N) both f32 (x_bf16 = 0) or both bf16 (x_bf16 = 1);
-// mag (K, N) and sgn (ceil(K / 8), N) uint8; scale (N,) f32.
+// mag (K, N) and sgn (ceil(K / 8), N) uint8; scale (N,) f32; part the
+// scratch of rmcm_matmul_plan's splits (or null); plan_in its plan.
 int rmcm_matmul(const void* x, const void* mag, const void* sgn,
-                const void* scale, void* y, int M, int K, int N, int x_bf16,
-                void* stream) {
-  if (M < 1 || K < 1 || N < 1 || (N + BN - 1) / BN > 65535)
+                const void* scale, void* y, void* part, int M, int K, int N,
+                int x_bf16, const int* plan_in, void* stream) {
+  if (!shape_ok(M, K, N) || plan_in[0] != (M <= SMALL_M ? 1 : 0) ||
+      plan_in[1] < 1 || plan_in[2] < 1 || plan_in[3] < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch<__nv_bfloat16>(x, mag, sgn, scale, y, M, K, N, st)
-                : launch<float>(x, mag, sgn, scale, y, M, K, N, st);
+  const bool small = plan_in[0] == 1;
+  if (x_bf16)
+    return small ? launch<__nv_bfloat16, Small>(x, mag, sgn, scale, y, part,
+                                                 M, K, N, plan_in, st)
+                 : launch<__nv_bfloat16, Large>(x, mag, sgn, scale, y, part,
+                                                 M, K, N, plan_in, st);
+  return small ? launch<float, Small>(x, mag, sgn, scale, y, part, M, K, N,
+                                      plan_in, st)
+               : launch<float, Large>(x, mag, sgn, scale, y, part, M, K, N,
+                                      plan_in, st);
 }
 
 }  // extern "C"

@@ -7,6 +7,12 @@
   render of every ray in ONE launch; coarse weights and sample positions
   never leave the block.
 
+Both run their MLP layers on the tensor cores (bf16x3 under RMCM, 3xTF32
+for f32 weights) and read the ``ops.kernel_weights`` layout: the
+reference's ``stack_plcore_weights`` layout plus its fragment-ordered
+copies under ``"mma"`` (``mma_shapes``). ``blocks_per_sm`` asks the
+library how many blocks of a kernel fit on one SM.
+
 A CUDA tensor launches the kernel on the current stream (outputs allocated
 here with ``torch.empty``); a CPU tensor takes the plain version in
 ``kernels.ref``. Nothing else: no fallback from one to the other.
@@ -16,6 +22,7 @@ but at a launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -25,11 +32,30 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_plcore_call": 0, "two_pass_plcore_call": 0}
 
-# one network's pointer order at the C interface
-_NET_KEYS = ["trunk_w", "trunk_b", "sigma_w", "sigma_b", "feat_w", "feat_b",
-             "color0_w", "color0_b", "rgb_w", "rgb_b",
-             "trunk_mag", "trunk_sgn", "trunk_scl", "feat_mag", "feat_sgn",
-             "feat_scl", "color0_mag", "color0_sgn", "color0_scl"]
+# one network's pointer order at the C interface: the MLP layers come from
+# the tensor-core copies; of the reference layout the kernels read the
+# biases, the exact heads, the scales and color0 (its direction rows)
+_NET_KEYS = ["trunk_b", "sigma_w", "sigma_b", "feat_b", "color0_w",
+             "color0_b", "rgb_w", "rgb_b", "trunk_scl", "feat_scl",
+             "color0_mag", "color0_sgn", "color0_scl",
+             "mma.trunk", "mma.feat", "mma.color0"]
+
+
+def mma_rows(cfg: NerfConfig):
+    """(KH, KPE): rows of h input and of (zero-padded) PE input in a trunk
+    layer's tensor-core copy."""
+    return cfg.trunk_width, -(-cfg.pos_enc_dim // 16) * 16
+
+
+def mma_shapes(cfg: NerfConfig, quantized: bool) -> dict:
+    """Shapes of the tensor-core copies: (k steps, column tiles, 32 lanes,
+    4), a k step 16 rows (bf16, RMCM) or 8 rows (TF32 hi/lo, f32)."""
+    W, C, L = cfg.trunk_width, cfg.color_width, cfg.trunk_layers
+    KH, KPE = mma_rows(cfg)
+    ks = 16 if quantized else 8
+    return {"trunk": (L, (KH + KPE) // ks, W // 8, 32, 4),
+            "feat": (KH // ks, W // 8, 32, 4),
+            "color0": (KH // ks, C // 8, 32, 4)}
 
 
 def _weight_shapes(cfg: NerfConfig, quantized: bool) -> dict:
@@ -67,14 +93,24 @@ def _net_ptrs(cfg: NerfConfig, weights: dict, device) -> list:
     for k, shape in _weight_shapes(cfg, quantized).items():
         dt = torch.uint8 if k.endswith(("_mag", "_sgn")) else torch.float32
         _check(k, weights[k], shape, dt, device)
-    return [weights[k].data_ptr() if k in weights else None
-            for k in _NET_KEYS]
+    if "mma" not in weights:
+        raise ValueError("the kernels read the ops.kernel_weights layout; "
+                         "this one has no tensor-core copies ('mma')")
+    mma = weights["mma"]
+    dt = torch.bfloat16 if quantized else torch.float32
+    for k, shape in mma_shapes(cfg, quantized).items():
+        _check(f"mma.{k}", mma[k], shape, dt, device)
+    flat = {**weights, **{f"mma.{k}": v for k, v in mma.items()}}
+    return [flat[k].data_ptr() if k in flat else None for k in _NET_KEYS]
 
 
 def _dims(cfg: NerfConfig, R: int, rt: int) -> list:
     P, P2 = ref.packed_rows(cfg)
-    if cfg.trunk_width > 256 or cfg.color_width > 256:
-        raise ValueError("the kernels compute layers at most 256 wide")
+    W, C = cfg.trunk_width, cfg.color_width
+    if W > 256 or C > 256 or W % 16 or C % 8:
+        raise ValueError("the kernels compute layers at most 256 wide, the "
+                         "trunk a multiple of 16, the color branch of 8; got "
+                         f"W={W}, C={C}")
     skip = sum(1 << i for i in cfg.skip_at)
     return [R, rt, cfg.trunk_width, cfg.trunk_layers, skip, cfg.color_width,
             cfg.pos_freqs, cfg.dir_freqs, P, P2]
@@ -89,6 +125,34 @@ def _launch(fn, ptrs: list, dims: list, *extra):
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(dims: tuple, kernel: int, device: torch.device) -> int:
+    from repro_torch.kernels import build
+    lib_dims = (ctypes.c_int * len(dims))(*dims)
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device):
+        rc = build.load().plcore_blocks_per_sm(
+            ctypes.cast(lib_dims, ctypes.c_void_p), kernel,
+            ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0 or out[0] < 1:
+        raise RuntimeError(f"plcore_blocks_per_sm failed: CUDA error {rc}, "
+                           f"{out[0]} blocks")
+    return out[0]
+
+
+def blocks_per_sm(cfg: NerfConfig, kernel: str, samples: tuple,
+                  quantized: tuple, device) -> int:
+    """Blocks of K1 (``kernel`` "k1", ``samples`` (N,), ``quantized``
+    (q,)) or K2 ("k2", (n_coarse, n_fine), (qc, qf)) resident on one SM of
+    ``device``, from the occupancy calculator at the launch's shared
+    memory."""
+    dims = _dims(cfg, 1, 1) + [*samples, *map(int, quantized)]
+    if kernel == "k2":
+        dims.append(0)
+    return _blocks_per_sm(tuple(dims), {"k1": 0, "k2": 1}[kernel],
+                          torch.device(device))
 
 
 def _device_of(rays_o: torch.Tensor) -> torch.device:

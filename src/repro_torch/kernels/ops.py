@@ -9,9 +9,17 @@
   PE rows; skip layer: [h | PE] rows; else h rows), color0 row-padded to
   P2, P and P2 128-aligned. With ``quant`` the MONB matrices become uint8
   magnitudes + bit-packed signs + (1, out) scales; sigma and rgb stay f32.
+  It equals the reference's layout key for key and bit for bit.
+* ``kernel_weights`` is that layout plus ``mma_weights``: the copies of
+  the MLP matrices that the kernels' tensor cores read, built once at pack
+  time beside the reference layout. Their rows are K-padded with zeros
+  (the PE rows of the trunk to a multiple of 16) and laid out in the MMA
+  fragment order: bf16 signed magnitudes under RMCM (exact), TF32 hi/lo
+  pairs (``tf32_split``) for f32 weights.
 * ``fused_render`` (one sample set, K1) and ``fused_render_two_pass``
-  (the whole two-pass render, K2) pick the ray tile and call the kernel
-  wrappers. Both kernels and their plain versions handle a ragged last
+  (the whole two-pass render, K2) pick the ray tile (from the kernel's
+  resident blocks per SM on the card) and call the kernel wrappers. Both
+  kernels and their plain versions handle a ragged last
   tile themselves, so no ray is padded here. K2's ray-independent sample
   grids come from ``sample_rows``, built once per config and device.
 * ``pack_count`` and ``dispatch_count`` are plain counters: packs at load
@@ -35,10 +43,6 @@ _COUNTS = {"packs": 0, "dispatches": 0}
 
 # rays per tile of the plain (CPU) versions: the tensor-code batch size
 PLAIN_TILE = 64
-# resident blocks per SM: the kernels' launch bound; at full width one
-# block takes ~95 KB of the SM's 227 KB shared memory and <= 128 registers
-# per thread, so two fit
-BLOCKS_PER_SM = 2
 # grid waves to aim for, so the last partial wave is a small share
 WAVES = 8
 
@@ -116,6 +120,98 @@ def stack_plcore_weights(cfg: NerfConfig, params: dict,
     return out
 
 
+def tf32_split(w: torch.Tensor):
+    """f32 -> (hi, lo), both TF32 values (the low 13 mantissa bits clear),
+    each rounded to nearest with ties away from zero as
+    ``cvt.rna.tf32.f32`` does: hi = tf32(w), lo = tf32(w - hi), so
+    |w - hi - lo| <= 2^-22 |w|."""
+    def rna(v):
+        b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        b = (b + 0x1000) & 0xFFFFE000
+        b = torch.where(b >= 1 << 31, b - (1 << 32), b)
+        return b.to(torch.int32).view(torch.float32)
+    hi = rna(w.to(torch.float32))
+    return hi, rna(w - hi)
+
+
+def _frag_bf16(w: torch.Tensor) -> torch.Tensor:
+    """(Kp, N) -> (Kp/16, N/8, 32, 4): per k step and column tile, lane
+    4g + t holds B of mma m16n8k16 (k 2t, 2t+1, 2t+8, 2t+9 of column g)."""
+    Kp, N = w.shape
+    v = w.reshape(Kp // 16, 2, 4, 2, N // 8, 8)       # kb, h, t, p, nt, g
+    return v.permute(0, 4, 5, 2, 1, 3).reshape(Kp // 16, N // 8, 32, 4)
+
+
+def _frag_tf32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(Kp, N) twice -> (Kp/8, N/8, 32, 4): lane 4g + t holds hi and lo of
+    B of mma m16n8k8 (k t and t + 4 of column g): {hi0, hi1, lo0, lo1}."""
+    Kp, N = hi.shape
+    v = torch.stack([hi, lo]).reshape(2, Kp // 8, 2, 4, N // 8, 8)
+    return v.permute(1, 4, 5, 3, 0, 2).reshape(Kp // 8, N // 8, 32, 4)
+
+
+def mma_matrix(frag: torch.Tensor):
+    """Inverse of the fragment order: a bf16 copy -> its (Kp, N) matrix; a
+    TF32 copy -> (hi, lo), each (Kp, N)."""
+    nkb, nt = frag.shape[:2]
+    if frag.dtype == torch.bfloat16:
+        v = frag.reshape(nkb, nt, 8, 4, 2, 2)            # kb, nt, g, t, h, p
+        return v.permute(0, 4, 3, 5, 1, 2).reshape(nkb * 16, nt * 8)
+    v = frag.reshape(nkb, nt, 8, 4, 2, 2)                # kb, nt, g, t, which, h
+    hi, lo = v.permute(4, 0, 5, 3, 1, 2).reshape(2, nkb * 8, nt * 8)
+    return hi, lo
+
+
+def mma_weights(cfg: NerfConfig, packed: dict) -> dict:
+    """The tensor-core copies of one network's MLP matrices, from its
+    ``stack_plcore_weights`` layout: {"trunk" (L, ...), "feat", "color0"
+    (its W feature rows)}. Trunk layer i has KH = W rows of h input (zero
+    for layer 0) then KPE rows of PE input (zero but for layer 0 and skip
+    layers); every copy is in ``_fp.mma_shapes``' fragment layout."""
+    W, L, pe = cfg.trunk_width, cfg.trunk_layers, cfg.pos_enc_dim
+    KH, KPE = _fp.mma_rows(cfg)
+    quantized = "trunk_mag" in packed
+
+    def dense(key, i=None):
+        """One matrix of the layout, f32 or signed magnitudes."""
+        sel = (lambda t: t) if i is None else (lambda t: t[i])
+        if not quantized:
+            return sel(packed[f"{key}_w"])
+        sgn = sel(packed[f"{key}_sgn"])
+        sg = rmcm.unpack_signs(sgn, sgn.shape[0] * 8).to(torch.float32)
+        return sel(packed[f"{key}_mag"]).to(torch.float32) * (1.0 - 2.0 * sg)
+
+    def frag(m):
+        if quantized:
+            return _frag_bf16(m.to(torch.bfloat16))
+        return _frag_tf32(*tf32_split(m))
+
+    layers = []
+    for i in range(L):
+        tw = dense("trunk", i)
+        m = tw.new_zeros((KH + KPE, W))
+        if i == 0:
+            m[KH:KH + pe] = tw[:pe]
+        else:
+            m[:W] = tw[:W]
+            if i in cfg.skip_at:
+                m[KH:KH + pe] = tw[W:W + pe]
+        layers.append(frag(m))
+    return {"trunk": torch.stack(layers).contiguous(),
+            "feat": frag(dense("feat")[:W]).contiguous(),
+            "color0": frag(dense("color0")[:W]).contiguous()}
+
+
+def kernel_weights(cfg: NerfConfig, params: dict,
+                   quant: Optional[dict] = None) -> dict:
+    """What the kernels read, packed once at load: the
+    ``stack_plcore_weights`` layout plus its tensor-core copies under
+    ``"mma"`` (one pack)."""
+    packed = stack_plcore_weights(cfg, params, quant)
+    packed["mma"] = mma_weights(cfg, packed)
+    return packed
+
+
 def trunk_rows(cfg: NerfConfig, i: int) -> int:
     """Un-padded input rows of trunk layer i in the stacked layout."""
     if i == 0:
@@ -148,15 +244,24 @@ def unstack_trunk_params(cfg: NerfConfig, packed: dict):
     return params_t, quant_t
 
 
-def pick_ray_tile(n_rays: int, device: torch.device) -> int:
+def pick_ray_tile(n_rays: int, device: torch.device,
+                  blocks_per_sm: int = 0) -> int:
     """Rays per tile. On the card a tile is the rays one block walks, one
     after another: outputs do not depend on it, so it is sized to give
-    about ``WAVES`` waves of resident blocks. On the CPU it is the plain
+    about ``WAVES`` waves of resident blocks, ``blocks_per_sm`` being the
+    kernel's (``fused_plcore.blocks_per_sm``). On the CPU it is the plain
     version's tensor batch."""
     if device.type != "cuda":
         return PLAIN_TILE
+    if blocks_per_sm < 1:
+        raise ValueError("pick_ray_tile on the card needs the kernel's "
+                         "resident blocks per SM")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, n_rays // (WAVES * BLOCKS_PER_SM * n_sm))
+    return max(1, n_rays // (WAVES * blocks_per_sm * n_sm))
+
+
+def _quantized(packed: dict) -> int:
+    return int("trunk_mag" in packed)
 
 
 def fused_render(cfg: NerfConfig, params: Optional[dict], rays_o, rays_d, t,
@@ -168,8 +273,13 @@ def fused_render(cfg: NerfConfig, params: Optional[dict], rays_o, rays_d, t,
     optional (R,) mask, dead rays come back as zeros."""
     _COUNTS["dispatches"] += 1
     if packed is None:
-        packed = stack_plcore_weights(cfg, params, quant)
-    rt = rt or pick_ray_tile(rays_o.shape[0], rays_o.device)
+        packed = kernel_weights(cfg, params, quant)
+    dev = rays_o.device
+    if rt is None:
+        per_sm = (_fp.blocks_per_sm(cfg, "k1", (t.shape[-1],),
+                                    (_quantized(packed),), dev)
+                  if dev.type == "cuda" else 0)
+        rt = pick_ray_tile(rays_o.shape[0], dev, per_sm)
     rgb, w, acc = _fp.fused_plcore_call(
         cfg, packed, rays_o.contiguous(), rays_d.contiguous(),
         t.contiguous(), deltas.contiguous(), rt=rt,
@@ -200,8 +310,14 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
     rgb_coarse, acc, acc_coarse, depth}; white background is the caller's
     composite."""
     _COUNTS["dispatches"] += 1
-    rt = rt or pick_ray_tile(rays_o.shape[0], rays_o.device)
-    t_row, u_row = sample_rows(cfg, rays_o.device)
+    dev = rays_o.device
+    if rt is None:
+        per_sm = (_fp.blocks_per_sm(
+            cfg, "k2", (cfg.n_coarse, cfg.n_fine),
+            (_quantized(packed["coarse"]), _quantized(packed["fine"])), dev)
+            if dev.type == "cuda" else 0)
+        rt = pick_ray_tile(rays_o.shape[0], dev, per_sm)
+    t_row, u_row = sample_rows(cfg, dev)
     rgb, rgb_c, acc, acc_c, depth = _fp.two_pass_plcore_call(
         cfg, packed["coarse"], packed["fine"], rays_o.contiguous(),
         rays_d.contiguous(), t_row, u_row, rt=rt,

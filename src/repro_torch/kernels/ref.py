@@ -16,6 +16,8 @@ CUDA kernels against them on the card.
 * ``rmcm_matmul_ref`` — K3: the RMCM dequant-fused matmul, in the
   kernel's order (f32 product with the signed magnitudes, then the
   per-column scale, then the cast to ``x.dtype``).
+* ``split_bf16x3`` — the kernels' split of an f32 operand into three bf16
+  pieces (``csrc/mma_split.cuh``), each rounded to nearest even.
 """
 from __future__ import annotations
 
@@ -184,6 +186,18 @@ def rmcm_matmul_ref(x: torch.Tensor, packed: dict) -> torch.Tensor:
     w = packed["mag"].to(torch.float32) * (1.0 - 2.0 * sg.to(torch.float32))
     y = (x.to(torch.float32) @ w) * packed["scale"].reshape(1, -1)
     return y.to(x.dtype)
+
+
+def split_bf16x3(x: torch.Tensor):
+    """f32 -> (h, m, l), bf16 values held in f32: h = bf16(x), m = bf16(x -
+    h), l = bf16(x - h - m). h + m + l == x exactly (3 x 8 significant
+    bits cover f32's 24)."""
+    def bf(v):
+        return v.to(torch.bfloat16).to(torch.float32)
+    x = x.to(torch.float32)
+    h = bf(x)
+    m = bf(x - h)
+    return h, m, bf(x - h - m)
 
 
 def ert_threshold(ert_eps: float) -> float:

@@ -1,7 +1,7 @@
 """Multi-scene weight cache: model residency for the serving engine.
 
 One process serves many scenes, but packing a scene's weights into the
-kernel layout (``stack_plcore_weights``, RMCM included) is load-time work
+kernel layout (``kernel_weights``, RMCM included) is load-time work
 the render path must never repeat (``kernels.ops.pack_count`` is the proof
 obligation). ``SceneCache`` keeps a capacity-bounded LRU of
 ``PackedPlcore`` instances: the first touch of a scene pays the pack, and

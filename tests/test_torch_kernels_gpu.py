@@ -1,5 +1,7 @@
 """The port's CUDA kernels (K1, K2, K3) against their plain versions on
-the card.
+the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
+(bf16x3); K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+f32 and bf16, two calls giving the same bits.
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with a card and no JAX (``--noconftest`` skips the suite's JAX-based
@@ -24,6 +26,18 @@ from repro_torch.models.params import init_params as torch_init
 # 67 rays in tiles of 4: every block walks several rays and the last tile
 # is ragged (3 rays)
 R, RT = 67, 4
+
+
+def _ert_eps_between(acc_c):
+    """An ERT eps whose threshold lies midway between two neighbouring
+    distinct coarse acc values (the widest gap of the middle half), so
+    that some rays die, others do not, and no ray sits on the threshold."""
+    below = torch.unique(acc_c[acc_c < 1.0]).double()
+    n = below.numel()
+    assert n >= 4, below
+    lo, hi = n // 4, max(n // 4 + 1, 3 * n // 4)
+    i = lo + int(torch.argmax(below[lo + 1:hi + 1] - below[lo:hi]))
+    return 1.0 - float((below[i] + below[i + 1]) / 2)
 
 
 def _rays(n, seed=5):
@@ -59,7 +73,7 @@ def test_kernels_match_plain_versions_on_card():
         for n in ("coarse", "fine"):
             q = rmcm.quantize_tree(params[n]) if quantized else None
             packed[n] = bridge.to_device(
-                ops.stack_plcore_weights(cfg, params[n], q), dev)
+                ops.kernel_weights(cfg, params[n], q), dev)
         tol = 5e-3 if quantized else 1e-3
         args = (cfg, packed["coarse"], packed["fine"], o, d, *rows)
 
@@ -75,11 +89,7 @@ def test_kernels_match_plain_versions_on_card():
             return p
 
         acc_c = both(0.0, None)[3]
-        # the median of the distinct coarse acc values below 1 as the ERT
-        # threshold: some rays die, others do not
-        below = torch.unique(acc_c[acc_c < 1.0])
-        assert below.numel() >= 2, below
-        eps = 1.0 - float(below[below.numel() // 2])
+        eps = _ert_eps_between(acc_c)
         dead = int((acc_c >= ref.ert_threshold(eps)).sum())
         assert eps > 0.0 and 0 < dead < R, (eps, dead)
         both(eps, None)
@@ -129,3 +139,52 @@ def test_rmcm_matmul_matches_plain_version_on_card(m, k, n, dtype):
     y = ops.rmcm_matmul(x.reshape(1, m, k), packed, bm=8, bn=16, bk=32)
     torch.cuda.synchronize()
     assert torch.equal(y.reshape(m, n), got)
+
+
+# K not a multiple of 16 and N not of 8 (plain staging), and a shape whose
+# rows are 16-byte aligned (cp.async staging); M on both sides of the
+# route switch at 64
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 16, 63, 64, 65, 4103])
+@pytest.mark.parametrize("k,n", [(300, 90), (512, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmcm_matmul_routes_on_card(m, k, n, dtype):
+    """Each route of K3 against its plain version, counted by route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(m + k + n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    packed = bridge.to_device(rmcm.pack(rmcm.quantize(w)), dev)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev, dt)
+    route = k3.route(m)
+    assert route == ("small_m" if m <= 64 else "large_m")
+    n0 = k3.ROUTE_LAUNCHES[route]
+    got = k3.rmcm_matmul(x, packed)
+    want = ref.rmcm_matmul_ref(x, packed)
+    torch.cuda.synchronize()
+    assert k3.ROUTE_LAUNCHES[route] == n0 + 1
+    atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (0.3, 0.05)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16, 1536, 8960), (64, 1536, 896),
+                                   (4103, 512, 256)])
+def test_rmcm_matmul_repeats_bit_for_bit_on_card(m, k, n):
+    """Two calls on the same inputs give the same bits: the split-K route
+    adds its partial sums in a fixed order, with no float atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(m)
+    packed = rmcm.pack(rmcm.quantize(torch.randn(k, n, generator=gen,
+                                                 device=dev)))
+    x = torch.randn(m, k, generator=gen, device=dev)
+    first = k3.rmcm_matmul(x, packed)
+    for _ in range(3):
+        assert torch.equal(k3.rmcm_matmul(x, packed), first)

@@ -24,15 +24,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 3. K3 (``rmcm_matmul``) against its plain version at the NeRF trunk layer
    of one 512-ray tile's fine pass (131072 x 256 x 256), a decode-sized
    product at qwen2-1.5b's MLP width (16 x 1536 x 8960), the rows around
-   its route switch at the trunk width (M = 63, 64, 65 x 256 x 256) and a
-   ragged (33 x 512 x 65), f32 inputs at atol 2e-4 / rtol 1e-4 and bf16
-   inputs at atol 0.3 / rtol 0.05 (the reference test's tolerances); each
-   call is repeated
-   and must give the same bits, and takes the route its M names. All but
-   the ragged shape are timed in f32 and bf16 (cycling through weight
-   copies that exceed the L2 cache) beside their bounds and one
+   its route switch at the trunk width (M = 63, 64, 65 x 256 x 256) and at
+   the decode width (65 x 1536 x 8960), and a ragged (33 x 512 x 65), f32
+   inputs at atol 2e-4 / rtol 1e-4 and bf16 inputs at atol 0.3 / rtol 0.05
+   (the reference test's tolerances); each call is repeated and must give
+   the same bits, and takes the route its M names. For f32 inputs the
+   kernel's and the plain version's errors against a float64 product are
+   printed, the kernel's at most twice the plain one's. The trunk, decode
+   and trunk-width switch shapes are timed in f32 and bf16 (cycling through
+   weight copies that exceed the L2 cache) beside their bounds and one
    ``torch.matmul`` on the dequantized weight in x's type (TF32 off; the
-   dequantization is not counted in it). Then its entry point
+   dequantization is not counted in it); the trunk and decode shapes over
+   three runs, the SM clock read after each. Then its entry point
    ``ops.rmcm_matmul`` with leading dims, counted alone.
 4. The main path through the serve entry point: full config,
    ``--kernel --fuse-two-pass``, 3 views at 128x128, then one view with
@@ -109,10 +112,17 @@ K3_SHAPES = {"nerf_trunk": (512 * 256, 256, 256),
              "switch_m63": (63, 256, 256),
              "switch_m64": (64, 256, 256),
              "switch_m65": (65, 256, 256),
+             "decode_width_m65": (65, 1536, 8960),
              "ragged": (33, 512, 65)}
 K3_TIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode", "switch_m63",
             "switch_m64", "switch_m65")
 K3_TOL = {torch.float32: (2e-4, 1e-4), torch.bfloat16: (0.3, 0.05)}
+# the f32 kernel's largest error against a float64 product may be at most
+# this many times the plain f32 version's
+K3_F64_RATIO = 2.0
+# timed runs of the shapes whose margin to torch.matmul is the claim
+K3_RUNS = 3
+K3_CLAIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode")
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -120,6 +130,10 @@ def smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    return float(smi("clocks.sm").split()[0])
 
 
 def peak_flops() -> dict:
@@ -266,6 +280,9 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
     alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
     rows = ops.sample_rows(cfg, DEV)
     nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
+    # the plain versions read the reference layout, without the stream
+    plain_nets = {q: {n: {k: v for k, v in nets[q][n].items() if k != "mma"}
+                      for n in nets[q]} for q in nets}
     errs, times = {}, {}
 
     def hold(name, label, kern, plain, tols, timed=None):
@@ -291,13 +308,14 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
             t = sampling.stratified(cfg.near, cfg.far, N, (R,), g, device=DEV)
             dl = sampling.deltas_from_t(t)
             k1 = (cfg, nets[quantized]["fine"], o, d, t, dl)
+            k1p = (cfg, plain_nets[quantized]["fine"], o, d, t, dl)
             masks = (None, alive) if (N == Nt and not quantized) else (alive,)
             for mask in masks:
                 hold(K1, f"K1 N={N} rmcm={quantized} alive-mask="
                      f"{mask is not None}",
                      lambda: fused_plcore.fused_plcore_call(
                          *k1, rt=rt, alive=mask),
-                     lambda: ref.fused_plcore_ref(*k1, rt=PLAIN_RT,
+                     lambda: ref.fused_plcore_ref(*k1p, rt=PLAIN_RT,
                                                   alive=mask),
                      (tol, tol, tol), timed=K1 if mask is None else None)
                 if mask is None:
@@ -309,12 +327,14 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
     def k2_hold(quantized, eps, mask=None, timed=None):
         k2 = (cfg, nets[quantized]["coarse"], nets[quantized]["fine"], o, d,
               *rows)
+        plain = (cfg, plain_nets[quantized]["coarse"],
+                 plain_nets[quantized]["fine"], o, d, *rows)
         tol = 5e-3 if (quantized or eps or mask is not None) else 1e-3
         return hold(K2, f"K2 rmcm={quantized} ert={eps} alive-mask="
                     f"{mask is not None}",
                     lambda: fused_plcore.two_pass_plcore_call(
                         *k2, rt=rt, ert_eps=eps, alive=mask),
-                    lambda: ref.two_pass_ref(*k2, rt=PLAIN_RT, ert_eps=eps,
+                    lambda: ref.two_pass_ref(*plain, rt=PLAIN_RT, ert_eps=eps,
                                              alive=mask),
                     (tol, tol, tol, tol, 1e-2), timed=timed)
 
@@ -375,15 +395,28 @@ def k3_bytes(x, packed, y) -> int:
     return nbytes(x, packed["mag"], packed["sign_bits"], packed["scale"], y)
 
 
+def k3_f64(x, packed) -> torch.Tensor:
+    """K3's function in float64: (x @ signed magnitudes) * scale."""
+    K = packed["k"]
+    sg = rmcm.unpack_signs(packed["sign_bits"],
+                           packed["sign_bits"].shape[0] * 8)[:K]
+    w = packed["mag"].double() * (1.0 - 2.0 * sg.double())
+    return (x.double() @ w) * packed["scale"].double().reshape(1, -1)
+
+
 def k3_phase(peaks: dict) -> dict:
     """K3 against its plain version on the card at ``K3_SHAPES``, f32 and
     bf16 inputs at the reference test's tolerances, each call repeated for
-    identical bits and counted by route; the timed shapes beside their
-    bounds and one PyTorch matmul on the dequantized weight. Then the
-    entry point a user calls, ``ops.rmcm_matmul`` with leading dims, counts
+    identical bits and counted by route; for f32 inputs both are also held
+    against a float64 product, the kernel's error at most ``K3_F64_RATIO``
+    times the plain version's. The timed shapes beside their bounds and one
+    PyTorch matmul on the dequantized weight, ``K3_CLAIMED`` over
+    ``K3_RUNS`` runs with the SM clock read after each. Then the entry
+    point a user calls, ``ops.rmcm_matmul`` with leading dims, counts
     zeroed just before and read just after."""
     gen = torch.Generator(device=DEV).manual_seed(3)
     errs, shapes = {torch.float32: [], torch.bfloat16: []}, {}
+    f64_errs = {}
     for label, (M, K, N) in K3_SHAPES.items():
         timed = label in K3_TIMED
         # enough weight copies that one cycle of calls moves twice the L2
@@ -407,28 +440,46 @@ def k3_phase(peaks: dict) -> dict:
                                                              got.shape)
             assert bool(torch.isfinite(got).all()), label
             assert torch.equal(got, again), f"K3 {label} {dt}: not repeatable"
+            e = float((got.float() - want.float()).abs().max())
+            witness = ""
+            if dt == torch.float32:
+                exact = k3_f64(x, packs[0])
+                e_k = float((got.double() - exact).abs().max())
+                e_p = float((want.double() - exact).abs().max())
+                witness = (f"; against float64: kernel {e_k}, plain {e_p} "
+                           f"(ratio {e_k / max(e_p, 1e-30):.3f})")
+                f64_errs[label] = {"kernel": e_k, "plain": e_p}
+                assert e_k <= K3_F64_RATIO * e_p, (
+                    f"K3 {label}: the split route's error {e_k} exceeds "
+                    f"{K3_F64_RATIO} x the plain f32 version's {e_p}")
+            print(f"check K3 {label} {tuple((M, K, N))} {dt} route {route}: "
+                  f"max_abs_err {e} (atol {atol}, rtol {rtol}){witness}, two "
+                  "calls bit-identical", flush=True)
             torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                        rtol=rtol)
-            e = float((got.float() - want.float()).abs().max())
             errs[dt].append(e)
-            print(f"check K3 {label} {tuple((M, K, N))} {dt} route {route}: "
-                  f"max_abs_err {e} (atol {atol}, rtol {rtol}), two calls "
-                  "bit-identical", flush=True)
             if not timed:
                 continue
-            ms, got, last = cuda_ms_cycled(
-                [lambda p=p: k3.rmcm_matmul(x, p) for p in packs], 20)
-            torch.testing.assert_close(
-                got.float(), ref.rmcm_matmul_ref(x, packs[last]).float(),
-                atol=atol, rtol=rtol)
-            plain_ms, _, _ = cuda_ms_cycled(
-                [lambda p=p: ref.rmcm_matmul_ref(x, p) for p in packs], 5)
+            runs = K3_RUNS if label in K3_CLAIMED else 1
+            ms_runs, lib_runs, clocks = [], [], []
             dense_bytes = K * N * x.element_size() + io_bytes
             dense = [rmcm.dequantize(rmcm.unpack(p), dt)
                      for p in packs[:-(-2 * L2_BYTES // dense_bytes)]]
-            lib_ms, _, _ = cuda_ms_cycled(
-                [lambda w=w: torch.matmul(x, w) for w in dense], 20)
+            for _ in range(runs):
+                ms, got, last = cuda_ms_cycled(
+                    [lambda p=p: k3.rmcm_matmul(x, p) for p in packs], 20)
+                torch.testing.assert_close(
+                    got.float(), ref.rmcm_matmul_ref(x, packs[last]).float(),
+                    atol=atol, rtol=rtol)
+                lib_ms, _, _ = cuda_ms_cycled(
+                    [lambda w=w: torch.matmul(x, w) for w in dense], 20)
+                ms_runs.append(ms)
+                lib_runs.append(lib_ms)
+                clocks.append(sm_clock_mhz())
             del dense
+            plain_ms, _, _ = cuda_ms_cycled(
+                [lambda p=p: ref.rmcm_matmul_ref(x, p) for p in packs], 5)
+            ms, lib_ms = float(np.median(ms_runs)), float(np.median(lib_runs))
             flops = 2.0 * M * K * N
             n_bytes = k3_bytes(x, packs[0], got)
             passes = 3 if dt == torch.float32 else 1     # bf16x3 or exact
@@ -436,15 +487,20 @@ def k3_phase(peaks: dict) -> dict:
             f_ms, f_by = bound_ms(flops / peaks["fp32"], n_bytes)
             shapes[f"{label}.{str(dt).removeprefix('torch.')}"] = {
                 "shape_mkn": [M, K, N], "route": route, "ms": ms,
+                "ms_runs": ms_runs, "library_ms_runs": lib_runs,
+                "sm_clock_mhz_runs": clocks,
+                "below_library_every_run": all(
+                    a < b for a, b in zip(ms_runs, lib_runs)),
                 "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_ms_fp32": f_ms,
                 "bound_by_fp32": f_by, "weight_copies": len(packs)}
-            print(f"K3 {label} {dt}: {ms:.4f} ms, route {route} (tensor-core "
-                  f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
-                  f"it; fp32-core bound {f_ms:.4f} ms by {f_by}; plain "
+            print(f"K3 {label} {dt}: {ms:.4f} ms (runs {ms_runs}, SM clock "
+                  f"{clocks} MHz), route {route} (tensor-core bound "
+                  f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it; "
+                  f"fp32-core bound {f_ms:.4f} ms by {f_by}; plain "
                   f"{plain_ms:.4f} ms; torch.matmul on the dequantized "
-                  f"weight, dequantization not counted, {lib_ms:.4f} ms)",
-                  flush=True)
+                  f"weight, dequantization not counted, {lib_ms:.4f} ms, "
+                  f"runs {lib_runs})", flush=True)
     # the entry point with leading dims, counted on its own
     M, K, N = K3_SHAPES["qwen2_1_5b_mlp_decode"]
     packed = k3_weights(K, N, gen)[0]
@@ -460,6 +516,10 @@ def k3_phase(peaks: dict) -> dict:
         y, ref.rmcm_matmul_ref(x.reshape(M, K), packed).reshape(y.shape),
         atol=2e-4, rtol=1e-4)
     row = shapes["nerf_trunk.float32"]
+    vs_library = {k: {"ms": v["ms"], "library_ms": v["library_ms"],
+                      "below_library_every_run": v["below_library_every_run"]}
+                  for k, v in shapes.items()
+                  if k.split(".")[0] in K3_CLAIMED}
     return {"max_abs_err": max(errs[torch.float32]),
             "max_abs_err_bf16": max(errs[torch.bfloat16]), "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -468,7 +528,8 @@ def k3_phase(peaks: dict) -> dict:
             "library_ms": row["library_ms"],
             "library_call": "torch.matmul(x, W_dequantized) in x's type, "
                             "TF32 off, dequantization not counted",
-            "timed_shape": "nerf_trunk.float32", "shapes": shapes,
+            "timed_shape": "nerf_trunk.float32", "vs_library": vs_library,
+            "f64_err": f64_errs, "shapes": shapes,
             "launches": launches}
 
 
@@ -650,15 +711,17 @@ def main() -> None:
                     else oracle_launches)
         kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
                         "header": HEADER,
-                        "mma_route": "3xTF32 (f32 weights), bf16x3 (RMCM)",
+                        "mma_route": "wgmma: 3xTF32 (f32 weights), bf16x3 "
+                                     "(RMCM); weights by bulk copy",
                         "replaces": REPLACES[k], "launches": launches,
                         "launches_on": ("main path" if k == "two_pass_plcore_call"
                                         else "oracle path"),
                         **rows[k], "library_ms": None})
     kernels.append({"name": "rmcm_matmul", "route": "cuda",
                     "source": SOURCE["rmcm_matmul"], "header": HEADER,
-                    "mma_route": "bf16x3 (f32 x), bf16 (bf16 x); large_m "
-                                 "or small_m (split K) by M",
+                    "mma_route": "wgmma: bf16x3 (f32 x), bf16 (bf16 x); "
+                                 "weight tiles by TMA; large_m or small_m "
+                                 "(split K) by M",
                     "replaces": REPLACES["rmcm_matmul"],
                     "launches_on": "rmcm_matmul entry point",
                     "main_path_launches": main_path["rmcm_matmul"],

@@ -16,25 +16,29 @@
 //
 // What the design does about it:
 // * The MLP layers (trunk, feature head, the feature part of the color
-//   layer) run on the tensor cores with exact split products
-//   (mma_split.cuh). RMCM (Q): bf16x3 activations x exact bf16 signed
-//   magnitudes, the column scale, bias and ReLU in the epilogue. f32:
-//   3xTF32 over weights split into hi/lo at pack time.
-// * A block owns whole rays and walks its tile one ray at a time, 64
-//   samples per chunk. The activations of a chunk live in shared memory
-//   as (sample x feature) rows; each of the 8 warps computes every sample
-//   of a layer for its interleaved 8-column tiles (up to 4 of them), 64
-//   f32 accumulators a thread. Two blocks share an SM (the launch bound
-//   caps a thread at 128 registers): 16 warps hide the MMA and L2
-//   latencies better than one block of 128-sample chunks, which halved
-//   the L2 weight traffic but left 8 warps and spilled at 255 registers. The A fragments are loaded from shared memory and split as
-//   they are loaded; the split pieces never take shared memory. A layer's
-//   output overwrites its input after a barrier, so one buffer holds the
-//   chunk.
-// * Weights stay resident in the 50 MB L2 in copies made at pack time in
-//   the MMA fragment order (kernels/ops.py, mma_weights), so each lane
-//   reads its B fragments for a k step with one 8- or 16-byte load per
-//   column tile, one k step ahead of the MMAs.
+//   layer) run on wgmma with exact split products (mma_split.cuh). RMCM
+//   (Q): bf16x3 activations x exact bf16 signed magnitudes, the column
+//   scale, bias and ReLU in the epilogue. f32: 3xTF32 over weights split
+//   into hi/lo at pack time.
+// * A block of two warpgroups owns whole rays and walks its tile one ray
+//   at a time, 128 samples per chunk: each warpgroup takes 64 samples and
+//   every column of a layer (128 f32 accumulators a thread at 256
+//   columns), one wgmma per split piece and k step spanning them all. The
+//   widths are compile-time (the full NerfConfig: W = 256, C = 128), so
+//   the wgmma pipeline has no branch; in a chunk of 64 samples (the coarse
+//   pass) the second warpgroup computes rows that are never stored. The activations
+//   of a chunk live in shared memory as (sample x feature) f32 rows; the
+//   A fragments are loaded from there and split as they are loaded, so the
+//   pieces never take shared memory. A layer's output overwrites its input
+//   after a barrier, so one buffer holds the chunk.
+// * The weights of a network are one stream in device memory (built at
+//   pack time, kernels/ops.py mma_stream), in the order the layers read
+//   them and in the K-major layout wgmma reads, so each k step (16 rows
+//   bf16, 8 rows TF32 hi + lo) is one contiguous bulk copy, kept in flight
+//   in a ring of slots across layer and chunk borders (an mbarrier per
+//   slot counts the bytes that landed; the warpgroup that releases a slot
+//   last refills it, so neither waits for the other), so the weight reads
+//   from L2 overlap the MMAs. One weight pass serves 128 samples.
 // * The rest keeps its fp32 code and its explicitly rounded order: the
 //   exact sigma and rgb heads, the per-ray direction part of the color
 //   layer, the VRU prefix, the coarse CDF, the inverse-CDF binary search
@@ -47,10 +51,12 @@
 //   fine pass and keeps its coarse rgb/acc/depth (per ray, no compaction).
 //
 // Shared memory of one block at full width (W = 256, pe = 63 padded to
-// 64), bf16x3 strides: activations 64 x 264 f32 (67,584 B), position
-// encoding 64 x 72 f32 (18,432 B), per-sample and resample scratch for
-// 64 + 192 samples (8,160 B): 94,176 B, two blocks per SM. The host
-// reads the resident blocks per SM from plcore_blocks_per_sm.
+// 64, 64 + 192 samples): the weight ring (5 x 8 KB bf16 or 3 x 16 KB
+// TF32), its mbarriers, activations 128 x 264 (bf16x3) or 128 x 260
+// (TF32) f32, position encoding 128 x 72 or 128 x 68 f32, per-sample and
+// resample scratch (11,952 B): 225,024 B (RMCM) or 229,088 B (f32), one
+// block per SM. The host reads the resident blocks per SM from
+// plcore_blocks_per_sm.
 //
 // Interface: plain C entry points for ctypes. Pointers arrive as an array
 // of addresses, shapes as an array of ints; each entry point launches one
@@ -59,20 +65,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "mma_split.cuh"
 
 namespace {
 
 using namespace mma_split;
 
-constexpr int NT = 256;       // threads per block, 8 warps
-constexpr int NWARP = NT / 32;
-constexpr int MT = 4;         // 16-sample m tiles per chunk
-constexpr int S = MT * 16;    // samples per chunk
-constexpr int NTW = 4;        // column tiles per warp at most
-constexpr int MAXW = NWARP * NTW * 8;   // widest layer a block computes
+constexpr int NT = 256;       // threads per block, two warpgroups
+constexpr int S = 128;        // samples per chunk, 64 per warpgroup
+constexpr int KW = 256;       // trunk width the kernels are built for
+constexpr int KC = 128;       // color-branch width the kernels are built for
+constexpr int MAXW = KW;      // widest layer
+
+template <bool Q>
+__host__ __device__ constexpr int kstep() { return Q ? 16 : 8; }
+// bytes of one k step of one column: bf16, or TF32 hi and lo
+template <bool Q>
+__host__ __device__ constexpr int col_bytes() { return Q ? 32 : 64; }
+template <bool Q>
+__host__ __device__ constexpr int ring_slots() { return Q ? 5 : 3; }
+template <bool Q>
+__host__ __device__ constexpr int slot_bytes() { return MAXW * col_bytes<Q>(); }
 
 struct Mat {
   const float* w;       // f32 (rows, ncol), or null under RMCM
@@ -93,11 +106,7 @@ struct Net {
   const float* rb;      // (3)
   const float* tscl;    // RMCM column scales of the trunk (L, W), or null
   const float* fscl;    // ... of the feature head (W), or null
-  // MMA fragment copies (ops.mma_weights): bf16 pairs under RMCM, TF32
-  // hi/lo otherwise
-  const void* tmma;     // (L, KH + KPE rows)
-  const void* fmma;     // (W rows)
-  const void* cmma;     // (W rows of color0)
+  const uint8_t* stream;   // the MLP weights in reading order (ops.mma_stream)
 };
 
 struct Dims {
@@ -113,6 +122,9 @@ __host__ __device__ inline int stride(int n, bool q) {
 
 // the shared-memory carve-up of one block
 struct Smem {
+  uint8_t* ring;    // weight ring: ring_slots() k steps
+  uint64_t* full;   // per slot: its bytes landed
+  int* rel;         // per slot: warpgroups done with its step
   float* act;   // S x stride(max(W, C)): hidden activations of a chunk
   float* pe;    // S x stride(kpe): position encoding of a chunk
   float* ped;   // de: direction encoding of the ray
@@ -130,14 +142,24 @@ struct Smem {
 
 __host__ __device__ inline int rup4(int v) { return (v + 3) & ~3; }
 
-__host__ __device__ inline size_t carve(Smem* sm, float* base, const Dims& D,
-                                        int N, int Nc, int Nf) {
-  float* p = base;
+template <bool Q>
+__host__ __device__ inline size_t carve(Smem* sm, uint8_t* base,
+                                        const Dims& D, int N, int Nc,
+                                        int Nf) {
+  constexpr int NS = ring_slots<Q>();
+  uint8_t* ring = base;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + NS * slot_bytes<Q>());
+  int* rel = reinterpret_cast<int*>(bars + NS);
+  float* p = reinterpret_cast<float*>(bars + 2 * NS);
+  float* const fbase = p;
   auto take = [&](int n) { float* q = p; p += rup4(n); return q; };
   const int rows = D.W > D.C ? D.W : D.C;
   Smem s;
-  s.act = take(S * stride(rows, true));   // the wider of the two strides
-  s.pe = take(S * stride(D.kpe, true));
+  s.ring = ring;
+  s.full = bars;
+  s.rel = rel;
+  s.act = take(S * stride(rows, Q));
+  s.pe = take(S * stride(D.kpe, Q));
   s.ped = take(D.de);
   s.cold = take(D.C);
   s.ray = take(8);
@@ -153,7 +175,7 @@ __host__ __device__ inline size_t carve(Smem* sm, float* base, const Dims& D,
   s.u = take(Nf);
   s.tf = take(Nf);
   if (sm) *sm = s;
-  return (size_t)(p - base) * sizeof(float);
+  return NS * slot_bytes<Q>() + 16 * NS + (size_t)(p - fbase) * sizeof(float);
 }
 
 template <bool Q>
@@ -167,167 +189,172 @@ __device__ __forceinline__ float wget(const Mat& m, int k, int j, float scl) {
   }
 }
 
-// one lane's B fragment of one k step and column tile: two bf16 pairs, or
-// TF32 {hi0, hi1, lo0, lo1}
+// --------------------------------------------------------- weight ring ----
+// One pass's weight stream: `total` k steps, the network's stream read
+// chunk after chunk (`per_chunk` steps each), through ring_slots() slots.
+// A slot's full barrier counts the bytes of its bulk copy; both
+// warpgroups release a slot through its counter, and the warpgroup that
+// releases it last refills it, so neither ever waits for the other.
 template <bool Q>
-using Frag = typename std::conditional<Q, uint2, uint4>::type;
+struct Ring {
+  uint8_t* ring;        // the slots
+  uint64_t* full;       // per slot: its bytes landed
+  int* rel;             // per slot: warpgroups done with its step
+  const uint8_t* src;   // the network's stream
+  int W, C;
+  int per_chunk, color_from;   // steps per chunk; first step of color0
+  int total;            // steps of this pass
+  int gs;               // steps consumed, over the kernel's life
+  int start;            // gs at the start of this pass
+  int released;         // steps of this pass this warpgroup released
 
-template <bool Q>
-__host__ __device__ constexpr int kstep() { return Q ? 16 : 8; }
-
-using Acc = float[MT][NTW][4];
-
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < NTW; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][i][e] = 0.f;
-}
-
-// acc[m][i] += in[rows of m tile m][nkb k steps] . W[.., column tile
-// i * 8 + warp], for the m tiles below mtv. `in` is (sample x feature)
-// with row stride ld; `wf` the fragment copy of these weight rows, laid
-// out (k step, column tile, lane). Two m tiles at a time: each split piece
-// goes through both m tiles and every column tile before the next piece,
-// so 8 independent MMAs lie between two into the same accumulator. An odd
-// mtv computes one m tile past it, on rows that are never stored (a row
-// of an MMA's result depends only on that row of A).
-template <bool Q>
-__device__ __forceinline__ void mma_rows(Acc& acc, const float* in, int ld,
-                                         int nkb, const void* wf, int ntiles,
-                                         int mtv) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const Frag<Q>* w = static_cast<const Frag<Q>*>(wf) + lane;
-  bool col[NTW];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i) col[i] = i * NWARP + warp < ntiles;
-  Frag<Q> b[NTW], bn[NTW];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i)
-    if (col[i]) b[i] = __ldg(w + (size_t)(i * NWARP + warp) * 32);
-  const int rs = 16 * ld;              // floats between two m tiles
-  const float* a = in + g * ld + (Q ? 2 * t : t);
-#pragma unroll 1
-  for (int kb = 0; kb < nkb; ++kb, a += kstep<Q>()) {
-    if (kb + 1 < nkb) {
-      const Frag<Q>* wn = w + (size_t)(kb + 1) * ntiles * 32;
-#pragma unroll
-      for (int i = 0; i < NTW; ++i)
-        if (col[i]) bn[i] = __ldg(wn + (size_t)(i * NWARP + warp) * 32);
+  // the k step q (within a chunk) of the stream: its offset and bytes
+  __device__ __forceinline__ void locate(int q, size_t* off,
+                                         uint32_t* bytes) const {
+    const uint32_t sw = (uint32_t)W * col_bytes<Q>();
+    if (q < color_from) {
+      *off = (size_t)q * sw;
+      *bytes = sw;
+    } else {
+      *bytes = (uint32_t)C * col_bytes<Q>();
+      *off = (size_t)color_from * sw + (size_t)(q - color_from) * *bytes;
     }
-#pragma unroll
-    for (int mt = 0; mt < MT; mt += 2) {
-      if (mt >= mtv) break;
-      const float* ar = a + mt * rs;
-      if constexpr (Q) {
-        Bf16x3 p[2][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float* r = ar + u * rs;
-          const float2 v0 = *reinterpret_cast<const float2*>(r);
-          const float2 v1 = *reinterpret_cast<const float2*>(r + 8 * ld);
-          const float2 v2 = *reinterpret_cast<const float2*>(r + 8);
-          const float2 v3 = *reinterpret_cast<const float2*>(r + 8 * ld + 8);
-          p[u][0] = split_bf16x3(v0.x, v0.y);
-          p[u][1] = split_bf16x3(v1.x, v1.y);
-          p[u][2] = split_bf16x3(v2.x, v2.y);
-          p[u][3] = split_bf16x3(v3.x, v3.y);
-        }
-        // the small pieces first
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_bf16(acc[mt + u][i], p[u][0].l, p[u][1].l, p[u][2].l,
-                       p[u][3].l, b[i].x, b[i].y);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_bf16(acc[mt + u][i], p[u][0].m, p[u][1].m, p[u][2].m,
-                       p[u][3].m, b[i].x, b[i].y);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_bf16(acc[mt + u][i], p[u][0].h, p[u][1].h, p[u][2].h,
-                       p[u][3].h, b[i].x, b[i].y);
-      } else {
-        Tf32x2 p[2][4];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float* r = ar + u * rs;
-          p[u][0] = split_tf32(r[0]);
-          p[u][1] = split_tf32(r[8 * ld]);
-          p[u][2] = split_tf32(r[4]);
-          p[u][3] = split_tf32(r[8 * ld + 4]);
-        }
-        // a_lo . b_hi, a_hi . b_lo, then a_hi . b_hi
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_tf32(acc[mt + u][i], p[u][0].lo, p[u][1].lo, p[u][2].lo,
-                       p[u][3].lo, b[i].x, b[i].y);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_tf32(acc[mt + u][i], p[u][0].hi, p[u][1].hi, p[u][2].hi,
-                       p[u][3].hi, b[i].z, b[i].w);
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int i = 0; i < NTW; ++i)
-            if (col[i])
-              mma_tf32(acc[mt + u][i], p[u][0].hi, p[u][1].hi, p[u][2].hi,
-                       p[u][3].hi, b[i].x, b[i].y);
+  }
+
+  // step p of the pass -> its slot (one thread; the slot is free)
+  __device__ __forceinline__ void issue(int p) {
+    constexpr int NS = ring_slots<Q>();
+    const int slot = (start + p) % NS;
+    size_t off;
+    uint32_t bytes;
+    locate(p % per_chunk, &off, &bytes);
+    mbar_expect_tx(full + slot, bytes);
+    bulk_copy(ring + slot * slot_bytes<Q>(), src + off, bytes, full + slot);
+  }
+
+  // every thread, at the start of a pass (both warpgroups are done with
+  // every slot): thread 0 fills the ring
+  __device__ void begin(const uint8_t* stream, int steps) {
+    src = stream;
+    total = steps;
+    start = gs;
+    released = 0;
+    if (threadIdx.x == 0)
+      for (int p = 0; p < min(ring_slots<Q>(), total); ++p) issue(p);
+    __syncwarp();
+  }
+
+  // wait for the next step; its slot's shared address
+  __device__ __forceinline__ uint32_t acquire() {
+    constexpr int NS = ring_slots<Q>();
+    mbar_wait(full + gs % NS, (gs / NS) & 1);
+    __syncwarp();
+    return smem_addr(ring + (gs % NS) * slot_bytes<Q>());
+  }
+
+  // this warpgroup's MMAs of its last step are done; the second
+  // warpgroup to get here refills the slot with the step NS later
+  __device__ __forceinline__ void release() {
+    constexpr int NS = ring_slots<Q>();
+    if ((threadIdx.x & 127) == 0) {
+      int* r = rel + (start + released) % NS;
+      __threadfence_block();
+      if (atomicAdd(r, 1) == 1) {
+        *r = 0;
+        if (released + NS < total) issue(released + NS);
       }
     }
-#pragma unroll
-    for (int i = 0; i < NTW; ++i) b[i] = bn[i];
+    ++released;
+    __syncwarp();
+  }
+};
+
+// a thread's share of a warpgroup's 64 x KW tile
+using Acc = float[KW / 2];
+
+// acc += in[the warpgroup's 64 rows][nk k steps] . the next nk steps of
+// the ring, a layer N columns wide (KW or KC); `in` is (sample x feature)
+// with row stride ld. Per k step the A fragment is loaded and split, then
+// three wgmmas of the full width (bf16x3: l, m, h; 3xTF32: a_lo.b_hi,
+// a_hi.b_lo, a_hi.b_hi) make one commit group, waited for before the next
+// step writes its A registers: wgmma reads A from the registers while it
+// runs. The other warpgroup's MMAs fill the tensor cores meanwhile.
+template <bool Q, int N>
+__device__ __forceinline__ void mma_segment(Acc& acc, Ring<Q>& rg,
+                                            const float* in, int ld, int nk) {
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
+  const int wg = threadIdx.x >> 7;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a = in + (64 * wg + 16 * w4 + g) * ld + (Q ? 2 * t : t);
+  constexpr uint32_t LO = (N * B_STEP_BYTES_PER_COL) >> 4;   // TF32 lo block
+#pragma unroll 1
+  for (int j = 0; j < nk; ++j, a += kstep<Q>()) {
+    const uint64_t d = b_desc(rg.acquire());
+    if constexpr (Q) {
+      const float2 v0 = *reinterpret_cast<const float2*>(a);
+      const float2 v1 = *reinterpret_cast<const float2*>(a + 8 * ld);
+      const float2 v2 = *reinterpret_cast<const float2*>(a + 8);
+      const float2 v3 = *reinterpret_cast<const float2*>(a + 8 * ld + 8);
+      const Bf16x3 q0 = split_bf16x3(v0.x, v0.y), q1 = split_bf16x3(v1.x, v1.y);
+      const Bf16x3 q2 = split_bf16x3(v2.x, v2.y), q3 = split_bf16x3(v3.x, v3.y);
+      uint32_t p[12] = {q0.l, q1.l, q2.l, q3.l, q0.m, q1.m, q2.m, q3.m,
+                        q0.h, q1.h, q2.h, q3.h};
+      fence_a(p);
+      wgmma_fence();
+      wgmma_bf16<N>(acc, p[0], p[1], p[2], p[3], d);
+      wgmma_bf16<N>(acc, p[4], p[5], p[6], p[7], d);
+      wgmma_bf16<N>(acc, p[8], p[9], p[10], p[11], d);
+    } else {
+      const Tf32x2 q0 = split_tf32(a[0]), q1 = split_tf32(a[8 * ld]);
+      const Tf32x2 q2 = split_tf32(a[4]), q3 = split_tf32(a[8 * ld + 4]);
+      uint32_t p[8] = {q0.lo, q1.lo, q2.lo, q3.lo, q0.hi, q1.hi, q2.hi, q3.hi};
+      fence_a(p);
+      wgmma_fence();
+      wgmma_tf32<N>(acc, p[0], p[1], p[2], p[3], d);
+      wgmma_tf32<N>(acc, p[4], p[5], p[6], p[7], d + LO);
+      wgmma_tf32<N>(acc, p[4], p[5], p[6], p[7], d);
+    }
+    wgmma_commit();
+    ++rg.gs;
+    wgmma_wait<0>();
+    rg.release();
   }
 }
 
-// out[s][j] = act(((acc * scl[j]) + b1[j]) + b2[j]) for the warp's column
-// tiles; scl only under RMCM, b2 may be null
-template <bool Q>
-__device__ __forceinline__ void store(float* out, int ld, Acc& acc,
-                                      int ntiles, int mtv, const float* scl,
-                                      const float* b1, const float* b2,
-                                      bool relu) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// start a layer: zero accumulators, fenced before the first wgmma
+__device__ __forceinline__ void mma_start(Acc& acc) {
+  zero_acc(acc);
+  fence_acc(acc);
+}
+
+// after a layer's last step: acc is final
+__device__ __forceinline__ void mma_finish(Acc& acc) { fence_acc(acc); }
+
+// out[s][j] = act(((acc * scl[j]) + b1[j]) + b2[j]) for the warpgroup's
+// 64 rows and the layer's N columns; scl only under RMCM, b2 may be null
+template <bool Q, int N>
+__device__ __forceinline__ void store(float* out, int ld, const Acc& acc,
+                                      const float* scl, const float* b1,
+                                      const float* b2, bool relu) {
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * (threadIdx.x >> 7) + 16 * w4 + g;
 #pragma unroll
-  for (int i = 0; i < NTW; ++i) {
-    const int nt = i * NWARP + warp;
-    if (nt >= ntiles) continue;
-    const int j = nt * 8 + 2 * t;
+  for (int i = 0; i < N / 8; ++i) {
+    const int j = 8 * i + 2 * t;
     const float s0 = Q ? scl[j] : 1.f, s1 = Q ? scl[j + 1] : 1.f;
     const float c0 = b1[j], c1 = b1[j + 1];
     const float d0 = b2 ? b2[j] : 0.f, d1 = b2 ? b2[j + 1] : 0.f;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      if (mt >= mtv) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float y0 = acc[mt][i][2 * h], y1 = acc[mt][i][2 * h + 1];
-        if (Q) { y0 = __fmul_rn(y0, s0); y1 = __fmul_rn(y1, s1); }
-        y0 = __fadd_rn(y0, c0);
-        y1 = __fadd_rn(y1, c1);
-        if (b2) { y0 = __fadd_rn(y0, d0); y1 = __fadd_rn(y1, d1); }
-        if (relu) { y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f); }
-        *reinterpret_cast<float2*>(out + (mt * 16 + g + 8 * h) * ld + j) =
-            make_float2(y0, y1);
-      }
+    for (int h = 0; h < 2; ++h) {
+      float y0 = acc[4 * i + 2 * h], y1 = acc[4 * i + 2 * h + 1];
+      if (Q) { y0 = __fmul_rn(y0, s0); y1 = __fmul_rn(y1, s1); }
+      y0 = __fadd_rn(y0, c0);
+      y1 = __fadd_rn(y1, c1);
+      if (b2) { y0 = __fadd_rn(y0, d0); y1 = __fadd_rn(y1, d1); }
+      if (relu) { y0 = fmaxf(y0, 0.f); y1 = fmaxf(y1, 0.f); }
+      *reinterpret_cast<float2*>(out + (r0 + 8 * h) * ld + j) =
+          make_float2(y0, y1);
     }
   }
 }
@@ -361,20 +388,26 @@ __device__ void encode_dir(const Dims& D, Smem& sm) {
   __syncthreads();
 }
 
-// One PEU -> MLP -> VRU pass of one ray over N samples at sm.ts / sm.dl
-// (or the given arrays). Leaves rgb, acc, depth in sm.res and the per-sample
-// weights in sm.wbuf. Every thread of the block calls it.
+// k steps of one network's stream per chunk, and the first of color0's
 template <bool Q>
-__device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
+__device__ __forceinline__ void stream_steps(const Dims& D, int* per_chunk,
+                                             int* color_from) {
+  const int nkh = D.W / kstep<Q>(), nkp = D.kpe / kstep<Q>();
+  const int nskip = __popc(D.skip_mask & ~1 & ((1 << D.L) - 1));
+  *color_from = nkp + (D.L - 1) * nkh + nskip * nkp + nkh;
+  *per_chunk = *color_from + nkh;
+}
+
+// One PEU -> MLP -> VRU pass of one ray over N samples at ts / dl. Leaves
+// rgb, acc, depth in sm.res and the per-sample weights in sm.wbuf. Every
+// thread of the block calls it.
+template <bool Q>
+__device__ void ray_pass(const Net& net, const Dims& D, Smem& sm, Ring<Q>& rg,
                          const float* ts, const float* dl, int N) {
   const int tid = threadIdx.x;
   const int W = D.W, C = D.C;
   const int as = stride(W > C ? W : C, Q), ps = stride(D.kpe, Q);
   const int nkh = W / kstep<Q>(), nkp = D.kpe / kstep<Q>();
-  const int ntw = W / 8, ntc = C / 8;
-  // fragments of one trunk layer: its h rows, then its PE rows
-  const size_t hfr = (size_t)nkh * ntw * 32, lfr = hfr + (size_t)nkp * ntw * 32;
-  const Frag<Q>* tw = static_cast<const Frag<Q>*>(net.tmma);
   const float* o = sm.ray;
   const float* d = sm.ray + 3;
 
@@ -387,57 +420,61 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     sm.cold[j] = s;
   }
 
+  rg.begin(net.stream, rg.per_chunk * ((N + S - 1) / S));
   Acc acc;
   for (int c0 = 0; c0 < N; c0 += S) {
     const int rows = min(S, N - c0);
-    const int mtv = (rows + 15) / 16, rows16 = mtv * 16;
-    // ---- PEU: positions of this chunk, double-angle encoded; the rows of
-    // the last m tile past N repeat sample N - 1; the K padding is zero
-    for (int idx = tid; idx < 3 * rows16; idx += NT) {
+    // ---- PEU: positions of this chunk, double-angle encoded; the K
+    // padding is zero. The rows past N (up to the chunk's 128) repeat
+    // sample N - 1, so every row the MMAs read is finite; they are never
+    // stored.
+    for (int idx = tid; idx < 3 * S; idx += NT) {
       const int s = idx / 3, a = idx % 3;
       const int n = min(c0 + s, N - 1);
       const float x = __fadd_rn(o[a], __fmul_rn(ts[n], d[a]));
       encode(x, a, D.pos_freqs, sm.pe + s * ps, 1, 0);
     }
     const int npad = D.kpe - D.pe;
-    for (int idx = tid; idx < rows16 * npad; idx += NT)
+    for (int idx = tid; idx < S * npad; idx += NT)
       sm.pe[(idx / npad) * ps + D.pe + idx % npad] = 0.f;
     __syncthreads();
 
     // ---- trunk ---------------------------------------------------------
     for (int i = 0; i < D.L; ++i) {
-      const Frag<Q>* wl = tw + i * lfr;
-      zero(acc);
+      mma_start(acc);
       if (i == 0) {
-        mma_rows<Q>(acc, sm.pe, ps, nkp, wl + hfr, ntw, mtv);
+        mma_segment<Q, KW>(acc, rg, sm.pe, ps, nkp);
       } else {
-        mma_rows<Q>(acc, sm.act, as, nkh, wl, ntw, mtv);
+        mma_segment<Q, KW>(acc, rg, sm.act, as, nkh);
         if ((D.skip_mask >> i) & 1)
-          mma_rows<Q>(acc, sm.pe, ps, nkp, wl + hfr, ntw, mtv);
+          mma_segment<Q, KW>(acc, rg, sm.pe, ps, nkp);
       }
+      mma_finish(acc);
       __syncthreads();
-      store<Q>(sm.act, as, acc, ntw, mtv, Q ? net.tscl + i * W : nullptr,
-               net.tb + i * W, nullptr, true);
+      store<Q, KW>(sm.act, as, acc, Q ? net.tscl + i * W : nullptr,
+                   net.tb + i * W, nullptr, true);
       __syncthreads();
     }
 
     // ---- heads: sigma (exact) and feature ------------------------------
-    zero(acc);
-    mma_rows<Q>(acc, sm.act, as, nkh, net.fmma, ntw, mtv);
+    mma_start(acc);
+    mma_segment<Q, KW>(acc, rg, sm.act, as, nkh);
+    mma_finish(acc);
     if (tid < rows) {
       float s = 0.f;
       for (int k = 0; k < W; ++k) s = fmaf(sm.act[tid * as + k], net.sw[k], s);
       sm.sig[c0 + tid] = __fadd_rn(s, net.sb[0]);
     }
     __syncthreads();
-    store<Q>(sm.act, as, acc, ntw, mtv, net.fscl, net.fb, nullptr, false);
+    store<Q, KW>(sm.act, as, acc, net.fscl, net.fb, nullptr, false);
     __syncthreads();
 
     // ---- color branch: feature rows per sample + direction part per ray
-    zero(acc);
-    mma_rows<Q>(acc, sm.act, as, nkh, net.cmma, ntc, mtv);
+    mma_start(acc);
+    mma_segment<Q, KC>(acc, rg, sm.act, as, nkh);
+    mma_finish(acc);
     __syncthreads();
-    store<Q>(sm.act, as, acc, ntc, mtv, net.color.scl, sm.cold, net.cb, true);
+    store<Q, KC>(sm.act, as, acc, net.color.scl, sm.cold, net.cb, true);
     __syncthreads();
 
     // ---- rgb head (exact) + sigmoid ------------------------------------
@@ -480,18 +517,40 @@ __device__ __forceinline__ void load_ray(Smem& sm, const float* o,
   __syncthreads();
 }
 
+// the ring's barriers and bookkeeping at the start of a kernel
+template <bool Q>
+__device__ void ring_init(Ring<Q>& rg, Smem& sm, const Dims& D) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ring_slots<Q>(); ++i) {
+      mbar_init(sm.full + i, 1);
+      sm.rel[i] = 0;
+    }
+    mbar_init_fence();
+  }
+  rg.ring = sm.ring;
+  rg.full = sm.full;
+  rg.rel = sm.rel;
+  rg.W = D.W;
+  rg.C = D.C;
+  stream_steps<Q>(D, &rg.per_chunk, &rg.color_from);
+  rg.gs = 0;
+  __syncthreads();
+}
+
 // --------------------------------------------------------------- K1 -------
 template <bool Q>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
 plcore_fused_kernel(Net net, Dims D, int N, const float* __restrict__ rays_o,
                     const float* __restrict__ rays_d,
                     const float* __restrict__ t,
                     const float* __restrict__ deltas,
                     const float* __restrict__ alive, float* __restrict__ rgb,
                     float* __restrict__ w_out, float* __restrict__ acc_out) {
-  extern __shared__ float4 smem_raw[];
+  extern __shared__ __align__(128) uint8_t smem_raw[];
   Smem sm;
-  carve(&sm, reinterpret_cast<float*>(smem_raw), D, N, 0, 0);
+  carve<Q>(&sm, smem_raw, D, N, 0, 0);
+  Ring<Q> rg;
+  ring_init<Q>(rg, sm, D);
   const int r_end = min(D.R, (int)(blockIdx.x + 1) * D.rt);
   for (int r = blockIdx.x * D.rt; r < r_end; ++r) {
     if (alive && !(alive[r] > 0.f)) {   // dead ray: zeros, no work
@@ -506,7 +565,7 @@ plcore_fused_kernel(Net net, Dims D, int N, const float* __restrict__ rays_o,
     }
     load_ray(sm, rays_o, rays_d, r);
     encode_dir(D, sm);
-    ray_pass<Q>(net, D, sm, sm.ts, sm.dl, N);
+    ray_pass<Q>(net, D, sm, rg, sm.ts, sm.dl, N);
     for (int n = threadIdx.x; n < N; n += NT) w_out[(size_t)r * N + n] = sm.wbuf[n];
     if (threadIdx.x < 3) rgb[3 * r + threadIdx.x] = sm.res[threadIdx.x];
     if (threadIdx.x == 0) acc_out[r] = sm.res[3];
@@ -515,8 +574,8 @@ plcore_fused_kernel(Net net, Dims D, int N, const float* __restrict__ rays_o,
 }
 
 // --------------------------------------------------------------- K2 -------
-template <bool QC, bool QF>
-__global__ void __launch_bounds__(NT, 2)
+template <bool Q>
+__global__ void __launch_bounds__(NT, 1)
 plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
                        float thr, const float* __restrict__ rays_o,
                        const float* __restrict__ rays_d,
@@ -526,10 +585,12 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
                        float* __restrict__ rgb, float* __restrict__ rgb_c,
                        float* __restrict__ acc, float* __restrict__ acc_c,
                        float* __restrict__ depth) {
-  extern __shared__ float4 smem_raw[];
+  extern __shared__ __align__(128) uint8_t smem_raw[];
   const int Nt = Nc + Nf, M1 = Nc - 1, tid = threadIdx.x;
   Smem sm;
-  carve(&sm, reinterpret_cast<float*>(smem_raw), D, Nt, Nc, Nf);
+  carve<Q>(&sm, smem_raw, D, Nt, Nc, Nf);
+  Ring<Q> rg;
+  ring_init<Q>(rg, sm, D);
   // the pinned coarse row and u-grid, shared by every ray of the tile
   for (int n = tid; n < Nc; n += NT) {
     sm.tc[n] = t_row[n];
@@ -543,7 +604,7 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
     encode_dir(D, sm);
 
     // ---- pass 1: coarse --------------------------------------------------
-    ray_pass<QC>(netc, D, sm, sm.tc, sm.dlc, Nc);
+    ray_pass<Q>(netc, D, sm, rg, sm.tc, sm.dlc, Nc);
     const float cr0 = sm.res[0], cr1 = sm.res[1], cr2 = sm.res[2];
     const float cacc = sm.res[3], cdep = sm.res[4];
     bool live = true;
@@ -621,7 +682,7 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
     __syncthreads();
 
     // ---- pass 2: fine over the merged samples -----------------------------
-    ray_pass<QF>(netf, D, sm, sm.ts, sm.dl, Nt);
+    ray_pass<Q>(netf, D, sm, rg, sm.ts, sm.dl, Nt);
     if (tid == 0) {
       rgb[3 * r + 0] = sm.res[0]; rgb[3 * r + 1] = sm.res[1];
       rgb[3 * r + 2] = sm.res[2];
@@ -633,10 +694,10 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
 }
 
 // ------------------------------------------------------------ host side ---
-constexpr int NET_PTRS = 16;
+constexpr int NET_PTRS = 14;
 
 Net make_net(const void* const* p, int C) {
-  // order: tb sw sb fb cw cb rw rb tscl fscl cmag csgn cscl tmma fmma cmma
+  // order: tb sw sb fb cw cb rw rb tscl fscl cmag csgn cscl stream
   auto f = [&](int i) { return static_cast<const float*>(p[i]); };
   auto b = [&](int i) { return static_cast<const uint8_t*>(p[i]); };
   Net n;
@@ -644,7 +705,7 @@ Net make_net(const void* const* p, int C) {
   n.color = Mat{f(4), b(10), b(11), f(12), C};
   n.cb = f(5); n.rw = f(6); n.rb = f(7);
   n.tscl = f(8); n.fscl = f(9);
-  n.tmma = p[13]; n.fmma = p[14]; n.cmma = p[15];
+  n.stream = b(13);
   return n;
 }
 
@@ -659,8 +720,7 @@ Dims make_dims(const int* v) {
 }
 
 bool dims_ok(const Dims& D) {
-  return D.W > 0 && D.W <= MAXW && D.W % 16 == 0 && D.C > 0 &&
-         D.C <= MAXW && D.C % 8 == 0 && D.rt > 0 && D.R > 0 &&
+  return D.W == KW && D.C == KC && D.rt > 0 && D.R > 0 && D.L >= 1 &&
          D.P % 8 == 0 && D.P >= D.W + D.pe && D.P2 >= D.W + D.de;
 }
 
@@ -678,18 +738,24 @@ cudaError_t resident(K kernel, size_t smem, int* blocks) {
                                                        smem);
 }
 
+template <bool Q>
+size_t k1_smem(const Dims& D, int N) { return carve<Q>(nullptr, nullptr, D, N, 0, 0); }
+template <bool Q>
+size_t k2_smem(const Dims& D, int Nc, int Nf) {
+  return carve<Q>(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
+}
+
 }  // namespace
 
 extern "C" {
 
-// K1. ptrs: rays_o, rays_d, t, deltas, alive|null, rgb, w, acc, net[16].
+// K1. ptrs: rays_o, rays_d, t, deltas, alive|null, rgb, w, acc, net[14].
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, N, quantized.
 int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
   const Dims D = make_dims(dims);
   const int N = dims[10], q = dims[11];
   if (!dims_ok(D) || N < 1) return (int)cudaErrorInvalidValue;
   const Net net = make_net(ptrs + 8, D.C);
-  const size_t smem = carve(nullptr, nullptr, D, N, 0, 0);
   const dim3 grid((D.R + D.rt - 1) / D.rt);
   const float* o = static_cast<const float*>(ptrs[0]);
   const float* d = static_cast<const float*>(ptrs[1]);
@@ -702,10 +768,12 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (q) {
+    const size_t smem = k1_smem<true>(D, N);
     if ((e = launch_setup(plcore_fused_kernel<true>, smem))) return (int)e;
     plcore_fused_kernel<true><<<grid, NT, smem, st>>>(net, D, N, o, d, t, dl,
                                                       alive, rgb, w, acc);
   } else {
+    const size_t smem = k1_smem<false>(D, N);
     if ((e = launch_setup(plcore_fused_kernel<false>, smem))) return (int)e;
     plcore_fused_kernel<false><<<grid, NT, smem, st>>>(net, D, N, o, d, t, dl,
                                                        alive, rgb, w, acc);
@@ -714,7 +782,7 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
 }
 
 // K2. ptrs: rays_o, rays_d, t_row, u_row, alive|null, rgb, rgb_c, acc, acc_c,
-// depth, net_c[16], net_f[16].
+// depth, net_c[14], net_f[14]. Both networks in one weight format.
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, Nc, Nf,
 // qc, qf, ert. thr: a ray stays alive while acc_c < thr (under ert).
 int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
@@ -722,10 +790,10 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
   const Dims D = make_dims(dims);
   const int Nc = dims[10], Nf = dims[11], qc = dims[12], qf = dims[13];
   const int ert = dims[14];
-  if (!dims_ok(D) || Nc < 3 || Nf < 1) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(D) || Nc < 3 || Nf < 1 || qc != qf)
+    return (int)cudaErrorInvalidValue;
   const Net nc = make_net(ptrs + 10, D.C);
   const Net nf = make_net(ptrs + 10 + NET_PTRS, D.C);
-  const size_t smem = carve(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
   const dim3 grid((D.R + D.rt - 1) / D.rt);
   const float* in[5];
   for (int i = 0; i < 5; ++i) in[i] = static_cast<const float*>(ptrs[i]);
@@ -734,15 +802,15 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
     out[i] = static_cast<float*>(const_cast<void*>(ptrs[5 + i]));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-#define PLCORE_K2(A, B)                                                       \
-  if ((e = launch_setup(plcore_two_pass_kernel<A, B>, smem))) return (int)e;  \
-  plcore_two_pass_kernel<A, B><<<grid, NT, smem, st>>>(                       \
-      nc, nf, D, Nc, Nf, ert, thr, in[0], in[1], in[2], in[3], in[4], out[0], \
-      out[1], out[2], out[3], out[4]);
-  if (qc && qf) { PLCORE_K2(true, true) }
-  else if (qc) { PLCORE_K2(true, false) }
-  else if (qf) { PLCORE_K2(false, true) }
-  else { PLCORE_K2(false, false) }
+#define PLCORE_K2(Q)                                                          \
+  {                                                                           \
+    const size_t smem = k2_smem<Q>(D, Nc, Nf);                                \
+    if ((e = launch_setup(plcore_two_pass_kernel<Q>, smem))) return (int)e;   \
+    plcore_two_pass_kernel<Q><<<grid, NT, smem, st>>>(                        \
+        nc, nf, D, Nc, Nf, ert, thr, in[0], in[1], in[2], in[3], in[4],       \
+        out[0], out[1], out[2], out[3], out[4]);                              \
+  }
+  if (qc) PLCORE_K2(true) else PLCORE_K2(false)
 #undef PLCORE_K2
   return (int)cudaGetLastError();
 }
@@ -755,16 +823,17 @@ int plcore_blocks_per_sm(const int* dims, int kernel, int* blocks) {
   if (!dims_ok(D)) return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (kernel == 0) {
-    const size_t smem = carve(nullptr, nullptr, D, dims[10], 0, 0);
-    e = dims[11] ? resident(plcore_fused_kernel<true>, smem, blocks)
-                 : resident(plcore_fused_kernel<false>, smem, blocks);
+    const int N = dims[10];
+    e = dims[11] ? resident(plcore_fused_kernel<true>, k1_smem<true>(D, N), blocks)
+                 : resident(plcore_fused_kernel<false>, k1_smem<false>(D, N),
+                            blocks);
   } else {
     const int Nc = dims[10], Nf = dims[11], qc = dims[12], qf = dims[13];
-    const size_t smem = carve(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
-    if (qc && qf) e = resident(plcore_two_pass_kernel<true, true>, smem, blocks);
-    else if (qc) e = resident(plcore_two_pass_kernel<true, false>, smem, blocks);
-    else if (qf) e = resident(plcore_two_pass_kernel<false, true>, smem, blocks);
-    else e = resident(plcore_two_pass_kernel<false, false>, smem, blocks);
+    if (qc != qf) return (int)cudaErrorInvalidValue;
+    e = qc ? resident(plcore_two_pass_kernel<true>, k2_smem<true>(D, Nc, Nf),
+                      blocks)
+           : resident(plcore_two_pass_kernel<false>, k2_smem<false>(D, Nc, Nf),
+                      blocks);
   }
   return (int)e;
 }

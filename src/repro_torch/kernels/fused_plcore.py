@@ -7,11 +7,13 @@
   render of every ray in ONE launch; coarse weights and sample positions
   never leave the block.
 
-Both run their MLP layers on the tensor cores (bf16x3 under RMCM, 3xTF32
-for f32 weights) and read the ``ops.kernel_weights`` layout: the
-reference's ``stack_plcore_weights`` layout plus its fragment-ordered
-copies under ``"mma"`` (``mma_shapes``). ``blocks_per_sm`` asks the
-library how many blocks of a kernel fit on one SM.
+Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
+RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:
+the reference's ``stack_plcore_weights`` layout plus its tensor-core
+stream under ``"mma"`` (``mma_segments``, in wgmma's layout). On the card
+K2's two networks share one weight format (both RMCM or both f32).
+``blocks_per_sm`` asks the library how many blocks of a kernel fit on one
+SM.
 
 A CUDA tensor launches the kernel on the current stream (outputs allocated
 here with ``torch.empty``); a CPU tensor takes the plain version in
@@ -31,14 +33,15 @@ from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_plcore_call": 0, "two_pass_plcore_call": 0}
+# (trunk width, color width) the kernels' wgmma shapes are compiled for
+KERNEL_WIDTHS = (256, 128)
 
 # one network's pointer order at the C interface: the MLP layers come from
-# the tensor-core copies; of the reference layout the kernels read the
-# biases, the exact heads, the scales and color0 (its direction rows)
+# the tensor-core stream; of the reference layout the kernels read the
+# biases, the exact heads, the RMCM scales and color0's direction rows
 _NET_KEYS = ["trunk_b", "sigma_w", "sigma_b", "feat_b", "color0_w",
              "color0_b", "rgb_w", "rgb_b", "trunk_scl", "feat_scl",
-             "color0_mag", "color0_sgn", "color0_scl",
-             "mma.trunk", "mma.feat", "mma.color0"]
+             "color0_mag", "color0_sgn", "color0_scl", "mma"]
 
 
 def mma_rows(cfg: NerfConfig):
@@ -47,33 +50,49 @@ def mma_rows(cfg: NerfConfig):
     return cfg.trunk_width, -(-cfg.pos_enc_dim // 16) * 16
 
 
-def mma_shapes(cfg: NerfConfig, quantized: bool) -> dict:
-    """Shapes of the tensor-core copies: (k steps, column tiles, 32 lanes,
-    4), a k step 16 rows (bf16, RMCM) or 8 rows (TF32 hi/lo, f32)."""
-    W, C, L = cfg.trunk_width, cfg.color_width, cfg.trunk_layers
+def mma_segments(cfg: NerfConfig) -> list:
+    """(name, rows, columns) of each matrix in a network's tensor-core
+    stream, in the order the kernels read it: "trunk0.pe", then per later
+    layer i "trunk{i}.h" and, at a skip layer, "trunk{i}.pe"; "feat" and
+    "color0" (its W feature rows)."""
+    W, C = cfg.trunk_width, cfg.color_width
     KH, KPE = mma_rows(cfg)
-    ks = 16 if quantized else 8
-    return {"trunk": (L, (KH + KPE) // ks, W // 8, 32, 4),
-            "feat": (KH // ks, W // 8, 32, 4),
-            "color0": (KH // ks, C // 8, 32, 4)}
+    segs = [("trunk0.pe", KPE, W)]
+    for i in range(1, cfg.trunk_layers):
+        segs.append((f"trunk{i}.h", KH, W))
+        if i in cfg.skip_at:
+            segs.append((f"trunk{i}.pe", KPE, W))
+    return segs + [("feat", KH, W), ("color0", KH, C)]
+
+
+def mma_offsets(cfg: NerfConfig, quantized: bool) -> list:
+    """(first, end) element of each ``mma_segments`` entry in the stream:
+    bf16 elements under RMCM, f32 (TF32 hi and lo) otherwise."""
+    per = 1 if quantized else 2
+    out, at = [], 0
+    for _, rows, ncols in mma_segments(cfg):
+        out.append((at, at + per * rows * ncols))
+        at += per * rows * ncols
+    return out
+
+
+def mma_shapes(cfg: NerfConfig, quantized: bool) -> dict:
+    """Shape of the tensor-core stream: {"mma": (elements,)}."""
+    return {"mma": (mma_offsets(cfg, quantized)[-1][1],)}
 
 
 def _weight_shapes(cfg: NerfConfig, quantized: bool) -> dict:
     W, C, L = cfg.trunk_width, cfg.color_width, cfg.trunk_layers
-    P, P2 = ref.packed_rows(cfg)
-    Wr = -(-W // 8) * 8
+    _, P2 = ref.packed_rows(cfg)
     shapes = {"trunk_b": (L, W), "sigma_w": (W, 1), "sigma_b": (1,),
               "feat_b": (W,), "color0_b": (C,), "rgb_w": (C, 3),
               "rgb_b": (3,)}
     if quantized:
-        shapes.update({"trunk_mag": (L, P, W), "trunk_sgn": (L, P // 8, W),
-                       "trunk_scl": (L, 1, W), "feat_mag": (Wr, W),
-                       "feat_sgn": (Wr // 8, W), "feat_scl": (1, W),
+        shapes.update({"trunk_scl": (L, 1, W), "feat_scl": (1, W),
                        "color0_mag": (P2, C), "color0_sgn": (P2 // 8, C),
                        "color0_scl": (1, C)})
     else:
-        shapes.update({"trunk_w": (L, P, W), "feat_w": (W, W),
-                       "color0_w": (P2, C)})
+        shapes["color0_w"] = (P2, C)
     return shapes
 
 
@@ -89,28 +108,31 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device):
 
 
 def _net_ptrs(cfg: NerfConfig, weights: dict, device) -> list:
+    """The pointers of ``_NET_KEYS``, each array checked that the kernels
+    read (the reference layout's MLP matrices they do not read are not)."""
     quantized = "trunk_mag" in weights
-    for k, shape in _weight_shapes(cfg, quantized).items():
-        dt = torch.uint8 if k.endswith(("_mag", "_sgn")) else torch.float32
-        _check(k, weights[k], shape, dt, device)
     if "mma" not in weights:
         raise ValueError("the kernels read the ops.kernel_weights layout; "
-                         "this one has no tensor-core copies ('mma')")
-    mma = weights["mma"]
-    dt = torch.bfloat16 if quantized else torch.float32
-    for k, shape in mma_shapes(cfg, quantized).items():
-        _check(f"mma.{k}", mma[k], shape, dt, device)
-    flat = {**weights, **{f"mma.{k}": v for k, v in mma.items()}}
-    return [flat[k].data_ptr() if k in flat else None for k in _NET_KEYS]
+                         "this one has no tensor-core stream ('mma')")
+    shapes = {**_weight_shapes(cfg, quantized), **mma_shapes(cfg, quantized)}
+    ptrs = []
+    for k in _NET_KEYS:
+        if k not in shapes:
+            ptrs.append(None)
+            continue
+        dt = (torch.uint8 if k.endswith(("_mag", "_sgn")) else
+              torch.bfloat16 if k == "mma" and quantized else torch.float32)
+        _check(k, weights[k], shapes[k], dt, device)
+        ptrs.append(weights[k].data_ptr())
+    return ptrs
 
 
 def _dims(cfg: NerfConfig, R: int, rt: int) -> list:
     P, P2 = ref.packed_rows(cfg)
     W, C = cfg.trunk_width, cfg.color_width
-    if W > 256 or C > 256 or W % 16 or C % 8:
-        raise ValueError("the kernels compute layers at most 256 wide, the "
-                         "trunk a multiple of 16, the color branch of 8; got "
-                         f"W={W}, C={C}")
+    if (W, C) != KERNEL_WIDTHS:
+        raise ValueError("the kernels are built for the full NerfConfig "
+                         f"widths (W, C) = {KERNEL_WIDTHS}; got ({W}, {C})")
     skip = sum(1 << i for i in cfg.skip_at)
     return [R, rt, cfg.trunk_width, cfg.trunk_layers, skip, cfg.color_width,
             cfg.pos_freqs, cfg.dir_freqs, P, P2]
@@ -150,9 +172,16 @@ def blocks_per_sm(cfg: NerfConfig, kernel: str, samples: tuple,
     memory."""
     dims = _dims(cfg, 1, 1) + [*samples, *map(int, quantized)]
     if kernel == "k2":
+        _same_format(*quantized)
         dims.append(0)
     return _blocks_per_sm(tuple(dims), {"k1": 0, "k2": 1}[kernel],
                           torch.device(device))
+
+
+def _same_format(qc, qf):
+    if bool(qc) != bool(qf):
+        raise ValueError("K2 on the card takes two networks of one weight "
+                         "format (both RMCM or both f32)")
 
 
 def _device_of(rays_o: torch.Tensor) -> torch.device:
@@ -215,6 +244,7 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     _check("u_row", u_row, (Nf,), f32, dev)
     if alive is not None:
         _check("alive", alive, (R,), f32, dev)
+    _same_format("trunk_mag" in packed_c, "trunk_mag" in packed_f)
     ptrs = _net_ptrs(cfg, packed_c, dev) + _net_ptrs(cfg, packed_f, dev)
     outs = [torch.empty(s, dtype=f32, device=dev)
             for s in ((R, 3), (R, 3), (R,), (R,), (R,))]

@@ -10,12 +10,12 @@
   P2, P and P2 128-aligned. With ``quant`` the MONB matrices become uint8
   magnitudes + bit-packed signs + (1, out) scales; sigma and rgb stay f32.
   It equals the reference's layout key for key and bit for bit.
-* ``kernel_weights`` is that layout plus ``mma_weights``: the copies of
-  the MLP matrices that the kernels' tensor cores read, built once at pack
-  time beside the reference layout. Their rows are K-padded with zeros
-  (the PE rows of the trunk to a multiple of 16) and laid out in the MMA
-  fragment order: bf16 signed magnitudes under RMCM (exact), TF32 hi/lo
-  pairs (``tf32_split``) for f32 weights.
+* ``kernel_weights`` is that layout plus ``mma_stream``: the copy of the
+  MLP matrices that the kernels' tensor cores read, built once at pack
+  time beside the reference layout: one flat stream in reading order, PE
+  rows K-padded with zeros to a multiple of 16, in wgmma's K-major layout:
+  bf16 signed magnitudes under RMCM (exact), TF32 hi/lo pairs
+  (``tf32_split``) for f32 weights.
 * ``fused_render`` (one sample set, K1) and ``fused_render_two_pass``
   (the whole two-pass render, K2) pick the ray tile (from the kernel's
   resident blocks per SM on the card) and call the kernel wrappers. Both
@@ -134,42 +134,73 @@ def tf32_split(w: torch.Tensor):
     return hi, rna(w - hi)
 
 
-def _frag_bf16(w: torch.Tensor) -> torch.Tensor:
-    """(Kp, N) -> (Kp/16, N/8, 32, 4): per k step and column tile, lane
-    4g + t holds B of mma m16n8k16 (k 2t, 2t+1, 2t+8, 2t+9 of column g)."""
-    Kp, N = w.shape
-    v = w.reshape(Kp // 16, 2, 4, 2, N // 8, 8)       # kb, h, t, p, nt, g
-    return v.permute(0, 4, 5, 2, 1, 3).reshape(Kp // 16, N // 8, 32, 4)
+def _steps_bf16(m: torch.Tensor) -> torch.Tensor:
+    """(Kp, N) -> flat, per k step of 16 rows and 8-column group the two
+    K-major core matrices of wgmma: [k step][N / 8][K half][column][8 k]."""
+    Kp, N = m.shape
+    v = m.reshape(Kp // 16, 2, 8, N // 8, 8)           # kb, half, e, ng, r
+    return v.permute(0, 3, 1, 4, 2).reshape(-1)
 
 
-def _frag_tf32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """(Kp, N) twice -> (Kp/8, N/8, 32, 4): lane 4g + t holds hi and lo of
-    B of mma m16n8k8 (k t and t + 4 of column g): {hi0, hi1, lo0, lo1}."""
+def _steps_tf32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(Kp, N) twice -> flat, per k step of 8 rows the hi block then the lo
+    block, each [N / 8][K half][column][4 k]."""
     Kp, N = hi.shape
     v = torch.stack([hi, lo]).reshape(2, Kp // 8, 2, 4, N // 8, 8)
-    return v.permute(1, 4, 5, 3, 0, 2).reshape(Kp // 8, N // 8, 32, 4)
+    return v.permute(1, 0, 4, 2, 5, 3).reshape(-1)
 
 
-def mma_matrix(frag: torch.Tensor):
-    """Inverse of the fragment order: a bf16 copy -> its (Kp, N) matrix; a
-    TF32 copy -> (hi, lo), each (Kp, N)."""
-    nkb, nt = frag.shape[:2]
-    if frag.dtype == torch.bfloat16:
-        v = frag.reshape(nkb, nt, 8, 4, 2, 2)            # kb, nt, g, t, h, p
-        return v.permute(0, 4, 3, 5, 1, 2).reshape(nkb * 16, nt * 8)
-    v = frag.reshape(nkb, nt, 8, 4, 2, 2)                # kb, nt, g, t, which, h
-    hi, lo = v.permute(4, 0, 5, 3, 1, 2).reshape(2, nkb * 8, nt * 8)
+def _unsteps(flat: torch.Tensor, rows: int, ncols: int):
+    """Inverse of ``_steps_bf16`` (a bf16 segment -> its (rows, N) matrix)
+    and of ``_steps_tf32`` (an f32 segment -> (hi, lo))."""
+    if flat.dtype == torch.bfloat16:
+        v = flat.reshape(rows // 16, ncols // 8, 2, 8, 8)  # kb, ng, half, r, e
+        return v.permute(0, 2, 4, 1, 3).reshape(rows, ncols)
+    v = flat.reshape(rows // 8, 2, ncols // 8, 2, 8, 4)     # kb, which, ng, half, r, e
+    hi, lo = v.permute(1, 0, 3, 5, 2, 4).reshape(2, rows, ncols)
     return hi, lo
 
 
-def mma_weights(cfg: NerfConfig, packed: dict) -> dict:
-    """The tensor-core copies of one network's MLP matrices, from its
-    ``stack_plcore_weights`` layout: {"trunk" (L, ...), "feat", "color0"
-    (its W feature rows)}. Trunk layer i has KH = W rows of h input (zero
-    for layer 0) then KPE rows of PE input (zero but for layer 0 and skip
-    layers); every copy is in ``_fp.mma_shapes``' fragment layout."""
-    W, L, pe = cfg.trunk_width, cfg.trunk_layers, cfg.pos_enc_dim
+def mma_matrix(cfg: NerfConfig, stream: torch.Tensor, key: str,
+               layer: Optional[int] = None):
+    """Inverse of ``mma_stream`` for one matrix: trunk layer ``layer``
+    (``key`` "trunk") as (KH + KPE, W), its h rows first, absent segments
+    zero; "feat" (W, W); "color0" its W feature rows (W, C). A bf16 stream
+    gives the matrix, an f32 stream (hi, lo)."""
     KH, KPE = _fp.mma_rows(cfg)
+    W = cfg.trunk_width
+    name = key if layer is None else f"trunk{layer}"
+    parts = {}
+    for (seg, rows, ncols), (lo, hi) in zip(_fp.mma_segments(cfg),
+                                            _fp.mma_offsets(cfg, stream.dtype
+                                                            == torch.bfloat16)):
+        base, _, kind = seg.partition(".")
+        if base == name:
+            parts[kind] = _unsteps(stream[lo:hi], rows, ncols)
+    if layer is None:
+        return parts[""]
+
+    def assemble(pick):
+        m = torch.zeros(KH + KPE, W, dtype=torch.float32)
+        if "h" in parts:
+            m[:KH] = pick(parts["h"]).float()
+        if "pe" in parts:
+            m[KH:] = pick(parts["pe"]).float()
+        return m
+    if stream.dtype == torch.bfloat16:
+        return assemble(lambda p: p).to(torch.bfloat16)
+    return assemble(lambda p: p[0]), assemble(lambda p: p[1])
+
+
+def mma_stream(cfg: NerfConfig, packed: dict) -> torch.Tensor:
+    """The tensor-core copy of one network's MLP matrices, from its
+    ``stack_plcore_weights`` layout: one flat stream in the order the
+    kernels read it (``fused_plcore.mma_segments``: trunk layer 0's PE
+    rows, each later layer's h rows and a skip layer's PE rows, the feature
+    head, color0's W feature rows), PE rows zero-padded to a multiple of
+    16, each segment in wgmma's K-major layout: bf16 signed magnitudes under
+    RMCM (exact), TF32 hi/lo (``tf32_split``) for f32 weights."""
+    W, pe = cfg.trunk_width, cfg.pos_enc_dim
     quantized = "trunk_mag" in packed
 
     def dense(key, i=None):
@@ -181,34 +212,28 @@ def mma_weights(cfg: NerfConfig, packed: dict) -> dict:
         sg = rmcm.unpack_signs(sgn, sgn.shape[0] * 8).to(torch.float32)
         return sel(packed[f"{key}_mag"]).to(torch.float32) * (1.0 - 2.0 * sg)
 
-    def frag(m):
-        if quantized:
-            return _frag_bf16(m.to(torch.bfloat16))
-        return _frag_tf32(*tf32_split(m))
-
-    layers = []
-    for i in range(L):
-        tw = dense("trunk", i)
-        m = tw.new_zeros((KH + KPE, W))
-        if i == 0:
-            m[KH:KH + pe] = tw[:pe]
+    out = []
+    for seg, rows, _ in _fp.mma_segments(cfg):
+        base, _, kind = seg.partition(".")
+        if base.startswith("trunk"):
+            tw = dense("trunk", int(base[5:]))
+            m = tw[:W] if kind == "h" else (tw[:pe] if base == "trunk0"
+                                            else tw[W:W + pe])
         else:
-            m[:W] = tw[:W]
-            if i in cfg.skip_at:
-                m[KH:KH + pe] = tw[W:W + pe]
-        layers.append(frag(m))
-    return {"trunk": torch.stack(layers).contiguous(),
-            "feat": frag(dense("feat")[:W]).contiguous(),
-            "color0": frag(dense("color0")[:W]).contiguous()}
+            m = dense(base)[:W]
+        m = _place_rows(m.to(torch.float32), rows)
+        out.append(_steps_bf16(m.to(torch.bfloat16)) if quantized
+                   else _steps_tf32(*tf32_split(m)))
+    return torch.cat(out).contiguous()
 
 
 def kernel_weights(cfg: NerfConfig, params: dict,
                    quant: Optional[dict] = None) -> dict:
     """What the kernels read, packed once at load: the
-    ``stack_plcore_weights`` layout plus its tensor-core copies under
-    ``"mma"`` (one pack)."""
+    ``stack_plcore_weights`` layout plus its tensor-core copy under
+    ``"mma"`` (``mma_stream``; one pack)."""
     packed = stack_plcore_weights(cfg, params, quant)
-    packed["mma"] = mma_weights(cfg, packed)
+    packed["mma"] = mma_stream(cfg, packed)
     return packed
 
 

@@ -7,13 +7,14 @@ format of ``core.rmcm.pack``: uint8 magnitudes, signs bit-packed along K,
 one float32 scale per output column. The sum is float32, the scale is
 applied once after the whole K sum, and ``y`` comes back in ``x.dtype``.
 
-The kernel runs on the tensor cores (bf16x3 for an f32 ``x``, one bf16
-product for a bf16 ``x``, both exact against the signed magnitudes) in one
-of two routes chosen by M: ``large_m`` (persistent 128x128 tiles) and, for
-M <= ``SMALL_M``, ``small_m`` (64x128 tiles, a deeper load ring). Where
-the tiles cannot fill the card, K is split across blocks into a scratch
-buffer allocated here, and a second launch adds the splits in a fixed
-order and applies the scale. The result depends on the route only
+The kernel runs on Hopper's warpgroup MMA (bf16x3 for an f32 ``x``, one
+bf16 product for a bf16 ``x``, both exact against the signed
+magnitudes), the packed weight tiles staged by the TMA, in persistent
+128x128 tiles. Its plan names one of two routes by M, ``large_m`` and,
+for M <= ``SMALL_M``, ``small_m`` (the decode shapes, where K is split).
+Where the tiles cannot fill the card, K is split across blocks into a
+scratch buffer allocated here, and a second launch adds the splits in a
+fixed order and applies the scale. The result depends on the route only
 through the order of the sum, and two calls give the same bits.
 
 A CUDA tensor launches the kernel on the current stream (``y`` and the

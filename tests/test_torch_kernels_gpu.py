@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1, K2, K3) against their plain versions on
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
 (bf16x3); K3 in both its routes (M <= 64 splits K) at ragged K and N, in
-f32 and bf16, two calls giving the same bits.
+f32 and bf16, two calls giving the same bits, and its f32 error against a
+float64 product within twice the plain f32 version's.
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with a card and no JAX (``--noconftest`` skips the suite's JAX-based
@@ -170,6 +171,31 @@ def test_rmcm_matmul_routes_on_card(m, k, n, dtype):
     atol, rtol = (2e-4, 1e-4) if dtype == "float32" else (0.3, 0.05)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(16, 1536, 8960), (65, 1536, 8960),
+                                   (64, 300, 90), (4103, 512, 256)])
+def test_rmcm_matmul_f32_error_within_plain_versions_on_card(m, k, n):
+    """At a long K the f32 sum's rounding shows: against a float64 product,
+    the kernel's largest error is at most twice the plain f32 version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(m + 3 * k + n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    packed = bridge.to_device(rmcm.pack(rmcm.quantize(w)), dev)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+    sg = rmcm.unpack_signs(packed["sign_bits"],
+                           packed["sign_bits"].shape[0] * 8)[:k]
+    exact = (x.double() @ (packed["mag"].double() * (1.0 - 2.0 * sg.double()))
+             ) * packed["scale"].double().reshape(1, -1)
+    got = k3.rmcm_matmul(x, packed)
+    plain = ref.rmcm_matmul_ref(x, packed)
+    e_k = float((got.double() - exact).abs().max())
+    e_p = float((plain.double() - exact).abs().max())
+    assert e_k <= 2.0 * e_p, (e_k, e_p)
 
 
 @pytest.mark.gpu

@@ -5,11 +5,13 @@ products (``kernels/csrc/mma_split.cuh``): RMCM weights as bf16 signed
 magnitudes times bf16x3 pieces of the activations, f32 weights as TF32
 hi/lo pairs (3xTF32). What the CUDA code cannot show here, these tests
 hold in plain PyTorch:
-* the copies ``ops.mma_weights`` makes at pack time: bf16 signed
+* the stream ``ops.mma_stream`` makes at pack time: bf16 signed
   magnitudes equal mag * (1 - 2 s) exactly for every magnitude the nibble
   table gives, TF32 hi has its low 13 mantissa bits clear and
-  |w - hi - lo| <= 2^-21 |w|, the K-padding rows are zero, and the fragment
-  order is undone by ``ops.mma_matrix``;
+  |w - hi - lo| <= 2^-21 |w|, the K-padding rows are zero, ``ops.mma_matrix``
+  undoes the layout, and each element sits where wgmma's K-major,
+  unswizzled B descriptor (core matrices of 8 columns x 16 bytes, the K
+  half at +128 bytes, the next 8 columns at +256) reads it;
 * the bf16x3 split (``ref.split_bf16x3``) rebuilds f32 exactly from 1e-30 to
   1e30, both signs and zero;
 * the RMCM route's product emulated in f32 (split x exact weight, f32 sum,
@@ -89,10 +91,10 @@ def _logical(cfg, name: str, dense: dict):
 
 
 def _copy(cfg, packed, key, layer, quantized):
-    c = packed["mma"][key]
-    assert tuple(c.shape) == fused_plcore.mma_shapes(cfg, quantized)[key]
+    c = packed["mma"]
+    assert tuple(c.shape) == fused_plcore.mma_shapes(cfg, quantized)["mma"]
     assert c.dtype == (torch.bfloat16 if quantized else torch.float32)
-    return ops.mma_matrix(c if layer is None else c[layer])
+    return ops.mma_matrix(cfg, c, key, layer)
 
 
 @pytest.mark.parametrize("name", MATRICES)
@@ -134,6 +136,35 @@ def test_tf32_copies_split_exactly_enough(net, name):
     assert bool((err <= 2.0 ** -21 * w.abs()).all())
     assert not hi[want == 0].any() and not lo[want == 0].any()
     assert (hi != 0).any()
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("seg", [0, 4, -1])
+def test_stream_places_elements_where_wgmma_reads_them(net, quantized, seg):
+    """Element (k, n) of a segment lies at the byte the kernels' B
+    descriptor names: k step k // ks (ks = 16 bf16 or 8 TF32), then 8-column
+    group n // 8 (+256 B), K half (+128 B), column n % 8 (+16 B), k within
+    the half (2 or 4 B); a TF32 step holds all hi, then all lo."""
+    cfg, params = net
+    quant = rmcm.quantize_tree(params) if quantized else None
+    packed = ops.kernel_weights(cfg, params, quant)
+    _, rows, ncols = fused_plcore.mma_segments(cfg)[seg]
+    first, end = fused_plcore.mma_offsets(cfg, quantized)[seg]
+    flat = packed["mma"][first:end]
+    per = 1 if quantized else 2
+    assert end - first == per * rows * ncols
+    m = ops._unsteps(flat, rows, ncols)
+    hi = m if quantized else m[0]
+    ks, esz = (16, 2) if quantized else (8, 4)
+    rng = np.random.default_rng(seg + 7)
+    for k, n in zip(rng.integers(0, rows, 64), rng.integers(0, ncols, 64)):
+        byte = ((k // ks) * ncols * 32 * per + (n // 8) * 256
+                + ((k % ks) // (ks // 2)) * 128 + (n % 8) * 16
+                + (k % (ks // 2)) * esz)
+        assert byte % esz == 0
+        assert flat[byte // esz] == hi[k, n]
+        if not quantized:
+            assert flat[byte // esz + ncols * 8] == m[1][k, n]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -57,6 +57,31 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    equals a direct
    ``PackedPlcore.render_image`` of its pose bit for bit (within 1e-3
    where the oracle rung rendered one of its tiles).
+7. K2 at each adaptive budget (Nf = 8, 32, 64 of ``default_budget_classes``
+   at n_fine = 128): the 128x128 view at full width, f32 and RMCM, with an
+   alive mask in which a third of the rays are dead, against the plain
+   version at 5e-3 (1e-2 for depth), timed with CUDA events beside the
+   bound of the work this mask leaves (every ray's coarse pass, the live
+   rays' fine pass).
+8. The adaptive view: ``AdaptiveRenderer.render_image`` of one 128x128
+   view at full width, f32, scene bias -0.1 (``SCENE_BIAS``), 4096-ray
+   tiles, the engine's
+   probe (a 32^3 grid from 8x8-ray poses), rendered
+   twice from fresh aux (equal bits, equal dead masks); every ray that did
+   not render dead equals ``PackedPlcore.render_tile(..., budget=b)`` of
+   the same rays without a mask bit for bit. Prints the dead-ray fraction,
+   skipped fine samples, memo hits, host ms per tile and of
+   classification, the PSNR against the static fused view of the adaptive
+   view and of the unmasked budget renders, and both wall times.
+9. The adaptive engine, ``serve --mode engine --adaptive-sampling
+   --scene-bias -0.1 --check`` with step 6's trace: counters zeroed before
+   the run and read after it; K2 launches equal the adaptive tiles that
+   were not fully dead, K1 never launches; the check's gates (an adaptive
+   tile, memo hits, every budget class, depth 2 = depth 1 and the
+   adaptive-off rerun at depth 2 = depth 1, bit for bit). Then the trace
+   again on the warm engines, adaptive off and on in turns (off, on, on,
+   off), rays/s of each; the host time of the probes, of classification
+   and per adaptive tile.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits nonzero with no
@@ -64,7 +89,9 @@ result when CUDA is absent or the repository's sources are not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -82,17 +109,26 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs.nerf_icarus import CONFIG  # noqa: E402
 from repro_torch.core import rmcm, sampling  # noqa: E402
-from repro_torch.core.pipeline import PackedPlcore  # noqa: E402
+from repro_torch.core.pipeline import (AdaptiveRenderer,  # noqa: E402
+                                       PackedPlcore, build_scene_aux)
 from repro_torch.core.plcore import plcore_decls  # noqa: E402
 from repro_torch.data import rays  # noqa: E402
 from repro_torch.kernels import build, fused_plcore, ops, ref  # noqa: E402
 from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving import loadgen  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 
 DEV = torch.device("cuda")
 HW = 128
 PLAIN_RT = 1024          # rays per tensor batch of the plain versions
+# the mixed scene of the adaptive phases: every sigma-head bias shifted by
+# -0.1. The reference's gates use -0.5 on the tiny config, where the
+# initial raw sigma spreads several times wider; at full width -0.5
+# leaves no density at all (every ray white and in the lowest class)
+SCENE_BIAS = -0.1
+ADAPTIVE_TILE = 4096     # rays per adaptive tile, the engine's tile
+ADAPTIVE_AUX = {"grid_res": 32, "probe_hw": 8}   # the engine's probe
 HBM_BYTES_PER_S = 3.35e12
 HEADER = "src/repro_torch/kernels/csrc/mma_split.cuh"
 SOURCE = {"fused_plcore_call": "src/repro_torch/kernels/csrc/fused_plcore.cu",
@@ -561,10 +597,12 @@ def zero_launches() -> None:
     for counts in (fused_plcore.LAUNCHES, k3.LAUNCHES, k3.ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+    fused_plcore.K2_LAUNCHES_BY_NF.clear()
 
 
 def read_launches() -> dict:
-    return {**fused_plcore.LAUNCHES, **k3.LAUNCHES}
+    return {**fused_plcore.LAUNCHES, **k3.LAUNCHES,
+            "k2_by_nf": dict(fused_plcore.K2_LAUNCHES_BY_NF)}
 
 
 def engine_phase(extra: list) -> dict:
@@ -659,6 +697,204 @@ def engine_phase(extra: list) -> dict:
     return summary
 
 
+def budget_phase(cfg, params, peaks: dict) -> dict:
+    """K2 at each adaptive budget on one 128x128 view, f32 and RMCM, with
+    a third of the rays dead: checked against the plain version and timed
+    beside the bound of the work the mask leaves."""
+    o, d = view_rays(45.0)
+    R, Nc = o.shape[0], cfg.n_coarse
+    alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
+    n_alive = int(alive.sum())
+    nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
+    plain_nets = {q: {n: {k: v for k, v in nets[q][n].items() if k != "mma"}
+                      for n in nets[q]} for q in nets}
+    out = {}
+    for Nf in sampling.default_budget_classes(cfg.n_fine):
+        cfg_b = dataclasses.replace(cfg, n_fine=Nf)
+        rows = ops.sample_rows(cfg_b, DEV)
+        row = {"n_fine": Nf, "alive_rays": n_alive, "rays": R}
+        for q in (False, True):
+            per_sm = fused_plcore.blocks_per_sm(cfg_b, "k2", (Nc, Nf),
+                                                (q, q), DEV)
+            rt = ops.pick_ray_tile(R, DEV, per_sm)
+            k2 = (cfg_b, nets[q]["coarse"], nets[q]["fine"], o, d, *rows)
+            plain = (cfg_b, plain_nets[q]["coarse"], plain_nets[q]["fine"],
+                     o, d, *rows)
+            ms, got = cuda_ms(lambda: fused_plcore.two_pass_plcore_call(
+                *k2, rt=rt, ert_eps=0.0, alive=alive), 3)
+            plain_ms, want = cuda_ms(lambda: ref.two_pass_ref(
+                *plain, rt=PLAIN_RT, ert_eps=0.0, alive=alive), 3)
+            err = check(f"K2 Nf={Nf} rmcm={q} alive {n_alive}/{R}", got,
+                        want, (5e-3, 5e-3, 5e-3, 5e-3, 1e-2))
+            n_bytes = nbytes(o, d, rows, alive, plain_nets[q]) + 4 * R * 9
+            # every ray's coarse pass, the live rays' fine pass
+            b = plcore_bounds(cfg_b, 1, R * Nc + n_alive * (Nc + Nf),
+                              R + n_alive, n_bytes, q, peaks)
+            sfx = "_rmcm" if q else ""
+            row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                        f"plain_ms{sfx}": plain_ms,
+                        f"bound_ms{sfx}": b["bound_ms"],
+                        f"bound_by{sfx}": b["bound_by"],
+                        f"bound_ms_fp32{sfx}": b["bound_ms_fp32"],
+                        f"ray_tile{sfx}": rt})
+            print(f"K2 Nf={Nf} rmcm={q}: {ms:.3f} ms (ray tile {rt}); "
+                  f"tensor-core bound {b['bound_ms']:.3f} ms "
+                  f"({100 * b['bound_ms'] / ms:.1f}% of it, by "
+                  f"{b['bound_by']}); plain {plain_ms:.3f} ms", flush=True)
+        out[Nf] = row
+    return out
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a - b) ** 2))
+    return 10 * math.log10(1.0 / mse) if mse > 0 else float("inf")
+
+
+def biased_model(cfg, params) -> PackedPlcore:
+    """The f32 fused model with every sigma-head bias shifted by
+    ``SCENE_BIAS`` (serve's ``--scene-bias``)."""
+    biased = {n: {**p, "sigma": {**p["sigma"],
+                                 "b": p["sigma"]["b"] + SCENE_BIAS}}
+              for n, p in params.items()}
+    return PackedPlcore(cfg, biased, use_kernel=True, fuse_two_pass=True,
+                        device=DEV)
+
+
+def adaptive_view_phase(cfg, params) -> dict:
+    """``AdaptiveRenderer.render_image`` of one 128x128 view at full
+    width, twice from fresh aux: equal bits, and every ray that did not
+    render dead equal to the unmasked render of its budget. Launch counts
+    zeroed just before the first render and read just after it."""
+    pp = biased_model(cfg, params)
+    o, d = view_rays(45.0)
+    o_h, d_h = o.cpu().numpy(), d.cpu().numpy()
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = build_scene_aux(pp, **ADAPTIVE_AUX)
+        aux_s = time.perf_counter() - t0
+        ar = AdaptiveRenderer(pp, aux)
+        if i == 0:
+            zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, dead = ar.render_image(o_h, d_h, rays_per_tile=ADAPTIVE_TILE,
+                                    with_dead=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i == 0:
+            launches = read_launches()
+        runs.append((img, dead, wall, aux_s, ar.report()))
+    (img, dead, wall, aux_s, rep), (img2, dead2, wall2, _, rep2) = runs
+    assert np.isfinite(img).all() and img.shape == (HW * HW, 3)
+    assert np.array_equal(img, img2) and np.array_equal(dead, dead2), \
+        "adaptive view does not repeat bit for bit from fresh aux"
+    assert launches["two_pass_plcore_call"] == \
+        rep["tiles"] - rep["full_dead_tiles"], (launches, rep)
+    assert launches["fused_plcore_call"] == 0, launches
+    # every ray unmasked at its class's budget: the live rays must equal
+    # it bit for bit; the dead rays show what the memo rebuild changes
+    cls = ar.classify_rays(o_h, d_h)
+    budget_img = np.empty_like(img)
+    for c, b in enumerate(ar.budgets):
+        idx = np.nonzero(cls == c)[0]
+        if idx.size:
+            budget_img[idx] = pp.render_tile(o[idx], d[idx],
+                                             budget=b).cpu().numpy()
+    n_live = int((~dead).sum())
+    assert np.array_equal(img[~dead], budget_img[~dead]), float(
+        np.abs(img[~dead] - budget_img[~dead]).max())
+    assert 0 < n_live < o.shape[0], ("no live/dead mix", n_live)
+    static_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        static = pp.render_image(o.reshape(HW, HW, 3), d.reshape(HW, HW, 3))
+        torch.cuda.synchronize()
+        static_walls.append(time.perf_counter() - t0)
+    static = static.reshape(-1, 3).cpu().numpy()
+    summary = {
+        "wall_s": wall, "wall_s_second_run": wall2,
+        "static_wall_s": static_walls, "aux_build_s": aux_s,
+        "psnr_vs_static_db": psnr(img, static),
+        "psnr_budgets_only_vs_static_db": psnr(budget_img, static),
+        "max_abs_diff_vs_static": float(np.abs(img - static).max()),
+        "dead_rays_max_abs_diff_vs_budget_render": float(
+            np.abs(img[dead] - budget_img[dead]).max()),
+        "classify_ms": rep["classify_ms"],
+        "pixel_std": float(img.std()),
+        "dead_ray_fraction": rep["dead_ray_fraction"],
+        "skipped_fine_samples": rep["skipped_fine_samples"],
+        "memo_hits": rep["memo"]["hits"], "tiles": rep["tiles"],
+        "full_dead_tiles": rep["full_dead_tiles"],
+        "budget_rays": rep["budget_rays"],
+        "host_ms_per_tile": rep["host_ms_per_tile"],
+        "live_rays_exact_vs_budget_render": n_live, "launches": launches}
+    print(f"adaptive view: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def adaptive_engine_phase() -> dict:
+    """``serve --mode engine --adaptive-sampling --scene-bias
+    SCENE_BIAS`` on the trace of the engine phase: counts zeroed just
+    before the run and read just after it (K2 once per adaptive tile that
+    was not fully dead, no K1), then the check's gates."""
+    args = serve.build_parser().parse_args(
+        ENGINE_ARGV + ["--adaptive-sampling", "--scene-bias",
+                       str(SCENE_BIAS)])
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args)
+    launches = read_launches()
+    st, rb, sp = report["engine"], report["robustness"], report["sampling"]
+    assert report["device"].startswith("cuda"), report["device"]
+    assert (rb["dispatch_errors"], rb["tile_retries"],
+            rb["oracle_fallbacks"]) == (0, 0, 0), rb
+    assert st["dispatches"] == sp["adaptive_tiles"], (st, sp)
+    assert launches["two_pass_plcore_call"] == \
+        sp["adaptive_tiles"] - sp["full_dead_tiles"] >= 1, (launches, sp)
+    assert launches["fused_plcore_call"] == 0, launches
+    assert sum(launches["k2_by_nf"].values()) == \
+        launches["two_pass_plcore_call"], launches
+    compared = serve.check_engine(args, report, engine, rerun)
+    # the trace again on warm engines (weights packed, probes done, memo
+    # filled), adaptive off and on in turns: rays/s of each run
+    off = rerun(args.pipeline_depth, adaptive=False)
+    warm = {"static": [], "adaptive": []}
+    for label, eng in (("static", off), ("adaptive", engine),
+                       ("adaptive", engine), ("static", off)):
+        rays0 = eng.stats["rays_rendered"]
+        t0 = time.perf_counter()
+        loadgen.run_trace(eng, trace, mode=args.loop,
+                          concurrency=args.concurrency)
+        warm[label].append((eng.stats["rays_rendered"] - rays0)
+                           / (time.perf_counter() - t0))
+    scenes = sp["scenes"].values()
+    tiles = sum(r["tiles"] for r in scenes)
+    host_ms = sum(r["host_ms_per_tile"] * r["tiles"] for r in scenes
+                  if r["tiles"]) / max(tiles, 1)
+    summary = {
+        "rays_per_s": report["rays_per_s"], "req_per_s": report["req_per_s"],
+        "wall_s": report["wall_s"], "latency_ms": report["latency_ms"],
+        "queueing_ms": report["queueing_ms"],
+        "service_ms": report["service_ms"],
+        "max_in_flight": st["max_in_flight"], "dispatches": st["dispatches"],
+        "dispatch_baseline": st["dispatch_baseline"],
+        "padded_rays": st["padded_rays"],
+        "host_ms_per_adaptive_tile": host_ms,
+        "classify_ms": sum(r["classify_ms"] for r in scenes),
+        "probe_s": sp["probe_s"], "warm_rays_per_s": warm,
+        "launches": launches,
+        "check_compared": compared,
+        "sampling": {k: v for k, v in sp.items() if k != "scenes"},
+        "budget_rays": {sid: r["budget_rays"]
+                        for sid, r in sp["scenes"].items()},
+        "budget_tiles": {sid: r["budget_tiles"]
+                         for sid, r in sp["scenes"].items()}}
+    print(f"engine adaptive: {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def oracle_phase(cfg, params) -> int:
     model = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
                          device=DEV)
@@ -702,21 +938,35 @@ def main() -> None:
     oracle_launches = oracle_phase(cfg, params)
     clean = engine_phase([])
     chaos = engine_phase(["--inject-faults"])
+    budgets = budget_phase(cfg, params, peaks)
+    view = adaptive_view_phase(cfg, params)
+    adaptive = adaptive_engine_phase()
 
+    k2 = "two_pass_plcore_call"
     main_path = {k: main_launches[k] + rmcm_launches[k]
-                 + clean["launches"][k] for k in main_launches}
+                 + clean["launches"][k] + view["launches"][k]
+                 + adaptive["launches"][k]
+                 for k in ("fused_plcore_call", k2, "rmcm_matmul")}
+    by_nf = {nf: view["launches"]["k2_by_nf"].get(nf, 0)
+             + adaptive["launches"]["k2_by_nf"].get(nf, 0) for nf in budgets}
     kernels = []
-    for k in ("fused_plcore_call", "two_pass_plcore_call"):
-        launches = (main_path[k] if k == "two_pass_plcore_call"
-                    else oracle_launches)
+    for k in ("fused_plcore_call", k2):
+        launches = main_path[k] if k == k2 else oracle_launches
         kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
                         "header": HEADER,
                         "mma_route": "wgmma: 3xTF32 (f32 weights), bf16x3 "
                                      "(RMCM); weights by bulk copy",
                         "replaces": REPLACES[k], "launches": launches,
-                        "launches_on": ("main path" if k == "two_pass_plcore_call"
+                        "launches_on": ("main path" if k == k2
                                         else "oracle path"),
                         **rows[k], "library_ms": None})
+    for nf, row in budgets.items():
+        kernels.append({"name": f"{k2}[n_fine={nf}]", "route": "cuda",
+                        "source": SOURCE[k2], "header": HEADER,
+                        "replaces": REPLACES[k2], "launches": by_nf[nf],
+                        "launches_on": "adaptive view and adaptive engine",
+                        "alive_mask": "every third ray dead",
+                        **row, "library_ms": None})
     kernels.append({"name": "rmcm_matmul", "route": "cuda",
                     "source": SOURCE["rmcm_matmul"], "header": HEADER,
                     "mma_route": "wgmma: bf16x3 (f32 x), bf16 (bf16 x); "
@@ -726,7 +976,9 @@ def main() -> None:
                     "launches_on": "rmcm_matmul entry point",
                     "main_path_launches": main_path["rmcm_matmul"],
                     **k3_row})
-    print(json.dumps({"engine": {"clean": clean, "chaos": chaos}}))
+    print(json.dumps({"engine": {"clean": clean, "chaos": chaos,
+                                 "adaptive": adaptive},
+                      "adaptive_view": view}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

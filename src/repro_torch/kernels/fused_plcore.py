@@ -18,7 +18,8 @@ SM.
 A CUDA tensor launches the kernel on the current stream (outputs allocated
 here with ``torch.empty``); a CPU tensor takes the plain version in
 ``kernels.ref``. Nothing else: no fallback from one to the other.
-``LAUNCHES`` counts kernel launches per wrapper and is touched nowhere
+``LAUNCHES`` counts kernel launches per wrapper (and
+``K2_LAUNCHES_BY_NF`` K2's by fine-sample count) and is touched nowhere
 but at a launch.
 """
 from __future__ import annotations
@@ -33,6 +34,9 @@ from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
 
 LAUNCHES = {"fused_plcore_call": 0, "two_pass_plcore_call": 0}
+# K2's launches by fine-sample count (adaptive budgets run Nf < n_fine),
+# counted at the same place as LAUNCHES
+K2_LAUNCHES_BY_NF: dict = {}
 # (trunk width, color width) the kernels' wgmma shapes are compiled for
 KERNEL_WIDTHS = (256, 128)
 
@@ -257,5 +261,6 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     _launch(build.load().plcore_two_pass, io + ptrs, dims,
             ctypes.c_float(ref.ert_threshold(ert_eps)))
     LAUNCHES["two_pass_plcore_call"] += 1
+    K2_LAUNCHES_BY_NF[Nf] = K2_LAUNCHES_BY_NF.get(Nf, 0) + 1
     return tuple(outs)
 

@@ -14,8 +14,15 @@ drawn from a ``torch.Generator`` seeded ``--seed + i``) behind an LRU
 ``--priority-mix``) driven open-loop at ``--rate`` or closed-loop at
 ``--concurrency``, coalesced into ``--tile-rays``-ray tiles with up to
 ``--pipeline-depth`` tiles in flight. ``--inject-faults`` arms the seeded
-chaos mix (``--fault-seed``). Prints the loadgen report as JSON;
-``--check`` gates it (see ``check_engine``).
+chaos mix (``--fault-seed``). ``--adaptive-sampling`` arms ASDR (per-scene
+density probe, per-ray fine-sample budget classes ``--budget-classes``, a
+trunk memo of ``--memo-mb`` per scene, memo-dead rows masked out of K2);
+``--scene-bias`` shifts every scene's sigma-head bias, carving empty space
+into the synthetic scenes (the adaptive gates need a mixed scene: -0.5 on
+the tiny config; at full width, where the initial sigma spreads narrower,
+-0.5 leaves no density at all and -0.1 is mixed).
+Prints the loadgen report as JSON; ``--check`` gates it (see
+``check_engine``).
 
 Flags: ``--kernel`` routes each pass through the fused kernel (K1,
 two dispatches per render); ``--fuse-two-pass`` (with ``--kernel``) runs the
@@ -30,6 +37,10 @@ defaults to ``cuda``.
     python -m repro_torch.launch.serve --mode engine --full --kernel \\
         --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
         --loop closed --pipeline-depth 2 --tile-rays 4096 --check
+    python -m repro_torch.launch.serve --mode engine --full --kernel \\
+        --fuse-two-pass --adaptive-sampling --scene-bias -0.1 --scenes 3 \\
+        --requests 12 --hw-mix 64,128 --loop closed --pipeline-depth 2 \\
+        --tile-rays 4096 --check
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import json
 import time
 from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -76,11 +88,34 @@ def model_config(args):
     return cfg
 
 
+def budget_classes(args):
+    """The adaptive budget classes of the flags (None: the config's
+    default ladder), after the adaptive-sampling guards."""
+    if not args.adaptive_sampling:
+        return None
+    if not (args.kernel and args.fuse_two_pass):
+        raise SystemExit("--adaptive-sampling rides the fused two-pass "
+                         "kernel's dead rows; it requires --kernel "
+                         "--fuse-two-pass")
+    for flag, name in ((args.degrade_on_overload, "--degrade-on-overload"),
+                       (args.inject_faults, "--inject-faults")):
+        if flag:
+            raise SystemExit(f"--adaptive-sampling is incompatible with "
+                             f"{name}")
+    if args.budget_classes == "auto":
+        return None
+    return tuple(int(b) for b in args.budget_classes.split(","))
+
+
 def load_plcore(cfg, args, seed: int) -> PackedPlcore:
     """A PackedPlcore for the flags, its weights drawn from a
     ``torch.Generator`` seeded ``seed``."""
     gen = torch.Generator().manual_seed(seed)
     params = init_params(plcore_decls(cfg), gen, "float32")
+    if args.scene_bias:
+        # negative values carve real empty space into the synthetic scene
+        for net in params.values():
+            net["sigma"]["b"] = net["sigma"]["b"] + args.scene_bias
     quant = None
     if args.rmcm:
         quant = {net: rmcm.quantize_tree(params[net])
@@ -153,6 +188,7 @@ def run_engine(args):
                                      SceneCache, loadgen)
 
     cfg = model_config(args)
+    classes = budget_classes(args)
     scene_ids = [f"scene{i}" for i in range(args.scenes)]
 
     def load_scene(scene_id: str) -> PackedPlcore:
@@ -165,18 +201,25 @@ def run_engine(args):
     prior_s = (None if args.service_prior_ms is None
                else args.service_prior_ms / 1e3)
 
-    def make_engine(depth: int, chaos: bool) -> RenderEngine:
+    def make_engine(depth: int, chaos: bool,
+                    adaptive: Optional[bool] = None) -> RenderEngine:
         # reference reruns are clean: no fault plan (reusing this run's
         # plan would continue its streams, not replay them) and a fresh
         # cache with the unwrapped loader
         loader = (plan.wrap_loader(load_scene) if chaos and plan is not None
                   else load_scene)
+        if adaptive is None:
+            adaptive = args.adaptive_sampling
+        # the adaptive keywords only when armed: an adaptive-off engine is
+        # built exactly as one that never heard of them
+        kw = (dict(adaptive_sampling=True, budget_classes=classes,
+                   memo_mb=args.memo_mb) if adaptive else {})
         return RenderEngine(SceneCache(loader, capacity_mb=args.cache_mb),
                             tile_rays=args.tile_rays, pipeline_depth=depth,
                             max_queue=args.max_queue,
                             degrade_on_overload=args.degrade_on_overload,
                             faults=plan if chaos else None,
-                            tile_service_prior_s=prior_s)
+                            tile_service_prior_s=prior_s, **kw)
 
     engine = make_engine(args.pipeline_depth, chaos=True)
     deadline_choices = ((None,) if args.deadline_ms is None
@@ -200,9 +243,13 @@ def run_engine(args):
               "pipeline_depth": args.pipeline_depth,
               "inject_faults": bool(args.inject_faults),
               "deadline_ms": args.deadline_ms, **report}
+    if args.adaptive_sampling:
+        report["adaptive_sampling"] = True
+        report["scene_bias"] = args.scene_bias
+        report["sampling"] = engine.sampling_report()
 
-    def rerun(depth: int) -> RenderEngine:
-        ref = make_engine(depth, chaos=False)
+    def rerun(depth: int, adaptive: Optional[bool] = None) -> RenderEngine:
+        ref = make_engine(depth, chaos=False, adaptive=adaptive)
         loadgen.run_trace(ref, trace, mode=args.loop,
                           concurrency=args.concurrency)
         return ref
@@ -237,16 +284,21 @@ def compare_images(engine, ref, label: str) -> int:
 def check_engine(args, report: dict, engine, rerun) -> dict:
     """The ``--check`` gates of one host: every request completes, the
     scene cache hits, coalescing issues no more dispatches than the
-    per-request baseline; under ``--inject-faults`` the plan injected
-    something, goodput is at least 0.75 and ok images equal a clean
-    rerun's; at depth >= 2 (closed loop) two tiles were in flight at once
-    and the images equal a depth-1 rerun's. Returns the counts compared."""
+    per-request baseline (not under ``--adaptive-sampling``, whose budget
+    buckets split a request's rays over per-class tiles on purpose); under
+    ``--inject-faults`` the plan injected something, goodput is at least
+    0.75 and ok images equal a clean rerun's; at depth >= 2 (closed loop)
+    two tiles were in flight at once and the images equal a depth-1
+    rerun's. Under ``--adaptive-sampling`` (``check_adaptive``): a tile
+    took the adaptive path, the memo served hits, every budget class
+    rendered rays, and an adaptive-off rerun at this depth equals one at
+    depth 1. Returns the counts compared."""
     if report["requests_completed"] != args.requests:
         raise SystemExit(f"engine check: {report['requests_completed']}"
                          f"/{args.requests} requests completed")
     if report["cache"]["hit_rate"] <= 0.0:
         raise SystemExit("engine check: scene-cache hit rate is 0")
-    if report["dispatch_savings"] < 0:
+    if report["dispatch_savings"] < 0 and not args.adaptive_sampling:
         raise SystemExit("engine check: coalescing issued MORE dispatches "
                          "than the per-request baseline")
     compared = {}
@@ -268,7 +320,36 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
                              f"flight")
         compared["depth1"] = compare_images(engine, rerun(1),
                                             "synchronous depth=1")
+    if args.adaptive_sampling:
+        compared["adaptive_off"] = check_adaptive(args, report, rerun)
     return compared
+
+
+def check_adaptive(args, report: dict, rerun) -> int:
+    """The adaptive gates: at least one adaptive tile, at least one memo
+    hit, every budget class exercised by real rays (a scene that is not
+    mixed starves classes; see ``--scene-bias``), and the same trace
+    with adaptive sampling OFF at this depth equal to one at depth 1 bit
+    for bit. Returns the count of images compared."""
+    sp = report["sampling"]
+    if sp["adaptive_tiles"] < 1:
+        raise SystemExit("engine check: --adaptive-sampling armed but no "
+                         "tile took the adaptive path")
+    if sp["memo_hits"] < 1:
+        raise SystemExit("engine check: adaptive sampling served zero "
+                         "trunk-memo hits — memoization never engaged")
+    exercised, n_classes = set(), 0
+    for r in sp["scenes"].values():
+        n_classes = max(n_classes, len(r["budgets"]))
+        exercised |= {b for b, n in r["budget_rays"].items() if n > 0}
+    if len(exercised) < n_classes:
+        raise SystemExit(f"engine check: only budget classes "
+                         f"{sorted(exercised, key=int)} of {n_classes} "
+                         f"exercised — the calibration edges starve classes "
+                         f"(is --scene-bias set for a mixed scene?)")
+    return compare_images(rerun(args.pipeline_depth, adaptive=False),
+                          rerun(1, adaptive=False),
+                          "adaptive-off synchronous depth=1")
 
 
 def serve_engine(args) -> dict:
@@ -333,6 +414,24 @@ def build_parser():
     ap.add_argument("--service-prior-ms", type=float, default=None,
                     help="per-tile service time assumed by admission "
                          "control before the first tile drains")
+    ap.add_argument("--adaptive-sampling", action="store_true",
+                    help="ASDR: per-scene density probe at scene load, "
+                         "per-ray fine-sample budget classes (tiles "
+                         "coalesce (scene, budget)-pure) and a trunk memo "
+                         "whose empty resident rays enter K2 as dead rows "
+                         "(requires --kernel --fuse-two-pass)")
+    ap.add_argument("--budget-classes", default="auto", metavar="N,N,N",
+                    help="ascending fine-sample budgets of the adaptive "
+                         "classes (default 'auto': from the config's "
+                         "n_fine, 8,32,64 for 128)")
+    ap.add_argument("--memo-mb", type=float, default=32.0,
+                    help="per-scene trunk-memo capacity in MB (LRU; counted "
+                         "against --cache-mb)")
+    ap.add_argument("--scene-bias", type=float, default=0.0,
+                    help="shift every synthetic scene's sigma-head bias; "
+                         "negative values carve empty space (a mixed scene "
+                         "for the adaptive gates: -0.5 on the tiny config, "
+                         "-0.1 at --full)")
     ap.add_argument("--check", action="store_true",
                     help="gate the engine run (see check_engine)")
     return ap

@@ -235,6 +235,32 @@ ENGINE_STATS_SCHEMA = (
      "admission-control service estimator"),
 )
 
+# The adaptive-sampling block, bound by ``extend_stats_view`` only when an
+# engine runs with ``adaptive_sampling``, so the default stats keep their
+# keys. The gauge ``dead_ray_fraction`` exports as
+# ``engine_dead_ray_fraction``.
+SAMPLING_STATS_SCHEMA = (
+    ("adaptive_tiles", "counter", 0,
+     "tiles dispatched through the adaptive (budget-bucketed) path"),
+    ("full_dead_tiles", "counter", 0,
+     "all-dead tiles resolved from the trunk memo without a kernel "
+     "launch"),
+    ("dead_rays", "counter", 0,
+     "rays entering the fused kernel as dead rows (memo-resident, "
+     "provably-empty frustums)"),
+    ("skipped_fine_samples", "counter", 0,
+     "fine-MLP samples skipped by dead rows at the tile's budget"),
+    ("memo_topup_voxels", "counter", 0,
+     "trunk rows computed by per-dispatch memo top-ups"),
+    ("memo_hits", "counter", 0, "trunk-memo row lookups served"),
+    ("memo_misses", "counter", 0, "trunk-memo row lookups missed"),
+    ("memo_evictions", "counter", 0, "trunk-memo LRU evictions"),
+    ("dead_ray_fraction", "gauge", 0.0,
+     "dead rows / dispatched rays, cumulative over the run"),
+    ("memo_resident_mb", "gauge", 0.0,
+     "live trunk-memo bytes across resident scenes"),
+)
+
 
 class _StatusCounts(dict):
     """The nested ``status_counts`` dict, backed by a labeled counter
@@ -324,6 +350,15 @@ class EngineMetrics:
         self.request_latency_seconds = registry.histogram(
             f"{prefix}_request_latency_seconds",
             "submit -> terminal status per delivered request", unit="s")
+        # per-budget-class families (adaptive-sampling runs): the budget
+        # histogram behind the engine's sampling report, as
+        # {budget_class=...} children
+        self.budget_tiles = registry.counter(
+            f"{prefix}_budget_tiles_total",
+            "tiles dispatched per fine-sample budget class")
+        self.budget_rays = registry.counter(
+            f"{prefix}_budget_rays_total",
+            "rays dispatched per fine-sample budget class")
 
 
 def engine_stats_view(registry: MetricsRegistry) -> StatsView:
@@ -332,3 +367,9 @@ def engine_stats_view(registry: MetricsRegistry) -> StatsView:
     view = StatsView(registry).bind_schema(ENGINE_STATS_SCHEMA)
     object.__setattr__(view, "m", EngineMetrics(registry))
     return view
+
+
+def extend_stats_view(view: StatsView, schema) -> StatsView:
+    """Append a schema block (``SAMPLING_STATS_SCHEMA``) to an existing
+    view: same registry, same write-through binding."""
+    return view.bind_schema(schema)

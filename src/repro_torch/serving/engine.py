@@ -54,6 +54,19 @@ with K2 to the K1-vs-K2 tolerance, not bit for bit. A ``StragglerMonitor``
 watches per-tile in-flight latency; a tile past the deadline factor is
 abandoned and redispatched. ``serving.faults.FaultPlan`` injects each
 fault class deterministically.
+
+Adaptive sampling (ASDR)
+------------------------
+
+With ``adaptive_sampling`` the engine renders through one
+``core.pipeline.AdaptiveRenderer`` per scene (``AdaptiveSampling``): the
+scene's first touch runs the density probe (``build_scene_aux``), whose
+stats and trunk memo ride the scene's cache entry. The scheduler buckets
+each request's rays by fine-sample budget class, with one more bucket for
+hinted-dead rays, and coalesces budget-pure tiles (shrunk to a power of two
+down to 32 rays when a bucket runs low); the executor renders each at its
+class's ``n_fine`` with the memo-dead rows masked out of K2, and a tile of
+dead rays only never reaches the kernel.
 """
 from __future__ import annotations
 
@@ -65,7 +78,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from repro_torch.data import rays as R
-from repro_torch.obs.metrics import MetricsRegistry, engine_stats_view
+from repro_torch.obs.metrics import (SAMPLING_STATS_SCHEMA, MetricsRegistry,
+                                     engine_stats_view, extend_stats_view)
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import FaultPlan, InjectedDispatchError
 from repro_torch.serving.scene_cache import SceneCache, SceneLoadError
@@ -126,12 +140,18 @@ class RenderResult:
 
 
 class _Active:
-    """Queue entry: request + flattened rays + framebuffer + cursors."""
+    """Queue entry: request + flattened rays + framebuffer + cursors.
+    Under adaptive sampling the ``next_ray`` cursor is joined by
+    per-bucket ray index lists (``bucket_idx``/``bucket_next``): rays are
+    handed out bucket by bucket so tiles stay (scene, budget)-pure, while
+    ``next_ray`` counts every ray handed out, so ``remaining`` and the
+    admission arithmetic do not see the buckets."""
     __slots__ = ("req", "rid", "seq", "rays_o", "rays_d", "fb",
                  "next_ray", "n_done", "n_rays", "submit_s",
                  "service_start_s", "deadline_abs", "terminal",
                  "degraded", "retries", "fallbacks",
-                 "dispatches_at_submit", "trace_span")
+                 "dispatches_at_submit", "trace_span",
+                 "bucket_idx", "bucket_next")
 
     def __init__(self, req: RenderRequest, rid: int, seq: int, now: float):
         self.req, self.rid, self.seq, self.submit_s = req, rid, seq, now
@@ -154,6 +174,8 @@ class _Active:
         self.fallbacks = 0
         self.dispatches_at_submit = 0   # priority-aging anchor
         self.trace_span = None          # open request-lifecycle span
+        self.bucket_idx = None          # per-bucket ray index lists
+        self.bucket_next = None         # per-bucket hand-out cursors
 
     @property
     def remaining(self) -> int:
@@ -164,7 +186,9 @@ class _Active:
 class _Tile:
     """One coalesced dispatch unit flowing scheduler -> executor ->
     completion. ``spans`` records which request contributed which rays
-    (``(_Active, start, take)``), so completion can scatter out of order."""
+    (``(_Active, start, take)``: ``start`` an int for a contiguous span,
+    an index array for an adaptive bucket's rays), so completion can
+    scatter out of order."""
     scene_id: str
     pp: object                  # resident PackedPlcore
     spans: List[tuple]
@@ -172,7 +196,90 @@ class _Tile:
     rays_d: np.ndarray
     n_real: int                 # non-pad rays
     degraded: bool = False      # coarse-only program
+    budget: Optional[int] = None   # adaptive fine-sample budget
+    dead_bucket: bool = False   # rays all hinted dead: resolve the memo
     tid: int = -1               # deterministic trace id
+
+
+# ---------------------------------------------------------------------------
+class AdaptiveSampling:
+    """The ASDR coordinator that scheduler and executor share: one
+    ``core.pipeline.AdaptiveRenderer`` per scene, riding the SceneCache.
+
+    A scene's first touch runs the density probe (``build_scene_aux``)
+    through ``SceneCache.ensure_aux``: the stats and the trunk memo become
+    auxiliary residents of the scene's cache entry, counted and evicted
+    with it. A renderer is rebuilt whenever the resident ``PackedPlcore``
+    changed (an eviction and reload dropped the old aux with the old
+    weights), so stale stats never classify rays for fresh weights."""
+
+    def __init__(self, cache: SceneCache, *, budgets=None,
+                 memo_mb: float = 32.0, grid_res: int = 32,
+                 probe_hw: int = 8):
+        self.cache = cache
+        self.budgets = tuple(int(b) for b in budgets) if budgets else None
+        self.memo_mb = float(memo_mb)
+        self.grid_res = int(grid_res)
+        self.probe_hw = int(probe_hw)
+        self._renderers: Dict[str, object] = {}
+        self.probe_s = 0.0          # host time of the density probes
+
+    def renderer(self, scene_id: str, pp):
+        """The scene's AdaptiveRenderer; probes and builds on first touch
+        (the scene is resident: the scheduler's ``cache.get`` ran) and
+        after a reload."""
+        ar = self._renderers.get(scene_id)
+        if ar is not None and ar.pp is pp:
+            return ar
+        from repro_torch.core import pipeline as P
+        n_classes = len(self.budgets) if self.budgets else 3
+        t0 = time.perf_counter()
+        aux = self.cache.ensure_aux(
+            scene_id,
+            lambda p: P.build_scene_aux(
+                p, grid_res=self.grid_res, n_classes=n_classes,
+                memo_mb=self.memo_mb, probe_hw=self.probe_hw))
+        self.probe_s += time.perf_counter() - t0
+        ar = P.AdaptiveRenderer(pp, aux, self.budgets)
+        self._renderers[scene_id] = ar
+        return ar
+
+    def account(self, tile: "_Tile", info: dict, stats: dict) -> None:
+        """Fold one adaptive dispatch's info into the engine stats (the
+        ``SAMPLING_STATS_SCHEMA`` keys) and the per-budget families."""
+        stats["adaptive_tiles"] += 1
+        stats["dead_rays"] += info["dead"]
+        stats["skipped_fine_samples"] += info["skipped_fine_samples"]
+        if info["full_dead"]:
+            stats["full_dead_tiles"] += 1
+        hits = misses = evs = topup = rays = dead = 0
+        resident = 0.0
+        for ar in self._renderers.values():
+            ms = ar.aux.memo.stats()
+            hits += ms["hits"]
+            misses += ms["misses"]
+            evs += ms["evictions"]
+            resident += ms["resident_mb"]
+            topup += ar.counters["topup_voxels"]
+            rays += ar.counters["rays"]
+            dead += ar.counters["dead_rays"]
+        stats["memo_hits"] = hits
+        stats["memo_misses"] = misses
+        stats["memo_evictions"] = evs
+        stats["memo_topup_voxels"] = topup
+        stats["memo_resident_mb"] = round(resident, 3)
+        stats["dead_ray_fraction"] = round(dead / rays, 4) if rays else 0.0
+        m = getattr(stats, "m", None)
+        if m is not None:
+            m.budget_tiles.labels(budget_class=info["budget"]).inc()
+            m.budget_rays.labels(budget_class=info["budget"]).inc(
+                info["rays"])
+
+    def report(self) -> dict:
+        """Per-scene ``sampling`` blocks (budget histograms, memo traffic,
+        host ms per tile) keyed by scene id."""
+        return {sid: ar.report()
+                for sid, ar in sorted(self._renderers.items())}
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +301,12 @@ class TileScheduler:
                  degrade_max_priority: int = 0,
                  max_load_failures: int = 3,
                  tile_service_prior_s: Optional[float] = None,
+                 adaptive: Optional[AdaptiveSampling] = None,
                  tracer=None):
         self.cache = cache
+        # adaptive sampling: rays classify into fine-sample budget classes
+        # and tiles coalesce (scene, budget)-pure
+        self.adaptive = adaptive
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.tile_rays = int(tile_rays)
         # after this many consecutive tiles for one scene the best-ranked
@@ -382,6 +493,32 @@ class TileScheduler:
                 continue
             return scene, pp, cands
 
+    def _bucket(self, scene: str, pp, scene_cands: List[_Active]):
+        """Adaptive sampling: ``(bucket, budget, n_buckets)`` of the next
+        tile. Each request's rays are classified on its first coalesce
+        touch (the scene's stats are resident by then) into one bucket per
+        budget class plus a last bucket of the hinted-dead rays (always
+        class 0: their score lies below the first edge), which coalesces
+        across requests into tiles that resolve fully dead and skip the
+        kernel. The bucket served is the best-ranked candidate's first
+        one with rays left; the dead bucket renders at the lowest budget,
+        so a ray of it that resolves alive renders at its own class's."""
+        ar = self.adaptive.renderer(scene, pp)
+        for a in scene_cands:
+            if a.bucket_idx is None:
+                cls = ar.classify_rays(a.rays_o, a.rays_d)
+                hint = ar.dead_hint(a.rays_o, a.rays_d)
+                a.bucket_idx = [np.nonzero((cls == c) & ~hint)[0]
+                                for c in range(len(ar.budgets))]
+                a.bucket_idx.append(np.nonzero(hint)[0])
+                a.bucket_next = [0] * len(a.bucket_idx)
+        a0 = scene_cands[0]
+        bucket = next(c for c in range(len(a0.bucket_idx))
+                      if len(a0.bucket_idx[c]) > a0.bucket_next[c])
+        budget = int(ar.budgets[bucket] if bucket < len(ar.budgets)
+                     else ar.budgets[0])
+        return bucket, budget, len(ar.budgets) + 1
+
     def next_tile(self) -> Optional[_Tile]:
         """Coalesce ONE tile from the best loadable scene's pending
         requests in rank order; ``None`` when nothing is schedulable."""
@@ -400,25 +537,47 @@ class TileScheduler:
         scene_cands = sorted((a for a in cands if a.req.scene_id == scene),
                              key=self._rank)
         # a tile is mode-pure: degraded (coarse-only) and full-quality
-        # rays cannot share a dispatch program
+        # rays cannot share a dispatch program; under adaptive sampling
+        # it is also budget-pure, every ray at its class's n_fine
         degraded = scene_cands[0].degraded
+        bucket = budget = None
+        if self.adaptive is not None and not degraded:
+            bucket, budget, n_buckets = self._bucket(scene, pp, scene_cands)
         spans, chunks_o, chunks_d, n = [], [], [], 0
         for a in scene_cands:
             if a.degraded != degraded:
                 continue
-            take = min(a.remaining, self.tile_rays - n)
-            if take <= 0:
-                continue
+            if bucket is not None:
+                avail, cur = a.bucket_idx[bucket], a.bucket_next[bucket]
+                take = min(len(avail) - cur, self.tile_rays - n)
+                if take <= 0:
+                    continue
+                idx = avail[cur:cur + take]
+                spans.append((a, idx, take))
+                chunks_o.append(a.rays_o[idx])
+                chunks_d.append(a.rays_d[idx])
+                a.bucket_next[bucket] = cur + take
+            else:
+                take = min(a.remaining, self.tile_rays - n)
+                if take <= 0:
+                    continue
+                spans.append((a, a.next_ray, take))
+                chunks_o.append(a.rays_o[a.next_ray:a.next_ray + take])
+                chunks_d.append(a.rays_d[a.next_ray:a.next_ray + take])
             if a.service_start_s is None:
                 a.service_start_s = now
-            spans.append((a, a.next_ray, take))
-            chunks_o.append(a.rays_o[a.next_ray:a.next_ray + take])
-            chunks_d.append(a.rays_d[a.next_ray:a.next_ray + take])
             a.next_ray += take
             n += take
             if n == self.tile_rays:
                 break
-        pad = self.tile_rays - n
+        # an adaptive bucket's last tile shrinks to the next power of two
+        # (at least 32 rays): a 40-ray minority class is not padded to a
+        # full tile, and the tile shapes stay few
+        target = self.tile_rays
+        if bucket is not None and n < target:
+            target = min(target,
+                         max(32, 1 << int(np.ceil(np.log2(max(n, 2))))))
+        pad = target - n
         if pad:                       # tail tile: repeat the last real ray
             chunks_o.append(np.repeat(chunks_o[-1][-1:], pad, axis=0))
             chunks_d.append(np.repeat(chunks_d[-1][-1:], pad, axis=0))
@@ -427,12 +586,15 @@ class TileScheduler:
         self._tile_seq += 1
         tile = _Tile(scene, pp, spans, np.concatenate(chunks_o),
                      np.concatenate(chunks_d), n, degraded=degraded,
+                     budget=budget,
+                     dead_bucket=(bucket is not None
+                                  and bucket == n_buckets - 1),
                      tid=tid)
         tr = self.tracer
         if tr.enabled:
             tr.complete("tile.coalesce", t_coalesce0, cat="tile", tile=tid,
                         scene=scene, rays=n, pad=pad, requests=len(spans),
-                        degraded=degraded)
+                        degraded=degraded, budget_class=budget)
         m = getattr(self.stats, "m", None)
         if m is not None:
             m.coalesce_seconds.observe(self._clock() - t_coalesce0)
@@ -462,10 +624,14 @@ class TileExecutor:
                  retry_backoff_s: float = 0.0,
                  max_retry_backoff_s: float = 0.05,
                  check_finite: bool = True, clock=time.perf_counter,
-                 sleep=time.sleep, tracer=None):
+                 sleep=time.sleep, tracer=None,
+                 adaptive: Optional[AdaptiveSampling] = None):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
         self.completion = completion
+        # budget-stamped tiles render through their scene's
+        # AdaptiveRenderer (budgeted n_fine + memo-dead rows)
+        self.adaptive = adaptive
         self.cache = cache
         self.stats = stats
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -494,8 +660,23 @@ class TileExecutor:
         if fault is not None and fault["kind"] == "dispatch_error":
             raise InjectedDispatchError(
                 f"injected dispatch failure (tile scene={tile.scene_id})")
-        handle, cost = tile.pp.dispatch_tile(tile.rays_o, tile.rays_d,
-                                             coarse_only=tile.degraded)
+        if tile.budget is not None and self.adaptive is not None:
+            # the tile renders at its class's n_fine with the memo-dead
+            # rays masked out of K2 (an all-dead tile launches nothing)
+            ar = self.adaptive.renderer(tile.scene_id, tile.pp)
+            rgb, info = ar.render_tile(tile.rays_o, tile.rays_d,
+                                       budget=tile.budget,
+                                       resolve_dead=tile.dead_bucket)
+            self.adaptive.account(tile, info, self.stats)
+            tr = self.tracer
+            if tr.enabled:
+                tr.event("tile.adaptive", cat="tile", tile=tile.tid,
+                         budget_class=tile.budget, dead=info["dead"],
+                         full_dead=info["full_dead"])
+            handle, cost = tile.pp.handle(rgb), tile.pp.tile_gather_cost()
+        else:
+            handle, cost = tile.pp.dispatch_tile(tile.rays_o, tile.rays_d,
+                                                 coarse_only=tile.degraded)
         extra = (fault["extra_s"]
                  if fault is not None and fault["kind"] == "straggle"
                  else 0.0)
@@ -696,7 +877,11 @@ class CompletionSink:
                 late += take
                 off += take
                 continue
-            a.fb[start:start + take] = rgb[off:off + take]
+            if isinstance(start, np.ndarray):
+                # an adaptive bucket's rays of this request, by index
+                a.fb[start] = rgb[off:off + take]
+            else:
+                a.fb[start:start + take] = rgb[off:off + take]
             a.n_done += take
             off += take
             if a.n_done == a.n_rays:
@@ -786,7 +971,14 @@ class RenderEngine:
     wires the ``runtime.straggler`` monitor into the executor (default: on
     exactly when faults are injected); ``check_finite`` asserts delivered
     framebuffers are finite; ``tile_service_prior_s`` seeds the admission
-    estimate before any tile has drained."""
+    estimate before any tile has drained.
+
+    ``adaptive_sampling`` arms ASDR (module docstring): ``budget_classes``
+    (ascending; default ``default_budget_classes(cfg.n_fine)``),
+    ``memo_mb`` per-scene trunk-memo capacity, ``adaptive_grid_res`` and
+    ``adaptive_probe_hw`` size the load-time probe. It needs fused-kernel
+    scenes and cannot be combined with ``degrade_on_overload`` (both
+    rewrite the per-ray sample budget)."""
 
     def __init__(self, cache: SceneCache, *, tile_rays: int = 512,
                  max_sticky_tiles: int = 64, clock=time.perf_counter,
@@ -804,7 +996,16 @@ class RenderEngine:
                  straggler_cfg=None,
                  check_finite: bool = True,
                  tile_service_prior_s: Optional[float] = None,
+                 adaptive_sampling: bool = False,
+                 budget_classes=None,
+                 memo_mb: float = 32.0,
+                 adaptive_grid_res: int = 32,
+                 adaptive_probe_hw: int = 8,
                  tracer=None, registry=None):
+        if adaptive_sampling and degrade_on_overload:
+            raise ValueError("adaptive_sampling and degrade_on_overload "
+                             "both rewrite the per-ray sample budget — "
+                             "arm one")
         self.cache = cache
         self.faults = faults
         self._clock = clock
@@ -814,6 +1015,14 @@ class RenderEngine:
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.stats = engine_stats_view(self.registry)
+        self.adaptive: Optional[AdaptiveSampling] = None
+        if adaptive_sampling:
+            # the sampling block is bound only when armed, so the default
+            # stats keep their keys
+            extend_stats_view(self.stats, SAMPLING_STATS_SCHEMA)
+            self.adaptive = AdaptiveSampling(
+                cache, budgets=budget_classes, memo_mb=memo_mb,
+                grid_res=adaptive_grid_res, probe_hw=adaptive_probe_hw)
         cache.tracer = self.tracer
         self.scheduler = TileScheduler(
             cache, tile_rays=tile_rays, max_sticky_tiles=max_sticky_tiles,
@@ -823,7 +1032,8 @@ class RenderEngine:
             degrade_queue_tiles=degrade_queue_tiles,
             degrade_max_priority=degrade_max_priority,
             max_load_failures=max_load_failures,
-            tile_service_prior_s=tile_service_prior_s, tracer=self.tracer)
+            tile_service_prior_s=tile_service_prior_s,
+            adaptive=self.adaptive, tracer=self.tracer)
         self.completion = CompletionSink(self.scheduler, self.stats, clock,
                                          check_finite=check_finite,
                                          tracer=self.tracer)
@@ -842,7 +1052,8 @@ class RenderEngine:
             faults=faults, straggler=monitor,
             max_tile_retries=max_tile_retries,
             retry_backoff_s=retry_backoff_s,
-            check_finite=check_finite, clock=clock, tracer=self.tracer)
+            check_finite=check_finite, clock=clock, tracer=self.tracer,
+            adaptive=self.adaptive)
         # admission control needs the in-flight count; termination needs
         # the sink
         self.scheduler.completion = self.completion
@@ -941,3 +1152,26 @@ class RenderEngine:
         if self.faults is not None:
             out["faults_injected"] = self.faults.summary()
         return out
+
+    def sampling_report(self) -> Optional[dict]:
+        """The adaptive-sampling summary (``None`` unless the engine runs
+        with ``adaptive_sampling``): the engine-wide totals of the sampling
+        stats block, the host time of the density probes, and per-scene
+        budget histograms, memo traffic and host times."""
+        if self.adaptive is None:
+            return None
+        st = self.stats
+        return {
+            "adaptive_tiles": st["adaptive_tiles"],
+            "full_dead_tiles": st["full_dead_tiles"],
+            "dead_rays": st["dead_rays"],
+            "dead_ray_fraction": st["dead_ray_fraction"],
+            "skipped_fine_samples": st["skipped_fine_samples"],
+            "memo_hits": st["memo_hits"],
+            "memo_misses": st["memo_misses"],
+            "memo_evictions": st["memo_evictions"],
+            "memo_topup_voxels": st["memo_topup_voxels"],
+            "memo_resident_mb": st["memo_resident_mb"],
+            "probe_s": self.adaptive.probe_s,
+            "scenes": self.adaptive.report(),
+        }

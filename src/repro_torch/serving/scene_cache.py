@@ -15,6 +15,11 @@ whose dispatched tiles have not drained can never lose its weights to a
 colder scene's load. Eviction never removes the just-inserted entry, so a
 cache smaller than one scene still serves (it thrashes, and the counters
 show it).
+
+Auxiliary residents (adaptive sampling's per-scene ``SceneAux``:
+calibration stats + trunk memo, attached by ``ensure_aux``) count against
+the same capacity at their LIVE size (the memo grows and evicts while
+serving, so eviction re-reads ``aux.nbytes``) and leave with their scene.
 """
 from __future__ import annotations
 
@@ -81,6 +86,8 @@ class SceneCache:
         self.capacity_bytes = int(capacity_mb * (1 << 20))
         self._entries: "OrderedDict[str, Tuple[PackedPlcore, int]]" = \
             OrderedDict()
+        # scene -> auxiliary resident (sampling.SceneAux) riding the entry
+        self._aux: Dict[str, object] = {}
         self._pins: Dict[str, int] = {}
         self.fail_backoff = int(fail_backoff)
         self.max_fail_backoff = int(max_fail_backoff)
@@ -104,8 +111,43 @@ class SceneCache:
         return list(self._entries)
 
     @property
+    def aux_bytes(self) -> int:
+        """LIVE auxiliary resident bytes, re-read on every call (the memo
+        grows and evicts while serving)."""
+        return sum(a.nbytes for a in self._aux.values())
+
+    @property
     def resident_bytes(self) -> int:
-        return sum(nb for _, nb in self._entries.values())
+        return (sum(nb for _, nb in self._entries.values())
+                + self.aux_bytes)
+
+    def aux(self, scene_id: str):
+        """The scene's auxiliary resident, or None (never built, or dropped
+        with an eviction)."""
+        return self._aux.get(scene_id)
+
+    def ensure_aux(self, scene_id: str, builder) -> object:
+        """Attach (or fetch) the scene's auxiliary resident.
+        ``builder(pp)`` runs once per residency (the adaptive probe,
+        ``pipeline.build_scene_aux``); its product counts against the
+        capacity at its live size, leaves when the scene is evicted and is
+        protected by the scene's pins. The scene must be resident (``get``
+        it first): aux without weights has nothing to serve."""
+        aux = self._aux.get(scene_id)
+        if aux is not None:
+            return aux
+        ent = self._entries.get(scene_id)
+        if ent is None:
+            raise KeyError(f"scene {scene_id!r} is not resident — "
+                           "load it before attaching aux")
+        tr = self.tracer
+        sp = tr.begin("cache.aux_build", cat="cache",
+                      scene=scene_id) if tr.enabled else None
+        aux = builder(ent[0])
+        self._aux[scene_id] = aux
+        tr.end(sp, ok=True, bytes=int(aux.nbytes))
+        self._evict_over_capacity(keep=scene_id)
+        return aux
 
     def pin(self, scene_id: str) -> None:
         """Refcount one in-flight use of a resident scene: a pinned entry
@@ -129,9 +171,24 @@ class SceneCache:
     def pinned(self, scene_id: str) -> bool:
         return scene_id in self._pins
 
+    def discard(self, scene_id: str) -> bool:
+        """Drop one resident entry (and its aux) outside the LRU policy.
+        A pinned entry is refused: weights under an in-flight tile never
+        go. Returns whether an entry was dropped."""
+        if scene_id not in self._entries or scene_id in self._pins:
+            return False
+        del self._entries[scene_id]
+        self._aux.pop(scene_id, None)
+        self.evictions += 1
+        if self.tracer.enabled:
+            self.tracer.event("cache.evict", cat="cache", scene=scene_id,
+                              reason="discard")
+        return True
+
     def _evict_over_capacity(self, keep: str) -> None:
-        """Evict LRU-first until the resident total fits capacity. ``keep``
-        (the just-touched scene) and pinned entries are never victims."""
+        """Evict LRU-first until the LIVE resident total (weights + aux)
+        fits capacity. ``keep`` (the just-touched scene) and pinned entries
+        are never victims; an evicted scene's aux goes with it."""
         for victim in list(self._entries):   # LRU -> MRU order
             if (len(self._entries) <= 1
                     or self.resident_bytes <= self.capacity_bytes):
@@ -139,6 +196,7 @@ class SceneCache:
             if victim == keep or victim in self._pins:
                 continue
             del self._entries[victim]
+            self._aux.pop(victim, None)
             self.evictions += 1
             if self.tracer.enabled:
                 self.tracer.event("cache.evict", cat="cache", scene=victim,
@@ -200,6 +258,8 @@ class SceneCache:
             "hit_rate": round(self.hits / total, 4) if total else 0.0,
             "resident_scenes": len(self._entries),
             "pinned_scenes": len(self._pins),
+            "aux_scenes": len(self._aux),
+            "aux_mb": round(self.aux_bytes / (1 << 20), 3),
             "resident_mb": round(self.resident_bytes / (1 << 20), 3),
             "capacity_mb": round(self.capacity_bytes / (1 << 20), 3),
             "load_failures": self.load_failures,

@@ -125,6 +125,11 @@ _MATRIX = {
     "engine_depth3__engine_depth1": (
         lambda s: _engine_imgs(s, pipeline_depth=3),
         lambda s: _engine_imgs(s)),
+    # adaptive sampling OFF is the same pipeline as an engine that never
+    # heard of it
+    "adaptive_off_engine__engine": (
+        lambda s: _engine_imgs(s, adaptive_sampling=False),
+        lambda s: _engine_imgs(s)),
 }
 
 

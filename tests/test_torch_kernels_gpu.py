@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1, K2, K3) against their plain versions on
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
-(bf16x3); K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+(bf16x3), K2 also at the adaptive budgets Nf = 8, 32, 64 with dead rows; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's.
 
@@ -107,6 +107,38 @@ def test_kernels_match_plain_versions_on_card():
         for a, b in zip(k, p):
             torch.testing.assert_close(a, b, rtol=0, atol=tol)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fine", [8, 32, 64])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k2_at_adaptive_budgets_on_card(n_fine, quantized):
+    """K2 at the adaptive budgets of n_fine = 128 (its fine pass ragged
+    inside the 128-sample chunk: 72, 96 or 128 samples) with a third of the
+    rays dead, against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(CONFIG, n_fine=n_fine)
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(1))
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(R, seed=6))
+    alive = (torch.arange(R, device=dev) % 3 != 0).to(torch.float32)
+    packed = {}
+    for n in ("coarse", "fine"):
+        q = rmcm.quantize_tree(params[n]) if quantized else None
+        packed[n] = bridge.to_device(ops.kernel_weights(cfg, params[n], q),
+                                     dev)
+    args = (cfg, packed["coarse"], packed["fine"], o, d,
+            *ops.sample_rows(cfg, dev))
+    k = fused_plcore.two_pass_plcore_call(*args, rt=RT, ert_eps=0.0,
+                                          alive=alive)
+    p = ref.two_pass_ref(*args, rt=R, ert_eps=0.0, alive=alive)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(k, p)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-2 if i == 4 else 5e-3)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (7, 13, 5), (128, 256, 128),

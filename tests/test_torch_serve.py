@@ -65,3 +65,29 @@ def test_serve_engine_check_fails_when_pipelining_never_engages():
     with pytest.raises(SystemExit, match="never had 2 tiles"):
         serve.main(_engine_argv("--concurrency", "1", "--requests", "2",
                                 "--hw-mix", "8"))
+
+
+def test_serve_engine_check_adaptive_sampling():
+    """``--adaptive-sampling --scene-bias -0.5``: the check passes its
+    adaptive gates (an adaptive tile, memo hits, every budget class, the
+    adaptive-off rerun at depth 2 equal to depth 1) and the depth-1 rerun
+    of the adaptive engine equals the depth-2 run bit for bit."""
+    rep = serve.main(_engine_argv("--adaptive-sampling", "--scene-bias",
+                                  "-0.5", "--hw-mix", "8,16"))
+    sp = rep["sampling"]
+    assert rep["adaptive_sampling"] and sp["adaptive_tiles"] >= 1
+    assert sp["memo_hits"] > 0 and sp["dead_rays"] > 0
+    assert rep["check_compared"] == {"depth1": 8, "adaptive_off": 8}
+    for r in sp["scenes"].values():
+        assert r["budgets"] == [4, 8, 16]
+
+
+@pytest.mark.parametrize("extra,msg", [
+    ((), "requires --kernel --fuse-two-pass"),
+    (("--kernel", "--fuse-two-pass", "--inject-faults"), "--inject-faults"),
+    (("--kernel", "--fuse-two-pass", "--degrade-on-overload"),
+     "--degrade-on-overload")])
+def test_serve_adaptive_sampling_guards(extra, msg):
+    with pytest.raises(SystemExit, match=msg):
+        serve.main(["--mode", "engine", "--device", "cpu",
+                    "--adaptive-sampling", *extra])

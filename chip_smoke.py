@@ -83,6 +83,30 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    off), rays/s of each; the host time of the probes, of classification
    and per adaptive tile.
 
+10. NeRF training with RMCM QAT at the full width (``train_phase``), the
+   Fig. 8 protocol of ``benchmarks/fig8_rmcm_psnr.py``: the blob scene's
+   dataset on the card (6 views at 64x64, focal 2.4 * hw), weights from
+   ``torch.Generator().manual_seed(0)``, ``TRAIN_STEPS`` QAT steps on
+   1024-ray batches (lr 5e-4, warmup 100, cosine decay; the plain path in
+   f32 with TF32 off, autograd). Gates: finite losses and gradient norms;
+   the mean training PSNR of the last 10 steps at least 3 dB above the
+   first 10's; exact vs RMCM on the plain path at 256 dataset rays above
+   20 dB; the ``Checkpointer`` save restored bit for bit; ``serve --mode
+   nerf --full --kernel --fuse-two-pass --ckpt DIR`` of the 128x128
+   hold-out view (counters zeroed before, read after: K2 launched, no
+   weight re-packed) equal to ``PackedPlcore.render_image`` of the
+   in-memory weights bit for bit; K2 on the trained weights in f32 and
+   RMCM within step 2's tolerances of the plain version. Prints the train
+   step's median ms (CUDA events, after 10 warm-up steps) beside its
+   fp32-core bound (three forward passes of 1024 rays x 256 evaluations at
+   the fp32 peak), samples/s, peak memory, the dataset, save and restore
+   times, and the Fig. 8 rows at 128x128 on the hold-out view: exact vs
+   RMCM, each (exact, RMCM, K2, adaptive) against ground truth, adaptive
+   vs K2 and the adaptive PSNR drop beside the 0.1 dB gate (an
+   ``AdaptiveRenderer`` on the trained scene with no scene bias, counters
+   zeroed before, read after: K2 launches per budget), the first training
+   view's exact PSNR, and the training PSNR.
+
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits nonzero with no
 result when CUDA is absent or the repository's sources are not beside it.
@@ -93,6 +117,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -107,8 +132,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs.nerf_icarus import CONFIG  # noqa: E402
-from repro_torch.core import rmcm, sampling  # noqa: E402
+from repro_torch.core import nerf_train, plcore, rmcm, sampling  # noqa: E402
 from repro_torch.core.pipeline import (AdaptiveRenderer,  # noqa: E402
                                        PackedPlcore, build_scene_aux)
 from repro_torch.core.plcore import plcore_decls  # noqa: E402
@@ -118,6 +144,7 @@ from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import loadgen  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.optim.adam import AdamConfig, tree_leaves  # noqa: E402
 
 DEV = torch.device("cuda")
 HW = 128
@@ -160,6 +187,20 @@ K3_F64_RATIO = 2.0
 K3_RUNS = 3
 K3_CLAIMED = ("nerf_trunk", "qwen2_1_5b_mlp_decode")
 L2_BYTES = 50 * 2 ** 20
+# the training phase: the Fig. 8 protocol (benchmarks/fig8_rmcm_psnr.py)
+# at full width. The blob scene's dataset, 6 views at 64x64 with focal
+# 2.4 * hw; QAT on 1024-ray batches. The reference's lr 5e-3 (warmup 20)
+# was tuned for tiny(); the full width trains at the original NeRF's
+# 5e-4, warmed up over 100 steps, cosine-decayed to 0 at the last step
+TRAIN_VIEWS, TRAIN_HW, TRAIN_RAYS = 6, 64, 1024
+TRAIN_STEPS = 2000
+TRAIN_LR, TRAIN_WARMUP = 5e-4, 100
+TRAIN_TIMED_FROM = 10    # steps before this one are the warm-up
+# steps after which the exact render of the hold-out view is scored
+TRAIN_EVAL_AT = (100, 250, 500, 1000)
+FIG8_HW = 128
+FIG8_AUX = {"grid_res": 24, "probe_hw": 12, "memo_mb": 16.0}
+PSNR_DROP_GATE_DB = 0.1
 
 
 def smi(query: str) -> str:
@@ -910,6 +951,266 @@ def oracle_phase(cfg, params) -> int:
     return launches
 
 
+def profile_steps(step, params, opt, batches, jitter, n: int = 3) -> dict:
+    """Kernel time of ``n`` more train steps under ``torch.profiler`` (the
+    steps' results are dropped): kernels per step, their summed device
+    time per step, and its share in GEMM kernels. The host's tracing slows
+    the host many times over, so the window's wall time says nothing of
+    the step's; the kernels' own durations are unaffected. "not measured"
+    when no kernel is recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(params, opt, next(batches), jitter)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return {"kernel_ms_per_step": "not measured"}
+    kernel_us = sum(t for t, _ in spans)
+    gemm_us = sum(t for t, name in spans if "gemm" in name.lower())
+    return {"steps": n, "kernels_per_step": len(spans) / n,
+            "kernel_ms_per_step": kernel_us / 1e3 / n,
+            "gemm_ms_per_step": gemm_us / 1e3 / n,
+            "gemm_share_of_kernel_time": gemm_us / kernel_us}
+
+
+def train_phase(cfg, peaks: dict, steps: int = TRAIN_STEPS) -> dict:
+    """NeRF training with RMCM QAT at the full width on the card, then the
+    trained scene through the serving path and K2, and the Fig. 8 rows.
+    Gates (each raises): finite losses and gradient norms; the mean
+    training PSNR of the last 10 steps at least 3 dB above the first 10's;
+    exact against RMCM above 20 dB on the plain path at 256 dataset rays;
+    the checkpoint restored bit for bit; ``serve --ckpt`` (K2 launched, no
+    weight re-packed) equal to a ``PackedPlcore`` render of the in-memory
+    weights bit for bit; K2 in f32 and RMCM on the trained weights within
+    the kernel phase's tolerances of the plain version."""
+    scene = rays.blob_scene()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = rays.make_dataset(scene, TRAIN_VIEWS, TRAIN_HW, TRAIN_HW,
+                           focal=2.4 * TRAIN_HW)
+    torch.cuda.synchronize()
+    dataset_s = time.perf_counter() - t0
+    opt_cfg = AdamConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                         total_steps=steps, weight_decay=0.0)
+    params, opt = nerf_train.init_nerf_state(
+        cfg, opt_cfg, torch.Generator().manual_seed(0))
+    assert all(t.device.type == DEV.type for t in
+               tree_leaves(params) + tree_leaves(opt) + list(ds.values()))
+    step = nerf_train.make_nerf_train_step(cfg, opt_cfg, qat=True)
+    batches = rays.ray_batches(ds, TRAIN_RAYS,
+                               torch.Generator(device=DEV).manual_seed(1))
+    jitter = torch.Generator(device=DEV).manual_seed(2)
+    ro, rd, gt = rays.holdout_view(scene, FIG8_HW, FIG8_HW,
+                                   focal=2.4 * FIG8_HW)
+    gt = gt.cpu().numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, metrics, host_ms, holdout_by_step = [], [], [], {}
+    eval_s, peak_bytes = 0.0, 0
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        batch = next(batches)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        th = time.perf_counter()
+        ev[0].record()
+        params, opt, m = step(params, opt, batch, jitter)
+        ev[1].record()
+        host_ms.append(1e3 * (time.perf_counter() - th))
+        events.append(ev)
+        metrics.append(m)
+        if i in TRAIN_EVAL_AT and i < steps:
+            # the training peak so far; the eval render's own is left out
+            torch.cuda.synchronize()
+            peak_bytes = max(peak_bytes, torch.cuda.max_memory_allocated())
+            te = time.perf_counter()
+            img = PackedPlcore(cfg, params, device=DEV).render_image(ro, rd)
+            holdout_by_step[i] = psnr(img.cpu().numpy(), gt)
+            del img
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            eval_s += time.perf_counter() - te
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0 - eval_s
+    peak_bytes = max(peak_bytes, torch.cuda.max_memory_allocated())
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    hist = {k: torch.stack([m[k] for m in metrics]).cpu().numpy()
+            for k in metrics[0]}
+    for k in ("loss", "grad_norm", "psnr"):
+        assert np.isfinite(hist[k]).all(), (k, hist[k])
+    first10 = float(hist["psnr"][:10].mean())
+    last10 = float(hist["psnr"][-10:].mean())
+    assert last10 >= first10 + 3.0, ("training PSNR gain", first10, last10)
+
+    # the RMCM gate of the reference's QAT test: 256 dataset rays, plain
+    quant = {n: rmcm.quantize_tree(params[n]) for n in ("coarse", "fine")}
+    o256, d256 = ds["rays_o"][:256], ds["rays_d"][:256]
+    exact = plcore.render_rays(cfg, params, o256, d256)["rgb"]
+    rm = plcore.render_rays(cfg, params, o256, d256, quant=quant)["rgb"]
+    qat_db = psnr(exact.cpu().numpy(), rm.cpu().numpy())
+    assert qat_db > 20.0, ("exact vs RMCM after QAT", qat_db)
+
+    # checkpoint: save (async, joined) and restore against a template
+    ckpt_dir = ROOT / "chiprun_out" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    state = {"params": params, "opt_state": opt}
+    t0 = time.perf_counter()
+    ck = Checkpointer(str(ckpt_dir))
+    ck.save(steps, state, {"steps": steps, "lr": TRAIN_LR,
+                           "rays_per_step": TRAIN_RAYS, "qat": True})
+    save_return_s = time.perf_counter() - t0
+    ck.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, meta = ck.restore(template=state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert meta["steps"] == steps, meta
+    for a, b in zip(tree_leaves(restored), tree_leaves(state)):
+        assert a.device.type == DEV.type and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+    # the hold-out view through serve --ckpt against the in-memory weights
+    out_dir = str(ROOT / "chiprun_out" / "trained_views")
+    zero_launches()
+    stats = serve.main(["--mode", "nerf", "--full", "--kernel",
+                        "--fuse-two-pass", "--views", "1", "--hw",
+                        str(FIG8_HW), "--theta", "33", "--phi", "-20",
+                        "--focal", str(2.4 * FIG8_HW), "--ckpt",
+                        str(ckpt_dir), "--out", out_dir])
+    serve_launches = read_launches()
+    assert stats["weight_packs_since_load"] == 0, stats
+    assert serve_launches["two_pass_plcore_call"] >= 1, serve_launches
+    assert serve_launches["fused_plcore_call"] == 0, serve_launches
+    served = np.load(stats["views"][0]["pixels"])
+    fused_pp = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
+                            device=DEV)
+    img_fused = fused_pp.render_image(ro, rd).cpu().numpy()
+    assert np.array_equal(served, img_fused), float(
+        np.abs(served - img_fused).max())
+
+    # K2 on the trained weights against the plain version, f32 and RMCM
+    o, d = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    R, Nc, Nf = o.shape[0], cfg.n_coarse, cfg.n_fine
+    rows = ops.sample_rows(cfg, DEV)
+    k2_errs = {}
+    for q in (False, True):
+        nets = packed_nets(cfg, params, q)
+        plain_nets = {n: {k: v for k, v in nets[n].items() if k != "mma"}
+                      for n in nets}
+        per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, Nf), (q, q), DEV)
+        rt = ops.pick_ray_tile(R, DEV, per_sm)
+        got = fused_plcore.two_pass_plcore_call(
+            cfg, nets["coarse"], nets["fine"], o, d, *rows, rt=rt,
+            ert_eps=0.0)
+        want = ref.two_pass_ref(cfg, plain_nets["coarse"], plain_nets["fine"],
+                                o, d, *rows, rt=PLAIN_RT, ert_eps=0.0)
+        tol = 5e-3 if q else 1e-3
+        k2_errs["rmcm" if q else "f32"] = check(
+            f"K2 trained scene rmcm={q}", got, want,
+            (tol, tol, tol, tol, 1e-2))
+
+    # the Fig. 8 rows on the hold-out view
+    plain_pp = PackedPlcore(cfg, params, device=DEV)
+    img_exact = plain_pp.render_image(ro, rd).cpu().numpy()
+    rmcm_pp = PackedPlcore(cfg, params, quant=quant, device=DEV)
+    img_rmcm = rmcm_pp.render_image(ro, rd).cpu().numpy()
+    # the fit apart from the generalization: the first training view,
+    # with the master (exact) weights and with the RMCM weights QAT fit
+    view0 = slice(0, TRAIN_HW * TRAIN_HW)
+    o0, d0 = ds["rays_o"][view0], ds["rays_d"][view0]
+    gt0 = ds["rgb"][view0].cpu().numpy()
+    train_view_db = {
+        name: psnr(pp.render_rays(o0, d0)["rgb"].cpu().numpy(), gt0)
+        for name, pp in (("exact", plain_pp), ("rmcm", rmcm_pp))}
+    holdout_by_step[steps] = psnr(img_exact, gt)
+    ar = AdaptiveRenderer(fused_pp, build_scene_aux(fused_pp, **FIG8_AUX))
+    zero_launches()
+    img_adaptive = ar.render_image(o.cpu().numpy(), d.cpu().numpy(),
+                                   rays_per_tile=ADAPTIVE_TILE)
+    torch.cuda.synchronize()
+    adaptive_launches = read_launches()
+    rep = ar.report()
+    assert adaptive_launches["two_pass_plcore_call"] == \
+        rep["tiles"] - rep["full_dead_tiles"], (adaptive_launches, rep)
+    img_adaptive = img_adaptive.reshape(FIG8_HW, FIG8_HW, 3)
+    for img in (img_exact, img_rmcm, img_fused, img_adaptive):
+        assert img.shape == gt.shape and np.isfinite(img).all()
+    fig8 = {
+        "exact_vs_rmcm": psnr(img_exact, img_rmcm),
+        "exact_vs_gt": psnr(img_exact, gt),
+        "rmcm_vs_gt": psnr(img_rmcm, gt),
+        "fused_vs_gt": psnr(img_fused, gt),
+        "adaptive_vs_gt": psnr(img_adaptive, gt),
+        "adaptive_vs_fused": psnr(img_adaptive, img_fused),
+        "train_view0_exact_vs_gt": train_view_db["exact"],
+        "train_view0_rmcm_vs_gt": train_view_db["rmcm"],
+        "exact_vs_gt_by_step": holdout_by_step,
+        "train_psnr": float(hist["psnr"][-1]), "steps": steps,
+        "hw": FIG8_HW, "psnr_drop_gate_db": PSNR_DROP_GATE_DB,
+        "dead_ray_fraction": rep["dead_ray_fraction"],
+        "full_dead_tiles": rep["full_dead_tiles"],
+        "budget_rays": rep["budget_rays"],
+        "k2_launches_by_nf": adaptive_launches["k2_by_nf"]}
+    fig8["adaptive_psnr_drop_db"] = fig8["fused_vs_gt"] - \
+        fig8["adaptive_vs_gt"]
+    fig8["adaptive_gate_met"] = \
+        fig8["adaptive_psnr_drop_db"] <= PSNR_DROP_GATE_DB
+
+    # the step's least time: forward and backward, about three forward
+    # passes of 1024 rays x 256 network evaluations, on the fp32 cores
+    # (TF32 off); bytes: the batch, params, gradients, moments in and out
+    n_eval = Nc + Nc + Nf
+    flop = 3 * 2.0 * TRAIN_RAYS * (n_eval * macs_per_sample(cfg)
+                                   + 2 * macs_per_ray_pass(cfg))
+    n_bytes = nbytes(batch) + 7 * nbytes(params)
+    b_ms, b_by = bound_ms(flop / peaks["fp32"], n_bytes)
+    med = float(np.median(step_ms[TRAIN_TIMED_FROM:]))
+    summary = {
+        "steps": steps, "rays_per_step": TRAIN_RAYS, "lr": TRAIN_LR,
+        "warmup_steps": TRAIN_WARMUP, "qat": True,
+        "dataset_rays": int(ds["rgb"].shape[0]), "dataset_s": dataset_s,
+        "step_ms_median": med,
+        "step_ms_p10_p90": [float(np.percentile(step_ms[TRAIN_TIMED_FROM:],
+                                                x)) for x in (10, 90)],
+        "step_ms_first": step_ms[:3],
+        "host_ms_per_step_median": float(np.median(
+            host_ms[TRAIN_TIMED_FROM:])),
+        "wall_s_per_step": train_s / steps, "train_wall_s": train_s,
+        "samples_per_s": TRAIN_RAYS * n_eval / (med / 1e3),
+        "step_tflop": flop / 1e12, "bound_ms_fp32": b_ms,
+        "bound_by": b_by, "share_of_bound": b_ms / med,
+        "peak_mem_bytes": peak_bytes,
+        "psnr_first10": first10, "psnr_last10": last10,
+        "loss_last": float(hist["loss"][-1]),
+        "grad_norm_last": float(hist["grad_norm"][-1]),
+        "exact_vs_rmcm_256_rays_db": qat_db,
+        "ckpt_save_return_s": save_return_s, "ckpt_save_s": save_s,
+        "ckpt_restore_s": restore_s,
+        "serve_ckpt": {"wall_s": stats["views"][0]["wall_s"],
+                       "launches": serve_launches,
+                       "equal_to_in_memory": True},
+        "k2_trained_max_abs_err": k2_errs,
+        "adaptive_launches": adaptive_launches}
+    prof = profile_steps(step, params, opt, batches, jitter)
+    if isinstance(prof["kernel_ms_per_step"], float):
+        # one stream: the kernels' summed time over the unprofiled step's
+        prof["device_busy_share"] = prof["kernel_ms_per_step"] / med
+    summary["profile"] = prof
+    print(f"train: {json.dumps(summary)}", flush=True)
+    print(f"fig8: {json.dumps(fig8)}", flush=True)
+    return {"summary": summary, "fig8": fig8,
+            "launches": {k: serve_launches[k] + adaptive_launches[k]
+                         for k in ("fused_plcore_call",
+                                   "two_pass_plcore_call", "rmcm_matmul")},
+            "k2_by_nf": adaptive_launches["k2_by_nf"]}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -941,14 +1242,16 @@ def main() -> None:
     budgets = budget_phase(cfg, params, peaks)
     view = adaptive_view_phase(cfg, params)
     adaptive = adaptive_engine_phase()
+    trained = train_phase(cfg, peaks)
 
     k2 = "two_pass_plcore_call"
     main_path = {k: main_launches[k] + rmcm_launches[k]
                  + clean["launches"][k] + view["launches"][k]
-                 + adaptive["launches"][k]
+                 + adaptive["launches"][k] + trained["launches"][k]
                  for k in ("fused_plcore_call", k2, "rmcm_matmul")}
     by_nf = {nf: view["launches"]["k2_by_nf"].get(nf, 0)
-             + adaptive["launches"]["k2_by_nf"].get(nf, 0) for nf in budgets}
+             + adaptive["launches"]["k2_by_nf"].get(nf, 0)
+             + trained["k2_by_nf"].get(nf, 0) for nf in budgets}
     kernels = []
     for k in ("fused_plcore_call", k2):
         launches = main_path[k] if k == k2 else oracle_launches
@@ -959,12 +1262,15 @@ def main() -> None:
                         "replaces": REPLACES[k], "launches": launches,
                         "launches_on": ("main path" if k == k2
                                         else "oracle path"),
+                        "launches_trained_scene": (
+                            trained["launches"][k] if k == k2 else 0),
                         **rows[k], "library_ms": None})
     for nf, row in budgets.items():
         kernels.append({"name": f"{k2}[n_fine={nf}]", "route": "cuda",
                         "source": SOURCE[k2], "header": HEADER,
                         "replaces": REPLACES[k2], "launches": by_nf[nf],
-                        "launches_on": "adaptive view and adaptive engine",
+                        "launches_on": "adaptive view, adaptive engine and "
+                                       "the trained scene's adaptive view",
                         "alive_mask": "every third ray dead",
                         **row, "library_ms": None})
     kernels.append({"name": "rmcm_matmul", "route": "cuda",
@@ -978,7 +1284,8 @@ def main() -> None:
                     **k3_row})
     print(json.dumps({"engine": {"clean": clean, "chaos": chaos,
                                  "adaptive": adaptive},
-                      "adaptive_view": view}))
+                      "adaptive_view": view, "train": trained["summary"],
+                      "fig8": trained["fig8"]}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,17 @@ def to_numpy(tree):
     return tree
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """The device of an entry point: ``cuda`` unless the caller names
+    another; raises when the card is asked for and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} runs on the card by default and no CUDA "
+                           "device is available; pass device='cpu' to run "
+                           "the plain versions")
+    return dev
+
+
 def to_device(tree, device):
     """Move every tensor of a nested dict to ``device``."""
     if isinstance(tree, dict):

@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.bridge import to_device
+from repro_torch.bridge import resolve_device, to_device
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.core import plcore, sampling, volume
 from repro_torch.core.encoding import nerf_encoding
@@ -59,15 +59,6 @@ def render_image_single(cfg: NerfConfig, params, rays_o, rays_d, *,
                              fuse_two_pass=fuse_two_pass, ert_eps=eps,
                              white_bkgd=True)
     return out["rgb"][:n].reshape(H, W, 3)
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("PackedPlcore runs on the card by default and no "
-                           "CUDA device is available; pass device='cpu' to "
-                           "run the plain versions")
-    return dev
 
 
 class TileHandle:
@@ -101,7 +92,7 @@ class PackedPlcore:
             raise ValueError("fuse_two_pass routes through the fused kernel "
                              "— pass use_kernel=True")
         self.cfg = cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "PackedPlcore")
         self.use_kernel = use_kernel
         self.fuse_two_pass = fuse_two_pass
         self.ert_eps = cfg.ert_eps if ert_eps is None else float(ert_eps)

@@ -49,6 +49,15 @@ def dequantize(q: dict, dtype=torch.float32) -> torch.Tensor:
     return (s * m * q["scale"]).to(dtype)
 
 
+def fake_quant(w: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """w -> dequantize(quantize(w)) on the forward pass, with the identity
+    as its gradient (the straight-through estimator of quantization-aware
+    training). Written as the reference writes it, ``w + (dq - w)``, so
+    the forward values equal the reference's bit for bit."""
+    w0 = w.detach()
+    return w + (dequantize(quantize(w0, axis), w.dtype) - w0)
+
+
 def pack(q: dict) -> dict:
     """Bit-pack signs 8 per byte along the leading axis: bit j of byte i is
     row 8i + j (1.125 bytes per weight)."""
@@ -96,6 +105,16 @@ def quantize_tree(params, axis: int = -2):
         return {k: quantize_tree(v, axis) for k, v in params.items()}
     if params.ndim >= 2 and params.is_floating_point():
         return quantize(params, axis)
+    return params
+
+
+def fake_quant_tree(params, axis: int = -2):
+    """``fake_quant`` on every float matrix (ndim >= 2) of a param tree;
+    vectors (biases) pass through."""
+    if isinstance(params, dict):
+        return {k: fake_quant_tree(v, axis) for k, v in params.items()}
+    if params.ndim >= 2 and params.is_floating_point():
+        return fake_quant(params, axis)
     return params
 
 

@@ -1,17 +1,23 @@
-"""Cameras, rays and the procedural analytic scenes.
+"""Cameras, rays, the procedural analytic scenes and their ray datasets.
 
 Conventions: OpenGL-style camera (looks down -z), c2w 4x4 pose matrices,
 rays returned as origins + unit directions. Scenes are analytic volumes
-(Gaussian emission blobs, a solid sphere) with density and color fields.
+(Gaussian emission blobs, a solid sphere) with density and color fields;
+``render_gt`` ray-marches them densely through the same VRU math as the
+model, so a NeRF trained on ``make_dataset``'s rays fits a known
+plenoptic function and its PSNR against ground truth means something.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
+
+from repro_torch.bridge import resolve_device
+from repro_torch.core import sampling, volume
 
 
 def pose_spherical(theta_deg: float, phi_deg: float,
@@ -63,13 +69,16 @@ def blob_scene(n_blobs: int = 5, seed: int = 0, view_dep: float = 0.15) -> Scene
     amps = torch.as_tensor(rng.uniform(8.0, 20.0, (n_blobs,)), dtype=torch.float32)
 
     def density(pts):
-        d2 = torch.sum((pts[..., None, :] - centers) ** 2, dim=-1)
-        return torch.sum(amps * torch.exp(-0.5 * d2 / scales ** 2), dim=-1)
+        c, a, s = (x.to(pts.device) for x in (centers, amps, scales))
+        d2 = torch.sum((pts[..., None, :] - c) ** 2, dim=-1)
+        return torch.sum(a * torch.exp(-0.5 * d2 / s ** 2), dim=-1)
 
     def color(pts, dirs):
-        d2 = torch.sum((pts[..., None, :] - centers) ** 2, dim=-1)
-        w = amps * torch.exp(-0.5 * d2 / scales ** 2) + 1e-8
-        base = (w[..., None] * colors).sum(-2) / w.sum(-1, keepdim=True)
+        c, a, s = (x.to(pts.device) for x in (centers, amps, scales))
+        d2 = torch.sum((pts[..., None, :] - c) ** 2, dim=-1)
+        w = a * torch.exp(-0.5 * d2 / s ** 2) + 1e-8
+        base = ((w[..., None] * colors.to(pts.device)).sum(-2)
+                / w.sum(-1, keepdim=True))
         tint = 0.5 * (dirs + 1.0)
         return torch.clamp(base * (1 - view_dep) + tint * view_dep, 0.0, 1.0)
 
@@ -84,11 +93,76 @@ def sphere_scene(radius: float = 0.6, sharp: float = 40.0) -> Scene:
 
     def color(pts, dirs):
         n = pts / torch.clamp(torch.linalg.norm(pts, dim=-1, keepdim=True), min=1e-8)
-        lam = torch.clamp((n * torch.tensor([0.57, 0.57, 0.57])).sum(-1), 0, 1)
-        base = torch.tensor([0.8, 0.3, 0.2])
+        lam = torch.clamp((n * torch.tensor([0.57, 0.57, 0.57],
+                                            device=pts.device)).sum(-1), 0, 1)
+        base = torch.tensor([0.8, 0.3, 0.2], device=pts.device)
         return torch.clamp(base * (0.3 + 0.7 * lam[..., None]), 0.0, 1.0)
 
     return Scene("sphere", density, color, near=2.5, far=5.5)
 
 
 SCENES = {"blobs": blob_scene, "sphere": sphere_scene}
+
+
+# ------------------------------------------------------- GT ray-marching ----
+def render_gt(scene: Scene, rays_o, rays_d, n_samples: int = 256,
+              white_bkgd: bool = True) -> torch.Tensor:
+    """Dense-march the analytic fields at the bin midpoints (no
+    generator, so deterministic): the ground-truth 'photograph'."""
+    t = sampling.stratified(scene.near, scene.far, n_samples,
+                            rays_o.shape[:-1], device=rays_o.device)
+    pts = rays_o[..., None, :] + t[..., None] * rays_d[..., None, :]
+    sig = scene.density(pts)
+    dirs = torch.broadcast_to(rays_d[..., None, :], pts.shape)
+    rgb = scene.color(pts, dirs)
+    out, aux = volume.render_parallel(sig, rgb, sampling.deltas_from_t(t))
+    if white_bkgd:
+        out = volume.white_background(out, aux["acc"])
+    return out
+
+
+def make_dataset(scene: Scene, n_views: int, H: int, W: int,
+                 focal: float | None = None, chunk: int = 8192,
+                 device=None) -> dict:
+    """Render ``n_views`` ground-truth images on a camera orbit, in chunks
+    of ``chunk`` rays on ``device`` (default the card), and flatten them
+    to a ray dataset {rays_o, rays_d, rgb} with leading dim n_views*H*W."""
+    dev = resolve_device(device, "make_dataset")
+    focal = focal or 0.9 * W
+    oL, dL, cL = [], [], []
+    for v in range(n_views):
+        theta = 360.0 * v / n_views
+        phi = -25.0 + 15.0 * math.sin(2 * math.pi * v / n_views)
+        ro, rd = camera_rays(pose_spherical(theta, phi, scene.radius), H, W,
+                             focal)
+        ro, rd = ro.reshape(-1, 3).to(dev), rd.reshape(-1, 3).to(dev)
+        rgb = torch.cat([render_gt(scene, ro[i:i + chunk], rd[i:i + chunk])
+                         for i in range(0, ro.shape[0], chunk)])
+        oL.append(ro), dL.append(rd), cL.append(rgb)
+    return {"rays_o": torch.cat(oL), "rays_d": torch.cat(dL),
+            "rgb": torch.cat(cL)}
+
+
+def ray_batches(dataset: dict, batch_size: int,
+                generator: torch.Generator) -> Iterator[dict]:
+    """Infinite ray batches, indices drawn uniformly with replacement from
+    ``generator`` (on the generator's device, then moved to the data's)."""
+    n = dataset["rays_o"].shape[0]
+    dev = dataset["rays_o"].device
+    while True:
+        idx = torch.randint(0, n, (batch_size,), generator=generator,
+                            device=generator.device).to(dev)
+        yield {k: v[idx] for k, v in dataset.items()}
+
+
+def holdout_view(scene: Scene, H: int, W: int, focal: float | None = None,
+                 theta: float = 33.0, phi: float = -20.0, device=None):
+    """A view NOT on the training orbit, for eval PSNR: (rays_o, rays_d,
+    gt), each (H, W, 3) on ``device`` (default the card)."""
+    dev = resolve_device(device, "holdout_view")
+    focal = focal or 0.9 * W
+    ro, rd = camera_rays(pose_spherical(theta, phi, scene.radius), H, W,
+                         focal)
+    ro, rd = ro.to(dev), rd.to(dev)
+    gt = render_gt(scene, ro.reshape(-1, 3), rd.reshape(-1, 3))
+    return ro, rd, gt.reshape(H, W, 3)

@@ -2,9 +2,13 @@
 
 ``--mode nerf`` loads the model into a ``PackedPlcore`` (weights
 RMCM-quantized and packed ONCE at load), then serves ``--views`` requests,
-one camera pose each, rendering each image in one render call and writing
-it as a PPM under ``runs/``. Prints per-view wall times, rays/s, samples/s
-and ``weight_packs_since_load`` (0: no request re-packed weights) as JSON.
+one camera pose each (``--theta`` stepped around the orbit, ``--phi``,
+focal ``--focal``), rendering each image in one render call and writing
+it under ``runs/`` as a PPM and as the float32 pixels in ``.npy``. Prints
+per-view wall times, rays/s, samples/s and ``weight_packs_since_load``
+(0: no request re-packed weights) as JSON. ``--ckpt DIR`` serves the
+``params`` of the newest checkpoint in DIR (``checkpoint.Checkpointer``'s
+format, written by either package) in place of the seeded weights.
 
 ``--mode engine`` serves many scenes through the multi-tenant
 ``serving.RenderEngine``: ``--scenes`` synthetic scenes (scene i's weights
@@ -34,6 +38,8 @@ defaults to ``cuda``.
 
     python -m repro_torch.launch.serve --mode nerf --full --kernel \\
         --fuse-two-pass --views 3
+    python -m repro_torch.launch.serve --mode nerf --full --kernel \\
+        --fuse-two-pass --ckpt runs/ckpt --theta 33 --phi -20 --focal 307.2
     python -m repro_torch.launch.serve --mode engine --full --kernel \\
         --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
         --loop closed --pipeline-depth 2 --tile-rays 4096 --check
@@ -54,6 +60,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.nerf_icarus import CONFIG as NERF_FULL, tiny as nerf_tiny
 from repro_torch.core import rmcm
 from repro_torch.core.pipeline import PackedPlcore
@@ -107,11 +114,13 @@ def budget_classes(args):
     return tuple(int(b) for b in args.budget_classes.split(","))
 
 
-def load_plcore(cfg, args, seed: int) -> PackedPlcore:
-    """A PackedPlcore for the flags, its weights drawn from a
-    ``torch.Generator`` seeded ``seed``."""
-    gen = torch.Generator().manual_seed(seed)
-    params = init_params(plcore_decls(cfg), gen, "float32")
+def load_plcore(cfg, args, seed: int,
+                params: Optional[dict] = None) -> PackedPlcore:
+    """A PackedPlcore for the flags, with ``params`` or else weights drawn
+    from a ``torch.Generator`` seeded ``seed``."""
+    if params is None:
+        gen = torch.Generator().manual_seed(seed)
+        params = init_params(plcore_decls(cfg), gen, "float32")
     if args.scene_bias:
         # negative values carve real empty space into the synthetic scene
         for net in params.values():
@@ -126,9 +135,14 @@ def load_plcore(cfg, args, seed: int) -> PackedPlcore:
 
 
 def load_model(args):
-    """(cfg, PackedPlcore) for the flags: weights drawn from ``--seed``."""
+    """(cfg, PackedPlcore) for the flags: the ``params`` of the newest
+    checkpoint in ``--ckpt``, else weights drawn from ``--seed``."""
     cfg = model_config(args)
-    return cfg, load_plcore(cfg, args, args.seed)
+    params = None
+    if args.ckpt:
+        state, _ = Checkpointer(args.ckpt).restore(device=args.device)
+        params = state["params"]
+    return cfg, load_plcore(cfg, args, args.seed, params)
 
 
 def serve_nerf(args) -> dict:
@@ -141,8 +155,9 @@ def serve_nerf(args) -> dict:
     views = []
     for v in range(args.views):
         theta = args.theta + 360.0 * v / args.views
-        ro, rd = R.camera_rays(R.pose_spherical(theta, -25.0, scene.radius),
-                               H, W, 0.9 * W)
+        ro, rd = R.camera_rays(
+            R.pose_spherical(theta, args.phi, scene.radius), H, W,
+            args.focal or 0.9 * W)
         _sync(engine.device)
         t0 = time.perf_counter()
         img = engine.render_image(ro, rd, rays_per_batch=args.rays_per_batch)
@@ -151,7 +166,10 @@ def serve_nerf(args) -> dict:
         out = Path(args.out or "runs") / f"serve_nerf_{args.scene}_v{v}.ppm"
         out.parent.mkdir(parents=True, exist_ok=True)
         write_ppm(str(out), img)
-        views.append({"image": str(out), "theta": theta, "wall_s": dt,
+        pixels = out.with_suffix(".npy")
+        np.save(pixels, img.cpu().numpy())
+        views.append({"image": str(out), "pixels": str(pixels),
+                      "theta": theta, "wall_s": dt,
                       "rays_per_s": n_rays / dt,
                       "samples_per_s": n_samples / dt,
                       "finite": bool(torch.isfinite(img).all()),
@@ -161,6 +179,7 @@ def serve_nerf(args) -> dict:
         "device_name": (torch.cuda.get_device_name(engine.device)
                         if engine.device.type == "cuda" else "cpu"),
         "config": "full" if args.full else "tiny",
+        "ckpt": args.ckpt,
         "hw": H, "rays": n_rays, "samples": n_samples,
         "views": views,
         "rmcm": bool(args.rmcm), "kernel": bool(args.kernel),
@@ -236,6 +255,7 @@ def run_engine(args):
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
               "config": "full" if args.full else "tiny",
+        "ckpt": args.ckpt,
               "scenes": args.scenes, "tile_rays": args.tile_rays,
               "kernel": bool(args.kernel),
               "fuse_two_pass": bool(args.fuse_two_pass),
@@ -369,6 +389,13 @@ def build_parser():
     ap.add_argument("--scene", default="blobs", choices=sorted(R.SCENES))
     ap.add_argument("--hw", type=int, default=64)
     ap.add_argument("--theta", type=float, default=45.0)
+    ap.add_argument("--phi", type=float, default=-25.0,
+                    help="camera elevation in degrees (--mode nerf)")
+    ap.add_argument("--focal", type=float, default=None,
+                    help="focal length in pixels (default 0.9 * hw)")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve the params of the newest checkpoint in "
+                         "this directory (--mode nerf)")
     ap.add_argument("--views", type=int, default=1,
                     help="requests to serve, one camera pose each")
     ap.add_argument("--rays-per-batch", type=int, default=4096)

@@ -2,7 +2,9 @@
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
 (bf16x3), K2 also at the adaptive budgets Nf = 8, 32, 64 with dead rows; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
-float64 product within twice the plain f32 version's.
+float64 product within twice the plain f32 version's. Then NeRF training
+on the card: one QAT train step at the full width against the same step
+on the CPU, and the training entry points' default device.
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with a card and no JAX (``--noconftest`` skips the suite's JAX-based
@@ -18,6 +20,10 @@ import pytest
 import torch
 
 from repro_torch import bridge
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import nerf_train
+from repro_torch.data import rays as R_
+from repro_torch.optim import adam
 from repro_torch.configs.nerf_icarus import CONFIG
 from repro_torch.core import plcore, rmcm, sampling
 from repro_torch.kernels import fused_plcore, ops, ref
@@ -246,3 +252,76 @@ def test_rmcm_matmul_repeats_bit_for_bit_on_card(m, k, n):
     first = k3.rmcm_matmul(x, packed)
     for _ in range(3):
         assert torch.equal(k3.rmcm_matmul(x, packed), first)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One deterministic QAT train step (no generator) at the full
+    ``NerfConfig()`` width on 128 dataset rays, on the card and on the
+    CPU from the same weights, state and batch, TF32 off: loss and
+    metrics within 1e-5 relative; every gradient leaf within 1e-3 of the
+    largest |g| of the whole gradient (the fine pass samples where the
+    resampler puts them, and it amplifies last-ulp differences of the
+    coarse weights; in a run of this test on an H100 a leaf whose own
+    gradients are near zero differed by 1.4e-2 of its own largest |g|,
+    and by 9.4e-7 absolute); the params after the step
+    within 1e-6 (1e-5 relative) wherever |g| exceeds 1e-3 of the largest,
+    since a first Adam step moves a weight by lr * sign(g)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CONFIG
+    ocfg = adam.AdamConfig(lr=5e-4, warmup_steps=100, total_steps=1000,
+                           weight_decay=0.0)
+    params, opt = nerf_train.init_nerf_state(
+        cfg, ocfg, torch.Generator().manual_seed(0), device="cpu")
+    ds = R_.make_dataset(R_.blob_scene(), 2, 32, 32, focal=2.4 * 32,
+                         device="cpu")
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, ds["rgb"].shape[0], 128))
+    batch = {k: v[idx] for k, v in ds.items()}
+    dev = torch.device("cuda")
+    out = {}
+    for where, to in (("cpu", lambda t: t),
+                      ("cuda", lambda t: bridge.to_device(t, dev))):
+        grad_fn = nerf_train.value_and_grad(
+            nerf_train.make_nerf_loss(cfg, qat=True))
+        (loss, aux), grads = grad_fn(to(params), to(batch))
+        p1, o1, m = nerf_train.make_nerf_train_step(cfg, ocfg, qat=True)(
+            to(params), to(opt), to(batch))
+        out[where] = (loss, aux, bridge.to_device(grads, "cpu"),
+                      bridge.to_device(p1, "cpu"), m)
+    (lc, ac, gc, pc, mc), (lg, ag, gg, pg, mg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for k in mc:
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in adam.tree_leaves(gc))
+    for gcpu, gcard, pcpu, pcard in zip(
+            adam.tree_leaves(gc), adam.tree_leaves(gg),
+            adam.tree_leaves(pc), adam.tree_leaves(pg)):
+        assert float((gcard - gcpu).abs().max()) <= 1e-3 * scale
+        settled = gcpu.abs() > 1e-3 * scale
+        np.testing.assert_allclose(pcard[settled].numpy(),
+                                   pcpu[settled].numpy(), atol=1e-6,
+                                   rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """init_nerf_state, make_dataset, holdout_view and Checkpointer.restore
+    put every tensor on cuda when no device is given."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.nerf_icarus import tiny
+    params, opt = nerf_train.init_nerf_state(tiny(), adam.AdamConfig(),
+                                             torch.Generator().manual_seed(0))
+    ds = R_.make_dataset(R_.blob_scene(), 1, 8, 8)
+    ro, rd, gt = R_.holdout_view(R_.blob_scene(), 8, 8)
+    c = Checkpointer(str(tmp_path))
+    c.save(1, {"params": params, "opt_state": opt})
+    c.wait()
+    restored, _ = c.restore()
+    leaves = (adam.tree_leaves(params) + adam.tree_leaves(opt)
+              + list(ds.values()) + [ro, rd, gt]
+              + adam.tree_leaves(restored))
+    assert all(t.device.type == "cuda" for t in leaves)

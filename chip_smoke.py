@@ -107,6 +107,34 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    zeroed before, read after: K2 launches per budget), the first training
    view's exact PSNR, and the training PSNR.
 
+11. K1 and K2 at the other built width pairs (``width_phase``, run after
+   step 2): tiny() (64, 32) and the reference kernel tests' 5-layer (64,
+   32) and 2-layer (32, 16) configs, and K2 with a coarse and a fine
+   network of different formats at tiny() and at the full width, each
+   against its plain version on one 128x128 view (1e-3 all-f32, 5e-3 with
+   RMCM, ERT or a mask; depth 1e-2) and timed beside its bounds; one row
+   per compiled instance in the kernels line.
+12. tiny() through the serve entry point on the card (``tiny_serve_phase``,
+   after step 4): ``serve --mode nerf --kernel --fuse-two-pass`` without
+   ``--full``, 3 views and one ``--rmcm --ert 0.01`` view (K2 at tiny's
+   widths, no weight re-packed, finite views with pixel std > 0, the
+   first within 5e-3 of the plain render), then ``serve --tiled --kernel``
+   (K1 twice per tile, within ``serve.ORACLE_ATOL`` of the fused view).
+13. The traced engine (``traced_engine_phase``, after step 6): step 6's
+   trace with ``--trace-out``/``--metrics-out`` under ``build/``; the
+   check's trace-integrity gate (``validate_trace`` and
+   ``validate_chrome_trace`` both ok), one ``tile.kernel`` span per K2
+   launch, and the device busy share (their union over the traced
+   window).
+14. The reference's Fig. 8 protocol at tiny() (``fig8_tiny_phase``, before
+   step 10): 6 views at 24x24, 250 QAT steps of 1024 rays at lr 5e-3
+   (warmup 20), the hold-out rows (exact, RMCM, K2, adaptive) and the
+   reference's gates (training gain >= 3 dB, exact vs RMCM > 20 dB,
+   adaptive drop <= 0.1 dB), and the count of memo-dead rays.
+
+Every main-path run zeroes the launch counters just before and reads
+them just after; the instances the main path runs (tiny()'s K2 in f32 and
+RMCM and its K1, the full width's K2 in both) must each have launched.
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last ``{"ok": true, "device": {...}}``. Exits nonzero with no
 result when CUDA is absent or the repository's sources are not beside it.
@@ -133,7 +161,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
-from repro_torch.configs.nerf_icarus import CONFIG  # noqa: E402
+from repro_torch.configs.nerf_icarus import CONFIG, tiny  # noqa: E402
 from repro_torch.core import nerf_train, plcore, rmcm, sampling  # noqa: E402
 from repro_torch.core.pipeline import (AdaptiveRenderer,  # noqa: E402
                                        PackedPlcore, build_scene_aux)
@@ -158,9 +186,10 @@ ADAPTIVE_TILE = 4096     # rays per adaptive tile, the engine's tile
 ADAPTIVE_AUX = {"grid_res": 32, "probe_hw": 8}   # the engine's probe
 HBM_BYTES_PER_S = 3.35e12
 HEADER = "src/repro_torch/kernels/csrc/mma_split.cuh"
-SOURCE = {"fused_plcore_call": "src/repro_torch/kernels/csrc/fused_plcore.cu",
-           "two_pass_plcore_call":
-               "src/repro_torch/kernels/csrc/fused_plcore.cu",
+SOURCE = {"fused_plcore_call":
+              "src/repro_torch/kernels/csrc/plcore_kernels.cuh",
+          "two_pass_plcore_call":
+              "src/repro_torch/kernels/csrc/plcore_kernels.cuh",
            "rmcm_matmul": "src/repro_torch/kernels/csrc/rmcm_matmul.cu"}
 REPLACES = {"fused_plcore_call": "src/repro/kernels/fused_plcore.py:239",
             "two_pass_plcore_call": "src/repro/kernels/fused_plcore.py:432",
@@ -201,6 +230,10 @@ TRAIN_EVAL_AT = (100, 250, 500, 1000)
 FIG8_HW = 128
 FIG8_AUX = {"grid_res": 24, "probe_hw": 12, "memo_mb": 16.0}
 PSNR_DROP_GATE_DB = 0.1
+# the reference's own Fig. 8 protocol (benchmarks/fig8_rmcm_psnr.py) at
+# tiny(): 250 QAT steps, 24x24 views; run from three weight draws
+FIG8_TINY_STEPS, FIG8_TINY_HW = 250, 24
+FIG8_TINY_SEEDS = (0, 1, 2)
 
 
 def smi(query: str) -> str:
@@ -262,21 +295,45 @@ def bound_ms(op_seconds: float, n_bytes: int):
                                             else "bytes")
 
 
-def plcore_bounds(cfg, rays: int, samples: int, passes: int, n_bytes: int,
-                  quantized: bool, peaks: dict) -> dict:
-    """Tensor-core and fp32-core bounds of ``rays`` x ``samples`` network
-    evaluations plus ``passes`` per-ray direction parts: the MMA layers
-    three times (3xTF32 or bf16x3) at the route's tensor-core peak, the
-    exact heads and the direction part at the fp32 peak."""
+def plcore_op_seconds(cfg, rays: int, samples: int, passes: int,
+                      quantized: bool, peaks: dict):
+    """(tensor-core route, fp32 cores) seconds of ``rays`` x ``samples``
+    network evaluations plus ``passes`` per-ray direction parts: the MMA
+    layers three times (3xTF32 or bf16x3) at the route's tensor-core peak,
+    the exact heads and the direction part at the fp32 peak; or all of it
+    at the fp32 peak."""
     mma = 2.0 * rays * samples * mma_macs_per_sample(cfg)
     rest = 2.0 * rays * (samples * (macs_per_sample(cfg)
                                     - mma_macs_per_sample(cfg))
                          + passes * macs_per_ray_pass(cfg))
     tc = 3 * mma / peaks["bf16" if quantized else "tf32"] + rest / peaks["fp32"]
+    return tc, (mma + rest) / peaks["fp32"]
+
+
+def bounds_of(tc: float, fp32: float, n_bytes: int) -> dict:
     tc_ms, tc_by = bound_ms(tc, n_bytes)
-    fp_ms, fp_by = bound_ms((mma + rest) / peaks["fp32"], n_bytes)
+    fp_ms, fp_by = bound_ms(fp32, n_bytes)
     return {"bound_ms": tc_ms, "bound_by": tc_by, "bound_ms_fp32": fp_ms,
             "bound_by_fp32": fp_by}
+
+
+def plcore_bounds(cfg, rays: int, samples: int, passes: int, n_bytes: int,
+                  quantized: bool, peaks: dict) -> dict:
+    """Tensor-core and fp32-core bounds of ``rays`` x ``samples`` network
+    evaluations plus ``passes`` per-ray direction parts, one weight
+    format (``plcore_op_seconds``), against the bytes' time."""
+    return bounds_of(*plcore_op_seconds(cfg, rays, samples, passes,
+                                        quantized, peaks), n_bytes)
+
+
+def k2_bounds(cfg, rays: int, qc: bool, qf: bool, n_bytes: int,
+              peaks: dict) -> dict:
+    """K2's bounds with every ray alive: the coarse pass (n_coarse samples)
+    on the coarse network's route, the fine pass (n_coarse + n_fine) on
+    the fine network's."""
+    c = plcore_op_seconds(cfg, rays, cfg.n_coarse, 1, qc, peaks)
+    f = plcore_op_seconds(cfg, rays, cfg.n_samples, 1, qf, peaks)
+    return bounds_of(c[0] + f[0], c[1] + f[1], n_bytes)
 
 
 def ert_eps_between(acc_c: torch.Tensor) -> float:
@@ -639,11 +696,13 @@ def zero_launches() -> None:
         for k in counts:
             counts[k] = 0
     fused_plcore.K2_LAUNCHES_BY_NF.clear()
+    fused_plcore.INSTANCE_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
     return {**fused_plcore.LAUNCHES, **k3.LAUNCHES,
-            "k2_by_nf": dict(fused_plcore.K2_LAUNCHES_BY_NF)}
+            "k2_by_nf": dict(fused_plcore.K2_LAUNCHES_BY_NF),
+            "instances": dict(fused_plcore.INSTANCE_LAUNCHES)}
 
 
 def engine_phase(extra: list) -> dict:
@@ -951,6 +1010,387 @@ def oracle_phase(cfg, params) -> int:
     return launches
 
 
+def width_configs() -> dict:
+    """The width pairs K1 and K2 are built for beside the full config:
+    ``tiny()`` (64, 32), the config of ``serve`` without ``--full``, and
+    the reference's kernel-test sweep (``tests/test_kernels.py:103-115``),
+    a 5-layer (64, 32) and a 2-layer (32, 16) network, at their depths,
+    skips, encodings and sample counts."""
+    return {"tiny": tiny(),
+            "sweep5": dataclasses.replace(
+                CONFIG, trunk_layers=5, trunk_width=64, skip_at=(2, 4),
+                color_width=32, pos_freqs=6, dir_freqs=3, n_coarse=16,
+                n_fine=16),
+            "sweep2": dataclasses.replace(
+                CONFIG, trunk_layers=2, trunk_width=32, skip_at=(1,),
+                color_width=16, pos_freqs=4, dir_freqs=2, n_coarse=8,
+                n_fine=8)}
+
+
+def width_phase(peaks: dict) -> dict:
+    """K1 and K2 at every built width pair below the full one and K2 with
+    a coarse and a fine network of different formats, against their plain
+    versions on one 128x128 view at the main path's ray tile: K2 in each
+    format pair (f32 and RMCM at every config; the two mixed pairs at
+    tiny() and at the full width), with ERT at an eps where some rays
+    terminate and an alive mask for the f32 and mixed pairs, and K1 at
+    N = n_coarse + n_fine in f32 and RMCM. Tolerances: 1e-3 for K1 in
+    f32; 5e-3 with RMCM, ERT or a mask, depth 1e-2; K2 with both networks
+    f32: the coarse outputs 1e-3 against the f32 plain version, the fine
+    outputs against the plain version in float64 within 1e-3 (depth 1e-2)
+    or twice the f32 plain version's own error, the larger. The
+    unmasked calls are timed beside their tensor-core and fp32-core
+    bounds. Returns rows keyed by compiled instance (``instance_name``),
+    each timed at the first config that ran it, the others under
+    ``also_checked``."""
+    o, d = view_rays(45.0)
+    R = o.shape[0]
+    alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
+    rows: dict = {}
+    cases = [(label, cfg, ((False, False), (True, True)
+                           ) + (((False, True), (True, False))
+                                if label == "tiny" else ()))
+             for label, cfg in width_configs().items()]
+    cases.append(("full", CONFIG, ((False, True), (True, False))))
+    for label, cfg, formats in cases:
+        params = init_params(plcore_decls(cfg),
+                             torch.Generator().manual_seed(0))
+        nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
+        plain_nets = {q: {n: {k: v for k, v in nets[q][n].items()
+                              if k != "mma"} for n in nets[q]}
+                      for q in nets}
+        grids = ops.sample_rows(cfg, DEV)
+        Nc, Nt = cfg.n_coarse, cfg.n_samples
+        for qc, qf in formats:
+            per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, cfg.n_fine),
+                                                (qc, qf), DEV)
+            rt = ops.pick_ray_tile(R, DEV, per_sm)
+            k2 = (cfg, nets[qc]["coarse"], nets[qf]["fine"], o, d, *grids)
+            plain = (cfg, plain_nets[qc]["coarse"], plain_nets[qf]["fine"],
+                     o, d, *grids)
+            name = fused_plcore.instance_name(cfg, "two_pass_plcore_call",
+                                              (qc, qf))
+            ms, got = cuda_ms(lambda: fused_plcore.two_pass_plcore_call(
+                *k2, rt=rt, ert_eps=0.0), 3)
+            plain_ms, want = cuda_ms(lambda: ref.two_pass_ref(
+                *plain, rt=PLAIN_RT, ert_eps=0.0), 3)
+            extra_row = {}
+            if qc or qf:
+                err = check(f"{name} {label}", got, want,
+                            (5e-3, 5e-3, 5e-3, 5e-3, 1e-2))
+            else:
+                # two f32 renders can differ by more than either differs
+                # from the exact one: the resampler moves fine samples by
+                # the last-ulp differences of the coarse weights. So the
+                # coarse outputs (no resample) are held to the f32 plain
+                # version at 1e-3, and the fine outputs (rgb, acc, depth)
+                # to the plain version in float64: within 1e-3 (depth
+                # 1e-2) or twice the f32 plain version's own error, the
+                # larger (K3's float64 witness, step 3)
+                exact = ref.two_pass_ref(*_f64(plain), rt=PLAIN_RT,
+                                         ert_eps=0.0)
+                check(f"{name} {label} coarse outputs vs plain f32",
+                      got[1::2], want[1::2], (1e-3, 1e-3))
+                e_k = [float((a.double() - b).abs().max())
+                       for a, b in zip(got, exact)]
+                e_p = [float((a.double() - b).abs().max())
+                       for a, b in zip(want, exact)]
+                for i, tol in ((0, 1e-3), (2, 1e-3), (4, 1e-2)):
+                    assert e_k[i] <= max(tol, 2.0 * e_p[i]), (
+                        name, label, i, e_k, e_p)
+                err = max(e_k[1], e_k[3], *(e_k[i] for i in (0, 2, 4)))
+                extra_row = {
+                    "max_abs_err_vs_float64": e_k,
+                    "plain_f32_vs_float64": e_p,
+                    "max_abs_err_vs_plain_f32": [
+                        float((a - b).abs().max())
+                        for a, b in zip(got, want)]}
+                print(f"{name} {label}: vs plain float64 {e_k}, vs plain "
+                      f"f32 {extra_row['max_abs_err_vs_plain_f32']}, plain "
+                      f"f32 vs float64 {e_p}", flush=True)
+            if qc == qf and qc:
+                extra = []
+            else:
+                eps = ert_eps_between(want[3])
+                dead = int((want[3] >= ref.ert_threshold(eps)).sum())
+                assert 0 < dead < R, ("no live/dead mix", label, eps, dead)
+                extra = [(eps, None), (0.0, alive)]
+            for eps, mask in extra:
+                err = max(err, check(
+                    f"{name} {label} ert={eps} alive-mask="
+                    f"{mask is not None}",
+                    fused_plcore.two_pass_plcore_call(*k2, rt=rt,
+                                                      ert_eps=eps,
+                                                      alive=mask),
+                    ref.two_pass_ref(*plain, rt=PLAIN_RT, ert_eps=eps,
+                                     alive=mask),
+                    (5e-3, 5e-3, 5e-3, 5e-3, 1e-2)))
+            n_bytes = nbytes(o, d, grids, plain_nets[qc]["coarse"],
+                             plain_nets[qf]["fine"]) + 4 * R * 9
+            row = {"config": label, "rays": R, "ray_tile": rt,
+                   "blocks_per_sm": per_sm, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, **extra_row,
+                   **k2_bounds(cfg, R, qc, qf, n_bytes, peaks)}
+            _add_row(rows, name, row)
+        for q in (False, True):
+            t = sampling.stratified(cfg.near, cfg.far, Nt, (R,),
+                                    torch.Generator(device=DEV).manual_seed(1),
+                                    device=DEV)
+            dl = sampling.deltas_from_t(t)
+            per_sm = fused_plcore.blocks_per_sm(cfg, "k1", (Nt,), (q,), DEV)
+            rt = ops.pick_ray_tile(R, DEV, per_sm)
+            name = fused_plcore.instance_name(cfg, "fused_plcore_call", (q,))
+            tol = 5e-3 if q else 1e-3
+            ms, got = cuda_ms(lambda: fused_plcore.fused_plcore_call(
+                cfg, nets[q]["fine"], o, d, t, dl, rt=rt), 3)
+            plain_ms, want = cuda_ms(lambda: ref.fused_plcore_ref(
+                cfg, plain_nets[q]["fine"], o, d, t, dl, rt=PLAIN_RT), 3)
+            err = check(f"{name} {label} N={Nt}", got, want, (tol,) * 3)
+            n_bytes = nbytes(o, d, t, dl, plain_nets[q]["fine"]) \
+                + 4 * R * (3 + Nt + 1)
+            row = {"config": label, "rays": R, "samples": Nt,
+                   "ray_tile": rt, "blocks_per_sm": per_sm,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   **plcore_bounds(cfg, R, Nt, 1, n_bytes, q, peaks)}
+            _add_row(rows, name, row)
+    for name, row in rows.items():
+        print(f"{name} ({row['config']}): {row['ms']:.3f} ms, ray tile "
+              f"{row['ray_tile']} ({row['blocks_per_sm']} block(s)/SM); "
+              f"tensor-core bound {row['bound_ms']:.3f} ms "
+              f"({100 * row['bound_ms'] / row['ms']:.1f}% of it); fp32 "
+              f"bound {row['bound_ms_fp32']:.3f} ms; plain "
+              f"{row['plain_ms']:.3f} ms; max_abs_err "
+              f"{row['max_abs_err']:.3g}", flush=True)
+    return rows
+
+
+def _f64(args: tuple) -> tuple:
+    """The plain version's arguments with every float tensor in float64
+    (the config first, nested weight dicts)."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            return t.double()
+        return t
+    return tuple(cast(a) for a in args)
+
+
+def _add_row(rows: dict, name: str, row: dict) -> None:
+    """The first config to run an instance gives its row; later ones go
+    under the row's ``also_checked``."""
+    if name in rows:
+        rows[name].setdefault("also_checked", {})[row["config"]] = row
+    else:
+        rows[name] = row
+
+
+def tiny_serve_phase(out_dir: str) -> dict:
+    """``serve --mode nerf --kernel --fuse-two-pass`` without ``--full``:
+    tiny() on the card through K2 at its widths, 3 views at 128x128, then
+    one with ``--rmcm --ert 0.01``; counters zeroed just before each run
+    and read just after it. Gates: K2 launched at tiny's widths, no weight
+    re-packed, every view finite with pixel std > 0, and the first view
+    within 5e-3 of the plain render of the same pose. Then ``serve
+    --tiled --kernel`` of that pose: K1 twice per 4096-ray tile, the
+    image within ``serve.ORACLE_ATOL`` of the fused view."""
+    cfg = tiny()
+    out = {}
+    for label, extra, views in (("f32", [], 3),
+                                ("rmcm_ert", ["--rmcm", "--ert", "0.01"], 1)):
+        zero_launches()
+        stats = serve.main(["--mode", "nerf", "--kernel", "--fuse-two-pass",
+                            "--views", str(views), "--hw", str(HW), "--out",
+                            out_dir, *extra])
+        launches = read_launches()
+        inst = fused_plcore.instance_name(cfg, "two_pass_plcore_call",
+                                          (bool(extra),) * 2)
+        assert stats["config"] == "tiny", stats
+        assert stats["device"].startswith("cuda"), stats
+        assert stats["weight_packs_since_load"] == 0, stats
+        assert launches["instances"].get(inst, 0) >= views, launches
+        assert launches["fused_plcore_call"] == 0, launches
+        for v in stats["views"]:
+            assert v["finite"] and v["pixel_std"] > 0, v
+        out[label] = {"launches": launches,
+                      "wall_s": [v["wall_s"] for v in stats["views"]],
+                      "pixel_std": [v["pixel_std"] for v in stats["views"]]}
+        if label == "f32":
+            fused = np.load(stats["views"][0]["pixels"])
+    # the first view against the plain route, same weights and pose
+    args = serve.build_parser().parse_args(["--hw", str(HW)])
+    plain = serve.load_plcore(cfg, args, args.seed)
+    ro, rd = rays.camera_rays(rays.pose_spherical(args.theta, args.phi,
+                                                  rays.blob_scene().radius),
+                              HW, HW, 0.9 * HW)
+    img = plain.render_image(ro, rd).cpu().numpy()
+    out["f32"]["max_abs_err_vs_plain"] = float(np.abs(fused - img).max())
+    assert out["f32"]["max_abs_err_vs_plain"] <= 5e-3, out
+    zero_launches()
+    stats = serve.main(["--mode", "nerf", "--kernel", "--tiled", "--hw",
+                        str(HW), "--rays-per-batch", "4096", "--out",
+                        out_dir + "/tiled"])
+    launches = read_launches()
+    tiles = -(-HW * HW // 4096)
+    assert stats["pipeline"] == "tiled", stats
+    assert launches["fused_plcore_call"] == 2 * tiles, launches
+    assert launches["two_pass_plcore_call"] == 0, launches
+    tiled = np.load(stats["views"][0]["pixels"])
+    out["tiled"] = {"launches": launches, "tiles": tiles,
+                    "wall_s": stats["views"][0]["wall_s"],
+                    "weight_packs": stats["weight_packs_since_load"],
+                    "max_abs_err_vs_fused": float(np.abs(tiled
+                                                         - fused).max())}
+    assert out["tiled"]["max_abs_err_vs_fused"] <= serve.ORACLE_ATOL, out
+    print(f"tiny serve: {json.dumps(out)}", flush=True)
+    return out
+
+
+def traced_engine_phase() -> dict:
+    """The engine phase's trace with ``--trace-out`` and ``--metrics-out``
+    (under ``build/``): counters zeroed before the run and read after it;
+    the check's gates, the trace-integrity gate among them
+    (``validate_trace`` on the tracer, ``validate_chrome_trace`` on the
+    written file, both ok); one ``tile.kernel`` span per K2 launch; the
+    device busy share (the union of those spans over the traced window)
+    in (0, 1]; the Prometheus text holding the engine's and the kernels'
+    counters."""
+    trace_out = ROOT / "build" / "engine_trace.json"
+    metrics_out = ROOT / "build" / "engine_metrics.prom"
+    args = serve.build_parser().parse_args(
+        ENGINE_ARGV + ["--trace-out", str(trace_out), "--metrics-out",
+                       str(metrics_out)])
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args)
+    launches = read_launches()
+    obs = report["observability"]
+    busy = obs["device_busy"]
+    assert launches["two_pass_plcore_call"] == \
+        report["engine"]["dispatches"] == busy["kernel_spans"], (
+        launches, report["engine"], busy)
+    assert busy["busy_share"] is not None and 0 < busy["busy_share"] <= 1, busy
+    prom = metrics_out.read_text()
+    for family in ("engine_dispatches_total", "plcore_kernel_launches_total",
+                   "plcore_instance_launches_total"):
+        assert f"# TYPE {family} counter" in prom, family
+    compared = serve.check_engine(args, report, engine, rerun)
+    summary = {"rays_per_s": report["rays_per_s"], "wall_s": report["wall_s"],
+               "dispatches": report["engine"]["dispatches"],
+               "integrity": obs["integrity"],
+               "chrome_integrity": obs["chrome_integrity"],
+               "device_busy": busy, "spans": obs["spans"],
+               "events": obs["events"], "dropped": obs["dropped"],
+               "trace_bytes": trace_out.stat().st_size,
+               "metrics_lines": len(prom.splitlines()),
+               "launches": launches, "check_compared": compared}
+    print(f"engine traced: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def fig8_tiny_run(seed: int) -> dict:
+    """One run of the reference's Fig. 8 protocol at tiny() from weights
+    drawn with ``seed`` (batches and jitter from ``seed + 1``, ``seed +
+    2``); see ``fig8_tiny_phase``."""
+    cfg, hw, steps = tiny(), FIG8_TINY_HW, FIG8_TINY_STEPS
+    scene = rays.blob_scene()
+    ds = rays.make_dataset(scene, 6, hw, hw, focal=2.4 * hw)
+    opt_cfg = AdamConfig(lr=5e-3, warmup_steps=20, total_steps=steps,
+                         weight_decay=0.0)
+    params, opt = nerf_train.init_nerf_state(
+        cfg, opt_cfg, torch.Generator().manual_seed(seed))
+    step = nerf_train.make_nerf_train_step(cfg, opt_cfg, qat=True)
+    batches = rays.ray_batches(
+        ds, 1024, torch.Generator(device=DEV).manual_seed(seed + 1))
+    jitter = torch.Generator(device=DEV).manual_seed(seed + 2)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, m = step(params, opt, next(batches), jitter)
+        metrics.append(m["psnr"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hist = torch.stack(metrics).cpu().numpy()
+    assert np.isfinite(hist).all(), hist
+    first10, last10 = float(hist[:10].mean()), float(hist[-10:].mean())
+    assert last10 >= first10 + 3.0, ("training PSNR gain", seed, first10,
+                                      last10)
+    ro, rd, gt = rays.holdout_view(scene, hw, hw, focal=2.4 * hw)
+    gt = gt.cpu().numpy()
+    quant = {n: rmcm.quantize_tree(params[n]) for n in ("coarse", "fine")}
+    img_exact = PackedPlcore(cfg, params, device=DEV).render_image(
+        ro, rd).cpu().numpy()
+    img_rmcm = PackedPlcore(cfg, params, quant=quant,
+                            device=DEV).render_image(ro, rd).cpu().numpy()
+    pp = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
+                      device=DEV)
+    zero_launches()
+    img_fused = pp.render_image(ro, rd).cpu().numpy()
+    ar = AdaptiveRenderer(pp, build_scene_aux(pp, **FIG8_AUX))
+    img_adaptive, dead = ar.render_image(ro.reshape(-1, 3), rd.reshape(-1, 3),
+                                         with_dead=True)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    rep = ar.report()
+    inst = fused_plcore.instance_name(cfg, "two_pass_plcore_call",
+                                      (False, False))
+    assert launches["instances"].get(inst, 0) == 1 + rep["tiles"] - \
+        rep["full_dead_tiles"], (launches, rep)
+    img_adaptive = img_adaptive.reshape(hw, hw, 3)
+    for img in (img_exact, img_rmcm, img_fused, img_adaptive):
+        assert img.shape == gt.shape and np.isfinite(img).all()
+    run = {"seed": seed, "train_s": train_s, "psnr_first10": first10,
+           "psnr_last10": last10,
+           "exact_vs_rmcm": psnr(img_exact, img_rmcm),
+           "exact_vs_gt": psnr(img_exact, gt),
+           "rmcm_vs_gt": psnr(img_rmcm, gt),
+           "fused_vs_gt": psnr(img_fused, gt),
+           "fused_vs_exact": psnr(img_fused, img_exact),
+           "adaptive_vs_gt": psnr(img_adaptive, gt),
+           "adaptive_vs_fused": psnr(img_adaptive, img_fused),
+           "exact_pixel_std": float(img_exact.std()),
+           "memo_dead_rays": int(dead.sum()),
+           "dead_ray_fraction": rep["dead_ray_fraction"],
+           "full_dead_tiles": rep["full_dead_tiles"],
+           "budget_rays": rep["budget_rays"], "launches": launches}
+    run["adaptive_psnr_drop_db"] = run["fused_vs_gt"] - run["adaptive_vs_gt"]
+    assert run["exact_vs_rmcm"] > 20.0, run
+    assert run["adaptive_psnr_drop_db"] <= PSNR_DROP_GATE_DB, run
+    return run
+
+
+def fig8_tiny_phase() -> dict:
+    """The reference's Fig. 8 protocol as it runs it
+    (``benchmarks/fig8_rmcm_psnr.py``): tiny(), the blob scene, 6 views at
+    24x24 with focal 2.4 * hw, 250 QAT steps of 1024 rays at lr 5e-3
+    (warmup 20); then the hold-out view (theta 33, phi -20) at 24x24
+    rendered exact and RMCM on the plain path, through K2 (``PackedPlcore``
+    fused) and adaptively (``AdaptiveRenderer`` at the reference's probe:
+    a 24^3 grid from 12x12-ray poses, a 16 MB memo), counters zeroed
+    before the K2 and adaptive renders and read after. Gates, the
+    reference's: the training PSNR of the last 10 steps at least 3 dB
+    above the first 10's, exact vs RMCM above 20 dB, the adaptive PSNR
+    drop against the fused render at most 0.1 dB. Run from the weights
+    of each of ``FIG8_TINY_SEEDS`` (the hold-out rows move with the draw:
+    6 views constrain the scene loosely); reports whether any ray
+    rendered memo-dead. The launches are the runs' summed."""
+    runs = [fig8_tiny_run(seed) for seed in FIG8_TINY_SEEDS]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("fused_plcore_call", "two_pass_plcore_call",
+                          "rmcm_matmul")}
+    instances: dict = {}
+    for r in runs:
+        for inst, n in r["launches"]["instances"].items():
+            instances[inst] = instances.get(inst, 0) + n
+    launches["instances"] = instances
+    fig8 = {"config": "tiny", "steps": FIG8_TINY_STEPS, "hw": FIG8_TINY_HW,
+            "psnr_drop_gate_db": PSNR_DROP_GATE_DB, "runs": runs,
+            "memo_dead_rays": sum(r["memo_dead_rays"] for r in runs),
+            "launches": launches}
+    print(f"fig8 tiny: {json.dumps(fig8)}", flush=True)
+    return fig8
+
+
 def profile_steps(step, params, opt, batches, jitter, n: int = 3) -> dict:
     """Kernel time of ``n`` more train steps under ``torch.profiler`` (the
     steps' results are dropped): kernels per step, their summed device
@@ -1230,41 +1670,70 @@ def main() -> None:
     params = init_params(plcore_decls(cfg), torch.Generator().manual_seed(0))
     peaks = peak_flops()
     rows = kernel_phase(cfg, params, peaks)
+    width_rows = width_phase(peaks)
 
     k3_row = k3_phase(peaks)
 
     out_dir = str(ROOT / "chiprun_out" / "smoke_views")
     main_launches = serve_phase(out_dir, [], 3)
     rmcm_launches = serve_phase(out_dir, ["--rmcm", "--ert", "0.01"], 1)
+    tiny_serve = tiny_serve_phase(out_dir + "/tiny")
     oracle_launches = oracle_phase(cfg, params)
     clean = engine_phase([])
     chaos = engine_phase(["--inject-faults"])
+    traced = traced_engine_phase()
     budgets = budget_phase(cfg, params, peaks)
     view = adaptive_view_phase(cfg, params)
     adaptive = adaptive_engine_phase()
+    fig8_tiny = fig8_tiny_phase()
     trained = train_phase(cfg, peaks)
 
     k2 = "two_pass_plcore_call"
-    main_path = {k: main_launches[k] + rmcm_launches[k]
-                 + clean["launches"][k] + view["launches"][k]
-                 + adaptive["launches"][k] + trained["launches"][k]
+    # every main-path run: counters zeroed just before, read just after
+    runs = [main_launches, rmcm_launches, tiny_serve["f32"]["launches"],
+            tiny_serve["rmcm_ert"]["launches"], tiny_serve["tiled"]["launches"],
+            clean["launches"], traced["launches"], view["launches"],
+            adaptive["launches"], fig8_tiny["launches"],
+            trained["launches"]]
+    main_path = {k: sum(r[k] for r in runs)
                  for k in ("fused_plcore_call", k2, "rmcm_matmul")}
+    instances: dict = {}
+    for r in runs + [{"instances": {fused_plcore.instance_name(
+            cfg, "fused_plcore_call", (False,)): oracle_launches}}]:
+        for inst, n in r.get("instances", {}).items():
+            instances[inst] = instances.get(inst, 0) + n
     by_nf = {nf: view["launches"]["k2_by_nf"].get(nf, 0)
              + adaptive["launches"]["k2_by_nf"].get(nf, 0)
              + trained["k2_by_nf"].get(nf, 0) for nf in budgets}
     kernels = []
     for k in ("fused_plcore_call", k2):
-        launches = main_path[k] if k == k2 else oracle_launches
+        # the function's launches over every instance: K2's on the main
+        # path, K1's on the oracle path and serve --tiled; the row's
+        # numbers are the full width's (timed in f32, K2 also in RMCM)
+        launches = main_path[k] + (oracle_launches
+                                   if k == "fused_plcore_call" else 0)
         kernels.append({"name": k, "route": "cuda", "source": SOURCE[k],
                         "header": HEADER,
                         "mma_route": "wgmma: 3xTF32 (f32 weights), bf16x3 "
                                      "(RMCM); weights by bulk copy",
                         "replaces": REPLACES[k], "launches": launches,
                         "launches_on": ("main path" if k == k2
-                                        else "oracle path"),
+                                        else "oracle path and serve --tiled"),
+                        "launches_by_instance": {
+                            i: n for i, n in instances.items()
+                            if i.startswith(k + "[")},
                         "launches_trained_scene": (
                             trained["launches"][k] if k == k2 else 0),
                         **rows[k], "library_ms": None})
+    for inst, row in width_rows.items():
+        kind = inst.split("[")[0]
+        kernels.append({"name": inst, "route": "cuda", "source": SOURCE[kind],
+                        "header": HEADER, "replaces": REPLACES[kind],
+                        "launches": instances.get(inst, 0),
+                        "launches_on": ("main path" if instances.get(inst)
+                                        else "kernel phase only: no serve "
+                                             "path runs this instance"),
+                        **row, "library_ms": None})
     for nf, row in budgets.items():
         kernels.append({"name": f"{k2}[n_fine={nf}]", "route": "cuda",
                         "source": SOURCE[k2], "header": HEADER,
@@ -1282,10 +1751,22 @@ def main() -> None:
                     "launches_on": "rmcm_matmul entry point",
                     "main_path_launches": main_path["rmcm_matmul"],
                     **k3_row})
+    # the instances the main path runs: tiny()'s K2 (serve without
+    # --full, f32 and RMCM), its K1 (serve --tiled), the full width's K2
+    tiny_cfg = tiny()
+    for inst in (fused_plcore.instance_name(tiny_cfg, k2, (False, False)),
+                 fused_plcore.instance_name(tiny_cfg, k2, (True, True)),
+                 fused_plcore.instance_name(tiny_cfg, "fused_plcore_call",
+                                            (False,)),
+                 fused_plcore.instance_name(cfg, k2, (False, False)),
+                 fused_plcore.instance_name(cfg, k2, (True, True))):
+        assert instances.get(inst, 0) >= 1, (inst, instances)
     print(json.dumps({"engine": {"clean": clean, "chaos": chaos,
-                                 "adaptive": adaptive},
-                      "adaptive_view": view, "train": trained["summary"],
-                      "fig8": trained["fig8"]}))
+                                 "adaptive": adaptive, "traced": traced},
+                      "tiny_serve": tiny_serve, "adaptive_view": view,
+                      "train": trained["summary"], "fig8": trained["fig8"],
+                      "fig8_tiny": fig8_tiny,
+                      "main_path_instances": instances}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
-"""MLP engine — the NeRF MLP (paper §4.3), plain PyTorch.
+"""MLP engine — the NeRF MLP and a generic coordinate MLP (paper §4.3),
+plain PyTorch.
 
-8x256 trunk with a skip connection re-injecting the encoded position at
-layer 4; density head sigma (1), a 256-d feature, then a 128-wide
-view-dependent color branch. The hidden (MONB) matmuls may read RMCM
-weights (``quant``); the sigma and rgb heads (SONB) stay exact f32.
+The NeRF MLP: 8x256 trunk with a skip connection re-injecting the encoded
+position at layer 4; density head sigma (1), a 256-d feature, then a
+128-wide view-dependent color branch. The hidden (MONB) matmuls may read
+RMCM weights (``quant``); the sigma and rgb heads (SONB) stay exact f32.
+
+``mlp_decls`` / ``mlp_apply``: the generic coordinate MLP (ReLU between
+layers, an optional final activation) that the SDF and SLF workloads use;
+each layer's matmul may read RMCM weights.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -103,3 +108,23 @@ def nerf_mlp_apply(cfg: NerfConfig, params: dict, pe_pos, pe_dir,
     -> (sigma_raw (...,), rgb (..., 3))."""
     sigma, feat = nerf_trunk_apply(cfg, params, pe_pos, quant)
     return sigma, nerf_color_apply(cfg, params, feat, pe_dir, quant)
+
+
+# ----------------------------------------------------- generic coordinate MLP
+def mlp_decls(in_dim: int, widths: Sequence[int], out_dim: int) -> dict:
+    dims = [in_dim, *widths, out_dim]
+    return {f"l{i}": _linear(dims[i], dims[i + 1])
+            for i in range(len(dims) - 1)}
+
+
+def mlp_apply(params: dict, x, quant: Optional[dict] = None,
+              final_activation=None):
+    """x (..., in_dim) -> (..., out_dim): every layer a linear (RMCM where
+    ``quant`` has the layer), ReLU between them, ``final_activation`` (a
+    callable) after the last."""
+    n = len(params)
+    for i in range(n):
+        x = _matmul(x, params[f"l{i}"], (quant or {}).get(f"l{i}"))
+        if i < n - 1:
+            x = torch.relu(x)
+    return final_activation(x) if final_activation else x

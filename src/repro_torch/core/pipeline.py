@@ -12,8 +12,9 @@
   in, pixels out, for a serving engine. ``dispatch_tile`` returns a
   ``TileHandle`` without waiting for the card: the tile's rays go up and
   its pixels come back through pinned host buffers with non-blocking
-  copies, and a CUDA event marks the end of the tile's own work, so
-  draining tile k never waits for tile k+1 queued behind it.
+  copies, and CUDA events mark the start and end of the tile's own work,
+  so draining tile k never waits for tile k+1 queued behind it, and the
+  tile's interval on the device can be read after it drains.
   ``render_tile_oracle`` renders the tile through the two-dispatch kernel
   chain, the fallback of a retry ladder. ``budget=`` renders a tile at an
   adaptive fine-sample count, ``alive=`` masks dead rows out of K2.
@@ -63,20 +64,36 @@ def render_image_single(cfg: NerfConfig, params, rays_o, rays_d, *,
 
 class TileHandle:
     """The pixels of one dispatched tile. ``result()`` waits for this
-    tile's own work (its event), not for the stream, and returns the
-    (n, 3) float32 host array; on the CPU the work is already done."""
-    __slots__ = ("_host", "_event", "_device_rgb")
+    tile's own work (its end event), not for the stream, and returns the
+    (n, 3) float32 host array; on the CPU the work is already done. On the
+    card the tile's work lies between two timing events, ``start``
+    (recorded before its render was enqueued) and ``end`` (after its
+    pixels' copy to the host): ``device_interval`` reads it once the
+    result is in."""
+    __slots__ = ("_host", "_event", "_device_rgb", "start", "end")
 
-    def __init__(self, host: torch.Tensor, event=None, device_rgb=None):
+    def __init__(self, host: torch.Tensor, event=None, device_rgb=None,
+                 start=None):
         self._host = host
         self._event = event
         self._device_rgb = device_rgb    # alive until the copy has run
+        self.start = start
+        self.end = event
 
     def result(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
             self._event = self._device_rgb = None
         return self._host.numpy()
+
+    def device_interval(self, anchor) -> Optional[tuple]:
+        """(start, end) of the tile's work in seconds after the ``anchor``
+        event (recorded earlier on the same device), or None on the CPU
+        or without a start event. Call after ``result()``."""
+        if self.start is None or self.end is None:
+            return None
+        return (anchor.elapsed_time(self.start) / 1e3,
+                anchor.elapsed_time(self.end) / 1e3)
 
 
 class PackedPlcore:
@@ -182,23 +199,36 @@ class PackedPlcore:
         handle holds the finished pixels. ``budget``/``alive`` as in
         ``render_tile``; ``cost`` is the weight-gather record,
         ``tile_gather_cost()``."""
-        rgb = self.render_tile(
-            self._upload(o_tile), self._upload(d_tile), ert_eps=ert_eps,
-            coarse_only=coarse_only, budget=budget,
-            alive=None if alive is None else self._upload(alive))
-        return self.handle(rgb), self.tile_gather_cost()
+        o, d = self._upload(o_tile), self._upload(d_tile)
+        a = None if alive is None else self._upload(alive)
+        start = self.tile_start()
+        rgb = self.render_tile(o, d, ert_eps=ert_eps,
+                               coarse_only=coarse_only, budget=budget,
+                               alive=a)
+        return self.handle(rgb, start), self.tile_gather_cost()
 
-    def handle(self, rgb: torch.Tensor) -> TileHandle:
+    def tile_start(self):
+        """On the card, a timing event recorded now on the current stream:
+        the start of a tile's device work, for ``handle``; None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def handle(self, rgb: torch.Tensor, start=None) -> TileHandle:
         """A ``TileHandle`` for pixels rendered on this instance's device:
-        on the card, a non-blocking copy into pinned host memory and an
-        event after it; on the CPU, the pixels themselves."""
+        on the card, a non-blocking copy into pinned host memory and a
+        timing event after it (``start``: the event of ``tile_start``
+        before the render); on the CPU, the pixels themselves."""
         if self.device.type != "cuda":
             return TileHandle(rgb)
         host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
         host.copy_(rgb, non_blocking=True)
-        event = torch.cuda.Event()
+        event = torch.cuda.Event(enable_timing=True)
         event.record()
-        return TileHandle(host, event, rgb)
+        return TileHandle(host, event, rgb, start)
 
     def tile_gather_cost(self) -> dict:
         """Weight-gather traffic of one tile dispatch: zero, since every

@@ -9,6 +9,12 @@ positions and directions in, pixel colors out. Three routes:
   the importance resample and merge here, K1 again for the fine pass;
 * ``use_kernel=False`` — plain tensor code (direct sin/cos encoding,
   ``/ norm`` directions, the log-space VRU), the port's in-package oracle.
+
+Images: ``render_image`` renders a whole image in one render call
+(``pipeline.render_image_single``); ``render_image_tiled`` is the seed's
+per-tile host loop, one render call (and, with ``use_kernel``, two K1
+launches) per tile of ``rays_per_batch`` rays, kept as the regression
+oracle of the single-call path.
 """
 from __future__ import annotations
 
@@ -140,3 +146,30 @@ def flatten_pad_rays(rays_o, rays_d, rays_per_batch: int):
     T = (n + pad) // rays_per_batch
     return (flat_o.reshape(T, rays_per_batch, 3),
             flat_d.reshape(T, rays_per_batch, 3), n)
+
+
+def render_image_tiled(cfg: NerfConfig, params, rays_o, rays_d, *,
+                       quant=None, use_kernel: bool = False,
+                       rays_per_batch: int = 4096) -> torch.Tensor:
+    """The seed per-tile host loop: one ``render_rays`` call per padded
+    tile of ``rays_per_batch`` rays (the two-dispatch chain with
+    ``use_kernel``), deterministic midpoint sampling, white background.
+    rays: (H, W, 3) -> rgb (H, W, 3)."""
+    H, W, _ = rays_o.shape
+    o_tiles, d_tiles, n = flatten_pad_rays(rays_o, rays_d, rays_per_batch)
+    outs = [render_rays(cfg, params, o_tiles[i], d_tiles[i], quant=quant,
+                        use_kernel=use_kernel, white_bkgd=True)["rgb"]
+            for i in range(o_tiles.shape[0])]
+    return torch.cat(outs, dim=0)[:n].reshape(H, W, 3)
+
+
+def render_image(cfg: NerfConfig, params, rays_o, rays_d, *, quant=None,
+                 use_kernel: bool = False, rays_per_batch: int = 4096,
+                 ert_eps: Optional[float] = None) -> torch.Tensor:
+    """A full image in one render call (deterministic midpoint sampling),
+    ``pipeline.render_image_single``. rays: (H, W, 3) -> rgb (H, W, 3);
+    ``ert_eps`` overrides ``cfg.ert_eps`` (None: the config's)."""
+    from repro_torch.core import pipeline
+    return pipeline.render_image_single(
+        cfg, params, rays_o, rays_d, quant=quant, use_kernel=use_kernel,
+        rays_per_batch=rays_per_batch, ert_eps=ert_eps)

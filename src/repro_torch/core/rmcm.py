@@ -35,8 +35,12 @@ def approx_magnitude(m: torch.Tensor) -> torch.Tensor:
 def quantize(w: torch.Tensor, axis: int = -2) -> dict:
     """Float weights -> {mag: uint8, sign: bool, scale: f32}; ``axis`` is the
     contraction dim, so scale has shape (..., 1, N) for (..., K, N)."""
-    scale = torch.amax(w.abs(), dim=axis, keepdim=True) / 255.0
-    scale = torch.clamp(scale, min=1e-20)
+    amax = torch.amax(w.abs(), dim=axis, keepdim=True)
+    # a true division, as the reference's: on a CUDA tensor PyTorch divides
+    # by a Python scalar as a product with its reciprocal, which rounds
+    # most scales differently, moves magnitudes that sit on a rounding
+    # tie, and changes what QAT trains on the card
+    scale = torch.clamp(amax / torch.full_like(amax, 255.0), min=1e-20)
     # torch.round rounds half to even, as the reference does
     m_exact = torch.clamp(torch.round(w.abs() / scale), 0, 255).to(torch.int64)
     mag = approx_magnitude(m_exact).to(torch.uint8)

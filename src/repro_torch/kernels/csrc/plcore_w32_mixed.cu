@@ -1,0 +1,5 @@
+// The fused PLCore kernels (plcore_kernels.cuh) at W = 32, C = 16: K2 with
+// a coarse and a fine network of different weight formats.
+#include "plcore_kernels.cuh"
+
+PLCORE_INSTANCES_MIXED(32, 16)

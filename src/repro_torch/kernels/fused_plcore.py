@@ -1,4 +1,6 @@
-"""Wrappers of the fused PLCore CUDA kernels (``csrc/fused_plcore.cu``).
+"""Wrappers of the fused PLCore CUDA kernels (``csrc/fused_plcore.cu``,
+the templates in ``csrc/plcore_kernels.cuh`` instantiated per width pair
+in ``csrc/plcore_w*.cu``).
 
 * ``fused_plcore_call`` (K1) — one sample set per ray: rays, ``t`` and
   ``deltas`` (R, N) in; rgb (R,3), weights (R,N), acc (R,) out. Two of
@@ -10,17 +12,22 @@
 Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
 RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:
 the reference's ``stack_plcore_weights`` layout plus its tensor-core
-stream under ``"mma"`` (``mma_segments``, in wgmma's layout). On the card
-K2's two networks share one weight format (both RMCM or both f32).
-``blocks_per_sm`` asks the library how many blocks of a kernel fit on one
-SM.
+stream under ``"mma"`` (``mma_segments``, in wgmma's layout). The layer
+widths are compiled in: the card takes the (trunk, color) width pairs of
+``KERNEL_WIDTHS`` and raises ``ValueError`` for any other. Depth, skip
+layers, encoding frequencies and sample counts are runtime values. K2's
+coarse and fine networks may have different weight formats (RMCM or
+f32). ``blocks_per_sm`` asks the library how many blocks of a kernel fit
+on one SM.
 
 A CUDA tensor launches the kernel on the current stream (outputs allocated
 here with ``torch.empty``); a CPU tensor takes the plain version in
 ``kernels.ref``. Nothing else: no fallback from one to the other.
-``LAUNCHES`` counts kernel launches per wrapper (and
-``K2_LAUNCHES_BY_NF`` K2's by fine-sample count) and is touched nowhere
-but at a launch.
+``LAUNCHES`` counts kernel launches per wrapper, ``K2_LAUNCHES_BY_NF``
+K2's by fine-sample count and ``INSTANCE_LAUNCHES`` both kernels' by
+compiled instance (``instance_name``); all three are touched nowhere but
+at a launch, and back onto labeled counters of the process-wide metrics
+registry (``obs.metrics.global_registry``).
 """
 from __future__ import annotations
 
@@ -32,13 +39,24 @@ import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
+from repro_torch.obs.metrics import CountsView, global_registry
 
-LAUNCHES = {"fused_plcore_call": 0, "two_pass_plcore_call": 0}
+LAUNCHES = CountsView(global_registry().counter(
+    "plcore_kernel_launches_total", "fused PLCore kernel launches"),
+    "kernel", ("fused_plcore_call", "two_pass_plcore_call"))
 # K2's launches by fine-sample count (adaptive budgets run Nf < n_fine),
 # counted at the same place as LAUNCHES
-K2_LAUNCHES_BY_NF: dict = {}
-# (trunk width, color width) the kernels' wgmma shapes are compiled for
-KERNEL_WIDTHS = (256, 128)
+K2_LAUNCHES_BY_NF = CountsView(global_registry().counter(
+    "plcore_k2_launches_by_n_fine_total",
+    "two-pass kernel launches per fine-sample count"), "n_fine")
+# launches per compiled instance: width pair and weight format(s)
+INSTANCE_LAUNCHES = CountsView(global_registry().counter(
+    "plcore_instance_launches_total",
+    "fused PLCore kernel launches per compiled instance"), "instance")
+# (trunk width, color width) pairs the kernels are compiled for: the full
+# NerfConfig, tiny() and the reference kernel tests' 5-layer config, their
+# 2-layer config (csrc/fused_plcore.cu PLCORE_WIDTHS)
+KERNEL_WIDTHS = ((256, 128), (64, 32), (32, 16))
 
 # one network's pointer order at the C interface: the MLP layers come from
 # the tensor-core stream; of the reference layout the kernels read the
@@ -131,12 +149,26 @@ def _net_ptrs(cfg: NerfConfig, weights: dict, device) -> list:
     return ptrs
 
 
-def _dims(cfg: NerfConfig, R: int, rt: int) -> list:
-    P, P2 = ref.packed_rows(cfg)
+def check_widths(cfg: NerfConfig) -> None:
+    """Raise ``ValueError`` unless the kernels are built for the config's
+    (trunk, color) width pair."""
     W, C = cfg.trunk_width, cfg.color_width
-    if (W, C) != KERNEL_WIDTHS:
-        raise ValueError("the kernels are built for the full NerfConfig "
-                         f"widths (W, C) = {KERNEL_WIDTHS}; got ({W}, {C})")
+    if (W, C) not in KERNEL_WIDTHS:
+        raise ValueError(f"the PLCore kernels are built for the (trunk, "
+                         f"color) widths {list(KERNEL_WIDTHS)}; got "
+                         f"({W}, {C})")
+
+
+def instance_name(cfg: NerfConfig, kernel: str, quantized: tuple) -> str:
+    """The compiled instance a launch runs: e.g.
+    ``two_pass_plcore_call[w64c32,rmcm/f32]`` (coarse/fine formats)."""
+    fmts = "/".join("rmcm" if q else "f32" for q in quantized)
+    return f"{kernel}[w{cfg.trunk_width}c{cfg.color_width},{fmts}]"
+
+
+def _dims(cfg: NerfConfig, R: int, rt: int) -> list:
+    check_widths(cfg)
+    P, P2 = ref.packed_rows(cfg)
     skip = sum(1 << i for i in cfg.skip_at)
     return [R, rt, cfg.trunk_width, cfg.trunk_layers, skip, cfg.color_width,
             cfg.pos_freqs, cfg.dir_freqs, P, P2]
@@ -176,16 +208,9 @@ def blocks_per_sm(cfg: NerfConfig, kernel: str, samples: tuple,
     memory."""
     dims = _dims(cfg, 1, 1) + [*samples, *map(int, quantized)]
     if kernel == "k2":
-        _same_format(*quantized)
         dims.append(0)
     return _blocks_per_sm(tuple(dims), {"k1": 0, "k2": 1}[kernel],
                           torch.device(device))
-
-
-def _same_format(qc, qf):
-    if bool(qc) != bool(qf):
-        raise ValueError("K2 on the card takes two networks of one weight "
-                         "format (both RMCM or both f32)")
 
 
 def _device_of(rays_o: torch.Tensor) -> torch.device:
@@ -218,9 +243,12 @@ def fused_plcore_call(cfg: NerfConfig, weights: dict, rays_o, rays_d, t,
     io = [rays_o.data_ptr(), rays_d.data_ptr(), t.data_ptr(),
           deltas.data_ptr(), None if alive is None else alive.data_ptr(),
           rgb.data_ptr(), w.data_ptr(), acc.data_ptr()]
-    dims = _dims(cfg, R, rt) + [N, int("trunk_mag" in weights)]
+    q = "trunk_mag" in weights
+    dims = _dims(cfg, R, rt) + [N, int(q)]
     _launch(build.load().plcore_fused, io + ptrs, dims)
     LAUNCHES["fused_plcore_call"] += 1
+    name = instance_name(cfg, "fused_plcore_call", (q,))
+    INSTANCE_LAUNCHES[name] = INSTANCE_LAUNCHES.get(name, 0) + 1
     return rgb, w, acc
 
 
@@ -248,19 +276,20 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     _check("u_row", u_row, (Nf,), f32, dev)
     if alive is not None:
         _check("alive", alive, (R,), f32, dev)
-    _same_format("trunk_mag" in packed_c, "trunk_mag" in packed_f)
+    qc, qf = "trunk_mag" in packed_c, "trunk_mag" in packed_f
     ptrs = _net_ptrs(cfg, packed_c, dev) + _net_ptrs(cfg, packed_f, dev)
     outs = [torch.empty(s, dtype=f32, device=dev)
             for s in ((R, 3), (R, 3), (R,), (R,), (R,))]
     io = [rays_o.data_ptr(), rays_d.data_ptr(), t_row.data_ptr(),
           u_row.data_ptr(), None if alive is None else alive.data_ptr()]
     io += [o.data_ptr() for o in outs]
-    dims = _dims(cfg, R, rt) + [Nc, Nf, int("trunk_mag" in packed_c),
-                                int("trunk_mag" in packed_f),
+    dims = _dims(cfg, R, rt) + [Nc, Nf, int(qc), int(qf),
                                 int(ert_eps > 0.0)]
     _launch(build.load().plcore_two_pass, io + ptrs, dims,
             ctypes.c_float(ref.ert_threshold(ert_eps)))
     LAUNCHES["two_pass_plcore_call"] += 1
     K2_LAUNCHES_BY_NF[Nf] = K2_LAUNCHES_BY_NF.get(Nf, 0) + 1
+    name = instance_name(cfg, "two_pass_plcore_call", (qc, qf))
+    INSTANCE_LAUNCHES[name] = INSTANCE_LAUNCHES.get(name, 0) + 1
     return tuple(outs)
 

@@ -22,9 +22,10 @@
   kernels and their plain versions handle a ragged last
   tile themselves, so no ray is padded here. K2's ray-independent sample
   grids come from ``sample_rows``, built once per config and device.
-* ``pack_count`` and ``dispatch_count`` are plain counters: packs at load
-  and kernel dispatches. The fused chain dispatches once per render call,
-  the two-dispatch chain twice.
+* ``pack_count`` and ``dispatch_count`` read two counters of the
+  process-wide metrics registry (``obs.metrics.global_registry``, so the
+  exporters see them): packs at load and kernel dispatches. The fused
+  chain dispatches once per render call, the two-dispatch chain twice.
 """
 from __future__ import annotations
 
@@ -38,8 +39,12 @@ from repro_torch.core import rmcm, sampling
 from repro_torch.kernels import fused_plcore as _fp
 from repro_torch.kernels import rmcm_matmul as _rm
 from repro_torch.kernels.ref import packed_rows
+from repro_torch.obs.metrics import global_registry
 
-_COUNTS = {"packs": 0, "dispatches": 0}
+_PACKS = global_registry().counter(
+    "plcore_weight_packs_total", "stack_plcore_weights invocations")
+_DISPATCHES = global_registry().counter(
+    "plcore_kernel_dispatches_total", "fused PLCore render dispatches")
 
 # rays per tile of the plain (CPU) versions: the tensor-code batch size
 PLAIN_TILE = 64
@@ -48,11 +53,11 @@ WAVES = 8
 
 
 def pack_count() -> int:
-    return _COUNTS["packs"]
+    return int(_PACKS.value)
 
 
 def dispatch_count() -> int:
-    return _COUNTS["dispatches"]
+    return int(_DISPATCHES.value)
 
 
 def rmcm_matmul(x: torch.Tensor, packed: dict, *, bm: int = 128,
@@ -81,7 +86,7 @@ def stack_plcore_weights(cfg: NerfConfig, params: dict,
                          quant: Optional[dict] = None) -> dict:
     """One network's params (and optional RMCM quant tree) -> the kernel
     weight layout."""
-    _COUNTS["packs"] += 1
+    _PACKS.inc()
     W, L = cfg.trunk_width, cfg.trunk_layers
     P, P2 = packed_rows(cfg)
     f32 = torch.float32
@@ -296,7 +301,7 @@ def fused_render(cfg: NerfConfig, params: Optional[dict], rays_o, rays_d, t,
     """One sample set through K1: (rgb (R,3), {weights, acc}). ``packed``:
     a pre-built layout (``params``/``quant`` are then ignored); ``alive``:
     optional (R,) mask, dead rays come back as zeros."""
-    _COUNTS["dispatches"] += 1
+    _DISPATCHES.inc()
     if packed is None:
         packed = kernel_weights(cfg, params, quant)
     dev = rays_o.device
@@ -334,7 +339,7 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
     launch. ``packed``: {"coarse", "fine"} layouts. Returns {rgb,
     rgb_coarse, acc, acc_coarse, depth}; white background is the caller's
     composite."""
-    _COUNTS["dispatches"] += 1
+    _DISPATCHES.inc()
     dev = rays_o.device
     if rt is None:
         per_sm = (_fp.blocks_per_sm(

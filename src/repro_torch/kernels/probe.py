@@ -23,7 +23,7 @@ from pathlib import Path
 
 from repro_torch.kernels import build
 
-_FP, _RM = "fused_plcore.cu", "rmcm_matmul.cu"
+_FP, _RM = "plcore_kernels.cuh", "rmcm_matmul.cu"
 _SKIP_MMA = (r"(\n\s*)(wgmma_(?:bf16|tf32)<[^;]*;)", r"\1if (0) \2")
 _WIDE = (_RM, r"BN = F32 \? 64 : 128;", "BN = 128;")
 VARIANTS = {

@@ -26,7 +26,12 @@ into the synthetic scenes (the adaptive gates need a mixed scene: -0.5 on
 the tiny config; at full width, where the initial sigma spreads narrower,
 -0.5 leaves no density at all and -0.1 is mixed).
 Prints the loadgen report as JSON; ``--check`` gates it (see
-``check_engine``).
+``check_engine``). ``--trace-out PATH`` traces the primary engine's
+request and tile lifecycle (1 request chain in ``--trace-sample``; tiles
+always) and writes it as Chrome trace-event JSON, with the span-chain
+validator's verdict and, on the card, the device busy share from the
+tiles' ``tile.kernel`` spans in the report; ``--metrics-out PATH`` writes
+the engine's and the process-wide registries as Prometheus text.
 
 Flags: ``--kernel`` routes each pass through the fused kernel (K1,
 two dispatches per render); ``--fuse-two-pass`` (with ``--kernel``) runs the
@@ -34,7 +39,10 @@ whole coarse -> importance -> fine chain as ONE kernel launch (K2);
 ``--rmcm`` serves 9-bit RMCM weights; ``--ert EPS`` lets rays whose
 transmittance after the coarse pass is below EPS skip the fine pass;
 ``--full`` is the full ``NerfConfig()`` (else ``tiny()``); ``--device``
-defaults to ``cuda``.
+defaults to ``cuda``; ``--tiled`` (``--mode nerf``) renders through the
+seed's per-tile loop (``core.plcore.render_image_tiled``: one render call
+per ``--rays-per-batch`` tile, with ``--kernel`` K1 twice per tile and the
+weights packed per call), and refuses ``--ert`` and ``--fuse-two-pass``.
 
     python -m repro_torch.launch.serve --mode nerf --full --kernel \\
         --fuse-two-pass --views 3
@@ -43,6 +51,11 @@ defaults to ``cuda``.
     python -m repro_torch.launch.serve --mode engine --full --kernel \\
         --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
         --loop closed --pipeline-depth 2 --tile-rays 4096 --check
+    python -m repro_torch.launch.serve --mode nerf --kernel --tiled
+    python -m repro_torch.launch.serve --mode engine --full --kernel \\
+        --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
+        --loop closed --pipeline-depth 2 --tile-rays 4096 --check \\
+        --trace-out runs/engine_trace.json --metrics-out runs/engine.prom
     python -m repro_torch.launch.serve --mode engine --full --kernel \\
         --fuse-two-pass --adaptive-sampling --scene-bias -0.1 --scenes 3 \\
         --requests 12 --hw-mix 64,128 --loop closed --pipeline-depth 2 \\
@@ -64,10 +77,13 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs.nerf_icarus import CONFIG as NERF_FULL, tiny as nerf_tiny
 from repro_torch.core import rmcm
 from repro_torch.core.pipeline import PackedPlcore
-from repro_torch.core.plcore import plcore_decls
+from repro_torch.core.plcore import plcore_decls, render_image_tiled
 from repro_torch.data import rays as R
 from repro_torch.kernels import ops as kops
 from repro_torch.models.params import init_params
+from repro_torch.obs import (SpanTracer, device_busy, global_registry,
+                             prometheus_text, validate_chrome_trace,
+                             validate_trace, write_chrome_trace)
 
 
 def write_ppm(path: str, img: torch.Tensor) -> None:
@@ -88,10 +104,14 @@ def model_config(args):
     """The NeRF config for the flags."""
     cfg = NERF_FULL if args.full else nerf_tiny()
     if args.ert > 0.0:
+        if args.tiled:
+            raise SystemExit("--ert requires the single-call pipeline; "
+                             "drop --tiled")
         cfg = replace(cfg, ert_eps=args.ert)
-    if args.fuse_two_pass and not args.kernel:
+    if args.fuse_two_pass and (args.tiled or not args.kernel):
         raise SystemExit("--fuse-two-pass runs the whole chain in one kernel; "
-                         "it requires --kernel")
+                         "it requires --kernel and the single-call pipeline "
+                         "(drop --tiled)")
     return cfg
 
 
@@ -129,7 +149,10 @@ def load_plcore(cfg, args, seed: int,
     if args.rmcm:
         quant = {net: rmcm.quantize_tree(params[net])
                  for net in ("coarse", "fine")}
-    return PackedPlcore(cfg, params, quant=quant, use_kernel=args.kernel,
+    # the tiled loop packs per render call, as the seed did: nothing to
+    # pack at load
+    return PackedPlcore(cfg, params, quant=quant,
+                        use_kernel=args.kernel and not args.tiled,
                         fuse_two_pass=args.fuse_two_pass,
                         device=args.device)
 
@@ -160,7 +183,14 @@ def serve_nerf(args) -> dict:
             args.focal or 0.9 * W)
         _sync(engine.device)
         t0 = time.perf_counter()
-        img = engine.render_image(ro, rd, rays_per_batch=args.rays_per_batch)
+        if args.tiled:
+            img = render_image_tiled(
+                cfg, engine.params, engine._rays(ro), engine._rays(rd),
+                quant=engine.quant, use_kernel=args.kernel,
+                rays_per_batch=args.rays_per_batch)
+        else:
+            img = engine.render_image(ro, rd,
+                                      rays_per_batch=args.rays_per_batch)
         _sync(engine.device)
         dt = time.perf_counter() - t0
         out = Path(args.out or "runs") / f"serve_nerf_{args.scene}_v{v}.ppm"
@@ -183,7 +213,8 @@ def serve_nerf(args) -> dict:
         "hw": H, "rays": n_rays, "samples": n_samples,
         "views": views,
         "rmcm": bool(args.rmcm), "kernel": bool(args.kernel),
-        "pipeline": ("two_pass_fused" if args.fuse_two_pass else
+        "pipeline": ("tiled" if args.tiled else
+                     "two_pass_fused" if args.fuse_two_pass else
                      "two_dispatch" if args.kernel else "plain"),
         "ert_eps": cfg.ert_eps,
         "weight_packs_since_load": kops.pack_count() - packs_at_load,
@@ -219,6 +250,11 @@ def run_engine(args):
             if args.inject_faults else None)
     prior_s = (None if args.service_prior_ms is None
                else args.service_prior_ms / 1e3)
+    # --trace-out traces the PRIMARY engine only: the reruns stay
+    # untraced, so the span stream describes one run and the integrity
+    # gate can hold every dispatched tile to a terminal scatter or drop
+    tracer = (SpanTracer(sample_every=args.trace_sample)
+              if args.trace_out else None)
 
     def make_engine(depth: int, chaos: bool,
                     adaptive: Optional[bool] = None) -> RenderEngine:
@@ -238,7 +274,8 @@ def run_engine(args):
                             max_queue=args.max_queue,
                             degrade_on_overload=args.degrade_on_overload,
                             faults=plan if chaos else None,
-                            tile_service_prior_s=prior_s, **kw)
+                            tile_service_prior_s=prior_s,
+                            tracer=tracer if chaos else None, **kw)
 
     engine = make_engine(args.pipeline_depth, chaos=True)
     deadline_choices = ((None,) if args.deadline_ms is None
@@ -250,6 +287,10 @@ def run_engine(args):
         deadline_choices=deadline_choices, seed=args.seed)
     report = loadgen.run_trace(engine, trace, mode=args.loop,
                                concurrency=args.concurrency)
+    if tracer is not None:
+        # a last drain closes the span chains of any slot still in flight
+        engine.drain()
+    observability = export_observability(args, engine, tracer)
     dev = torch.device(args.device)
     report = {"device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
@@ -267,6 +308,8 @@ def run_engine(args):
         report["adaptive_sampling"] = True
         report["scene_bias"] = args.scene_bias
         report["sampling"] = engine.sampling_report()
+    if observability:
+        report["observability"] = observability
 
     def rerun(depth: int, adaptive: Optional[bool] = None) -> RenderEngine:
         ref = make_engine(depth, chaos=False, adaptive=adaptive)
@@ -274,6 +317,50 @@ def run_engine(args):
                           concurrency=args.concurrency)
         return ref
     return report, engine, trace, rerun
+
+
+def export_observability(args, engine, tracer) -> dict:
+    """Write ``--trace-out`` (Chrome trace-event JSON of the primary
+    engine's spans) and ``--metrics-out`` (Prometheus text of the engine's
+    registry and the process-wide one); returns the report's
+    ``observability`` block: the tracer's summary, the span-chain
+    validator's verdict on the tracer (``integrity``) and on the written
+    file (``chrome_integrity``), and the device busy share
+    (``device_busy``: the union of the ``tile.kernel`` spans over the
+    traced window; ``busy_share`` None on the CPU)."""
+    out = {}
+    if tracer is not None:
+        tpath = Path(args.trace_out)
+        tpath.parent.mkdir(parents=True, exist_ok=True)
+        write_chrome_trace(tracer, str(tpath))
+        out.update(tracer.summary())
+        out["integrity"] = validate_trace(tracer)
+        out["chrome_integrity"] = validate_chrome_trace(
+            json.loads(tpath.read_text()))
+        out["device_busy"] = device_busy(tracer)
+        out["trace_out"] = str(tpath)
+    if args.metrics_out:
+        mpath = Path(args.metrics_out)
+        mpath.parent.mkdir(parents=True, exist_ok=True)
+        mpath.write_text(prometheus_text(engine.registry, global_registry()))
+        out["metrics_out"] = str(mpath)
+    return out
+
+
+def check_trace(report: dict) -> None:
+    """The trace-integrity gate of ``--check`` under ``--trace-out``: the
+    trace recorded dispatched tiles, and the span-chain validator passes
+    on the tracer and on the written file (every dispatched tile reached
+    a terminal scatter or drop, every traced request one terminal)."""
+    obs = report["observability"]
+    for key in ("integrity", "chrome_integrity"):
+        verdict = obs[key]
+        if verdict["dispatched_tiles"] < 1:
+            raise SystemExit(f"engine check: --trace-out armed but the "
+                             f"trace ({key}) recorded no dispatched tiles")
+        if not verdict["ok"]:
+            raise SystemExit(f"engine check: trace integrity ({key}) "
+                             "FAILED:\n  " + "\n  ".join(verdict["errors"]))
 
 
 def compare_images(engine, ref, label: str) -> int:
@@ -321,6 +408,8 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
     if report["dispatch_savings"] < 0 and not args.adaptive_sampling:
         raise SystemExit("engine check: coalescing issued MORE dispatches "
                          "than the per-request baseline")
+    if args.trace_out:
+        check_trace(report)
     compared = {}
     if args.inject_faults:
         rb = report["robustness"]
@@ -399,6 +488,9 @@ def build_parser():
     ap.add_argument("--views", type=int, default=1,
                     help="requests to serve, one camera pose each")
     ap.add_argument("--rays-per-batch", type=int, default=4096)
+    ap.add_argument("--tiled", action="store_true",
+                    help="the seed's per-tile loop instead of the "
+                         "single-call pipeline (--mode nerf)")
     ap.add_argument("--rmcm", action="store_true")
     ap.add_argument("--kernel", action="store_true")
     ap.add_argument("--ert", type=float, default=0.0,
@@ -459,6 +551,19 @@ def build_parser():
                          "negative values carve empty space (a mixed scene "
                          "for the adaptive gates: -0.5 on the tiny config, "
                          "-0.1 at --full)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="trace the primary engine's request and tile "
+                         "lifecycle and write it as Chrome trace-event "
+                         "JSON (one process track per host, one thread "
+                         "track per executor slot and, on the card, per "
+                         "device); with --check, gate span-chain integrity")
+    ap.add_argument("--trace-sample", type=int, default=1, metavar="N",
+                    help="trace 1 in N request chains (tile and cache "
+                         "records stay always on, so the integrity gate "
+                         "covers every dispatched tile)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the engine's and the process-wide metrics "
+                         "registries as Prometheus text after the run")
     ap.add_argument("--check", action="store_true",
                     help="gate the engine run (see check_engine)")
     return ap

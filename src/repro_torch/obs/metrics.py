@@ -20,6 +20,10 @@ these, built from ``ENGINE_STATS_SCHEMA``: key order, value types and every
 ``stats["k"] += 1`` / ``stats.get`` / ``dict(stats)`` call site behave as
 with a plain dict, while the registry sees every mutation.
 
+Module-level counters (``kernels.ops`` packs and dispatches, the kernel
+wrappers' launches) back onto ``global_registry()``, one process-wide
+registry; ``CountsView`` is the dict face of a labeled counter family.
+
 A copy of what the single-host engine needs from the reference package's
 ``obs.metrics``; the port imports nothing of the reference.
 """
@@ -31,8 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
-    "StatsView", "log_buckets", "engine_stats_view", "ENGINE_STATS_SCHEMA",
-    "EngineMetrics", "TIME_BUCKETS", "DEPTH_BUCKETS",
+    "StatsView", "CountsView", "log_buckets", "global_registry",
+    "engine_stats_view", "extend_stats_view", "ENGINE_STATS_SCHEMA",
+    "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "EngineMetrics",
+    "TIME_BUCKETS",
+    "DEPTH_BUCKETS",
 ]
 
 
@@ -198,8 +205,52 @@ class MetricsRegistry:
                   buckets: Tuple[float, ...] = TIME_BUCKETS) -> MetricFamily:
         return self._register(name, "histogram", help, unit, buckets=buckets)
 
+    def families(self) -> List[MetricFamily]:
+        return list(self._families.values())
+
     def get(self, name: str) -> Optional[MetricFamily]:
         return self._families.get(name)
+
+
+_GLOBAL: Optional[MetricsRegistry] = None
+
+
+def global_registry() -> MetricsRegistry:
+    """The process-wide registry behind the module-level counters (kernel
+    packs, dispatches and launches). Per-engine counters live in
+    per-engine registries; the exporters merge both."""
+    global _GLOBAL
+    if _GLOBAL is None:
+        _GLOBAL = MetricsRegistry()
+    return _GLOBAL
+
+
+class CountsView(dict):
+    """A dict of counts whose writes mirror into one labeled counter
+    family, a child per key (``family{label=key}``): the kernel wrappers'
+    launch counts. Reads, equality and ``dict(view)`` are a plain dict's;
+    ``clear`` zeroes the children before it empties the dict."""
+
+    def __init__(self, family: MetricFamily, label: str, keys=()):
+        super().__init__()
+        object.__setattr__(self, "_family", family)
+        object.__setattr__(self, "_label", label)
+        for k in keys:
+            self[k] = 0
+
+    def __setitem__(self, key, value):
+        self._family.labels(**{self._label: key}).value = value
+        dict.__setitem__(self, key, value)
+
+    def update(self, *args, **kw):
+        # dict.update bypasses __setitem__ at the C level; route it
+        for k, v in dict(*args, **kw).items():
+            self[k] = v
+
+    def clear(self):
+        for k in list(self):
+            self._family.labels(**{self._label: k}).value = 0
+        dict.clear(self)
 
 
 # The engine's stats schema, one tuple per key in report order:
@@ -233,6 +284,28 @@ ENGINE_STATS_SCHEMA = (
     ("late_rays", "counter", 0, "scatters onto terminal requests"),
     ("tile_service_s_ewma", "gauge", None,
      "admission-control service estimator"),
+)
+
+# The cluster engine's stats block, the reference's, for the multi-host
+# engine still to port (ROADMAP queue 1 item 4).
+CLUSTER_STATS_SCHEMA = (
+    ("cross_host_redispatches", "counter", 0,
+     "tiles recovered on another host"),
+    ("host_kills", "counter", 0, "hosts declared dead"),
+    ("host_slow_events", "counter", 0, "slow-down events applied"),
+    ("requeued_tiles", "counter", 0, "tiles abandoned by a dead host"),
+    ("quarantines", "counter", 0, "(host, scene) windows opened"),
+    ("quarantine_probes", "counter", 0, "failed recovery probes"),
+    ("quarantine_recoveries", "counter", 0, "lifted quarantines"),
+    ("affinity_migrations", "counter", 0,
+     "drain-time residency handoffs"),
+    ("heartbeat_timeouts", "counter", 0, "stale-beat host kills"),
+    ("slow_host_flags", "counter", 0, "healthy -> suspect transitions"),
+    ("host_drains", "counter", 0, "graceful host exits"),
+    ("host_rejoins", "counter", 0, "hosts restored to the pool"),
+    ("failovers", "counter", 0, "re-queued tiles re-dispatched"),
+    ("failover_latency_s", "counter", 0.0,
+     "summed requeue -> redispatch latency"),
 )
 
 # The adaptive-sampling block, bound by ``extend_stats_view`` only when an

@@ -20,7 +20,9 @@ INSTANT events in one bounded ring. Design constraints, in order:
 
 Span taxonomy: ``request.*`` lifecycle, ``tile.*`` per-dispatch chain
 (coalesce -> dispatch -> device_compute -> drain -> scatter, with retry /
-fallback / redispatch branches), ``cache.*`` residency.
+fallback / redispatch branches), ``cache.*`` residency; on the card,
+``tile.kernel`` (category ``device``), a tile's interval on the device
+from its CUDA events.
 
 A copy of the reference package's ``obs.trace``; the port imports nothing
 of the reference.
@@ -77,7 +79,7 @@ class NullTracer:
     def event(self, name, cat="engine", **attrs):
         return None
 
-    def complete(self, name, t0, cat="engine", **attrs):
+    def complete(self, name, t0, cat="engine", t1=None, **attrs):
         return None
 
     def sampled_request(self, rid: int) -> bool:
@@ -153,11 +155,12 @@ class SpanTracer:
         return span
 
     def complete(self, name: str, t0: float, cat: str = "engine",
-                 **attrs) -> Span:
+                 t1: Optional[float] = None, **attrs) -> Span:
         """Retrofit span: the caller measured ``t0`` itself (no handle
-        to thread through); the end is now."""
-        span = Span(self._next_sid(), name, cat, "X", t0, self.clock(),
-                    attrs)
+        to thread through); the end is ``t1`` on the tracer's clock, or
+        now."""
+        span = Span(self._next_sid(), name, cat, "X", t0,
+                    self.clock() if t1 is None else t1, attrs)
         self._commit(span)
         return span
 

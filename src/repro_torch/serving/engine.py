@@ -67,6 +67,19 @@ hinted-dead rays, and coalesces budget-pure tiles (shrunk to a power of two
 down to 32 rays when a bucket runs low); the executor renders each at its
 class's ``n_fine`` with the memo-dead rows masked out of K2, and a tile of
 dead rays only never reaches the kernel.
+
+Tracing
+-------
+
+With a ``SpanTracer`` the engine records the request and tile lifecycle
+(``request.*``, ``tile.*``, ``cache.*``), the reference's span chain:
+``tile.device_compute`` is a slot's life, dispatch to drain, on the
+host's clock. On the card each drained tile also gets ``tile.kernel``
+(category ``device``): its interval on the device, from the CUDA events
+around its render, placed on the tracer's clock by one anchor event
+recorded on the idle device before the engine's first tile. The union of
+these spans over the traced window is the card's busy share
+(``obs.export.device_busy``); a CPU trace has none.
 """
 from __future__ import annotations
 
@@ -76,6 +89,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.data import rays as R
 from repro_torch.obs.metrics import (SAMPLING_STATS_SCHEMA, MetricsRegistry,
@@ -645,6 +659,8 @@ class TileExecutor:
         self._clock = clock
         self._sleep = sleep
         self._slots: deque = deque()    # (tile, handle, t0, extra_s, span)
+        # (event, tracer clock, device index): see _device_clock
+        self._anchor = None
 
     @property
     def in_flight(self) -> int:
@@ -664,6 +680,7 @@ class TileExecutor:
             # the tile renders at its class's n_fine with the memo-dead
             # rays masked out of K2 (an all-dead tile launches nothing)
             ar = self.adaptive.renderer(tile.scene_id, tile.pp)
+            start = tile.pp.tile_start()
             rgb, info = ar.render_tile(tile.rays_o, tile.rays_d,
                                        budget=tile.budget,
                                        resolve_dead=tile.dead_bucket)
@@ -673,7 +690,8 @@ class TileExecutor:
                 tr.event("tile.adaptive", cat="tile", tile=tile.tid,
                          budget_class=tile.budget, dead=info["dead"],
                          full_dead=info["full_dead"])
-            handle, cost = tile.pp.handle(rgb), tile.pp.tile_gather_cost()
+            handle = tile.pp.handle(rgb, start)
+            cost = tile.pp.tile_gather_cost()
         else:
             handle, cost = tile.pp.dispatch_tile(tile.rays_o, tile.rays_d,
                                                  coarse_only=tile.degraded)
@@ -719,6 +737,7 @@ class TileExecutor:
                 st["dispatch_errors"] += 1
                 continue
             arr = handle.result()
+            self._device_span(tile, handle)
             if self.faults is not None:
                 bad = self.faults.corrupt_tile(arr)
                 if bad is not None:
@@ -737,6 +756,34 @@ class TileExecutor:
                if tile.degraded
                else pp.render_tile_oracle(tile.rays_o, tile.rays_d))
         return rgb.cpu().numpy(), pp.tile_gather_cost()
+
+    def _device_clock(self, tile: _Tile) -> None:
+        """Once per traced engine, before its first tile on the card: the
+        anchor that puts the tiles' CUDA events on the tracer's clock, a
+        timing event recorded on the idle device and the tracer's clock
+        read once it has completed."""
+        if self._anchor is not None or tile.pp.device.type != "cuda":
+            return
+        torch.cuda.synchronize(tile.pp.device)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        event.synchronize()
+        self._anchor = (event, self.tracer.clock(), tile.pp.device.index or 0)
+
+    def _device_span(self, tile: _Tile, handle) -> None:
+        """A drained tile's interval on the card as a complete span,
+        ``tile.kernel`` (category ``device``, one Chrome track per
+        device): from the event before its render to the event after its
+        pixels' copy, on the tracer's clock. Traced runs on the card only;
+        the span chain's validator does not read the name."""
+        if not self.tracer.enabled or self._anchor is None:
+            return
+        anchor, t_host, index = self._anchor
+        iv = handle.device_interval(anchor)
+        if iv is not None:
+            self.tracer.complete("tile.kernel", t_host + iv[0], cat="device",
+                                 t1=t_host + iv[1], tile=tile.tid,
+                                 device=index)
 
     def _account(self, tile: _Tile, cost: dict) -> None:
         st = self.stats
@@ -765,6 +812,7 @@ class TileExecutor:
         self.cache.pin(tile.scene_id)
         tr = self.tracer
         if tr.enabled:
+            self._device_clock(tile)
             tr.event("tile.dispatch", cat="tile", tile=tile.tid,
                      scene=tile.scene_id, slot=len(self._slots),
                      degraded=tile.degraded)
@@ -809,6 +857,7 @@ class TileExecutor:
         tr = self.tracer
         tr.end(sp)
         if tr.enabled:
+            self._device_span(tile, handle)
             tr.event("tile.drain", cat="tile", tile=tile.tid)
         if self.faults is not None:
             bad = self.faults.corrupt_tile(arr)

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1, K2, K3) against their plain versions on
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
-(bf16x3), K2 also at the adaptive budgets Nf = 8, 32, 64 with dead rows; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+(bf16x3), at every built width pair and with a coarse and a fine network
+of different formats, K2 also at the adaptive budgets Nf = 8, 32, 64 with
+dead rows; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's. Then NeRF training
 on the card: one QAT train step at the full width against the same step
@@ -146,6 +148,113 @@ def test_k2_at_adaptive_budgets_on_card(n_fine, quantized):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-2 if i == 4 else 5e-3)
 
+# the width pairs the kernels are built for beyond the full NerfConfig:
+# tiny() and the reference kernel tests' sweep (tests/test_kernels.py)
+WIDTH_CONFIGS = {
+    "tiny": dict(trunk_layers=4, trunk_width=64, skip_at=(2,),
+                 color_width=32, pos_freqs=6, dir_freqs=3, n_coarse=16,
+                 n_fine=16),
+    "sweep5": dict(trunk_layers=5, trunk_width=64, skip_at=(2, 4),
+                   color_width=32, pos_freqs=6, dir_freqs=3, n_coarse=16,
+                   n_fine=16),
+    "sweep2": dict(trunk_layers=2, trunk_width=32, skip_at=(1,),
+                   color_width=16, pos_freqs=4, dir_freqs=2, n_coarse=8,
+                   n_fine=8),
+    "full": {},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("formats", ["f32/f32", "rmcm/rmcm", "f32/rmcm",
+                                     "rmcm/f32"])
+@pytest.mark.parametrize("name", sorted(WIDTH_CONFIGS))
+def test_kernels_at_every_width_and_format_on_card(name, formats):
+    """K2 at each built width pair with every (coarse, fine) weight
+    format pair, and K1 in the fine network's format, against their plain
+    versions on the same CUDA tensors: 1e-3 when every network is f32,
+    5e-3 with RMCM, ERT or an alive mask (depth 1e-2, as at full width).
+    The full width runs the mixed pairs only (the same-format pairs are
+    ``test_kernels_match_plain_versions_on_card``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qc, qf = (f == "rmcm" for f in formats.split("/"))
+    if name == "full" and qc == qf:
+        pytest.skip("same-format full width: the full-width test")
+    import dataclasses
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(CONFIG, **WIDTH_CONFIGS[name])
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(2))
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(R, seed=7))
+    alive = (torch.arange(R, device=dev) % 3 != 0).to(torch.float32)
+    packed = {}
+    for n, q in (("coarse", qc), ("fine", qf)):
+        packed[n] = bridge.to_device(ops.kernel_weights(
+            cfg, params[n], rmcm.quantize_tree(params[n]) if q else None),
+            dev)
+    args = (cfg, packed["coarse"], packed["fine"], o, d,
+            *ops.sample_rows(cfg, dev))
+    tol = 5e-3 if (qc or qf) else 1e-3
+    key = fused_plcore.instance_name(cfg, "two_pass_plcore_call", (qc, qf))
+    n0 = fused_plcore.INSTANCE_LAUNCHES.get(key, 0)
+
+    def both(eps, mask):
+        k = fused_plcore.two_pass_plcore_call(*args, rt=RT, ert_eps=eps,
+                                              alive=mask)
+        p = ref.two_pass_ref(*args, rt=R, ert_eps=eps, alive=mask)
+        torch.cuda.synchronize()
+        t = 5e-3 if (eps or mask is not None) else tol
+        for i, (a, b) in enumerate(zip(k, p)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-2 if i == 4 else t)
+        return p
+
+    acc_c = both(0.0, None)[3]
+    eps = _ert_eps_between(acc_c)
+    dead = int((acc_c >= ref.ert_threshold(eps)).sum())
+    assert eps > 0.0 and 0 < dead < R, (eps, dead)
+    both(eps, None)
+    both(0.0, alive)
+    assert fused_plcore.INSTANCE_LAUNCHES[key] == n0 + 3
+
+    t = sampling.stratified(cfg.near, cfg.far, cfg.n_samples, (R,),
+                            device=dev)
+    dl = sampling.deltas_from_t(t)
+    k = fused_plcore.fused_plcore_call(cfg, packed["fine"], o, d, t, dl,
+                                       rt=RT, alive=alive)
+    p = ref.fused_plcore_ref(cfg, packed["fine"], o, d, t, dl, rt=R,
+                             alive=alive)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=5e-3 if qf else 1e-3)
+
+
+@pytest.mark.gpu
+def test_unbuilt_width_pair_raises_on_card():
+    """A width pair the kernels are not built for raises ValueError on the
+    card, naming the built pairs; it never runs the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(CONFIG, trunk_width=128, color_width=64)
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(0))
+    packed = {n: bridge.to_device(ops.kernel_weights(cfg, params[n]), dev)
+              for n in ("coarse", "fine")}
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(8))
+    n0 = dict(fused_plcore.LAUNCHES)
+    with pytest.raises(ValueError, match=r"\(256, 128\), \(64, 32\)"):
+        ops.fused_render_two_pass(cfg, packed, o, d)
+    with pytest.raises(ValueError, match="built for"):
+        fused_plcore.two_pass_plcore_call(
+            cfg, packed["coarse"], packed["fine"], o, d,
+            *ops.sample_rows(cfg, dev), rt=2, ert_eps=0.0)
+    assert dict(fused_plcore.LAUNCHES) == n0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 8, 8), (7, 13, 5), (128, 256, 128),
                                    (64, 300, 96), (33, 512, 65),
@@ -254,21 +363,24 @@ def test_rmcm_matmul_repeats_bit_for_bit_on_card(m, k, n):
         assert torch.equal(k3.rmcm_matmul(x, packed), first)
 
 
-@pytest.mark.gpu
-def test_train_step_on_card_matches_cpu():
-    """One deterministic QAT train step (no generator) at the full
-    ``NerfConfig()`` width on 128 dataset rays, on the card and on the
-    CPU from the same weights, state and batch, TF32 off: loss and
-    metrics within 1e-5 relative; every gradient leaf within 1e-3 of the
-    largest |g| of the whole gradient (the fine pass samples where the
-    resampler puts them, and it amplifies last-ulp differences of the
-    coarse weights; in a run of this test on an H100 a leaf whose own
-    gradients are near zero differed by 1.4e-2 of its own largest |g|,
-    and by 9.4e-7 absolute); the params after the step
-    within 1e-6 (1e-5 relative) wherever |g| exceeds 1e-3 of the largest,
-    since a first Adam step moves a weight by lr * sign(g)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _leaf_paths(tree, prefix=""):
+    """'/'-joined key paths of a nested dict, in ``adam.tree_leaves``'s
+    order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)]
+    return [prefix]
+
+
+def _train_step_on_both(round_resample: bool):
+    """One deterministic QAT train step at the full ``NerfConfig()`` width
+    on 128 dataset rays, on the CPU and on the card from the same weights,
+    state and batch, TF32 off. ``round_resample`` rounds the resampler's
+    input (the detached coarse weights) to bf16 on both sides first, so
+    that last-ulp differences between the two devices' coarse passes do
+    not move fine samples. Returns (cpu, card) tuples of (loss, metrics,
+    grads, params after the step)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = CONFIG
     ocfg = adam.AdamConfig(lr=5e-4, warmup_steps=100, total_steps=1000,
@@ -281,29 +393,116 @@ def test_train_step_on_card_matches_cpu():
         0, ds["rgb"].shape[0], 128))
     batch = {k: v[idx] for k, v in ds.items()}
     dev = torch.device("cuda")
+    importance = sampling.importance
+
+    def rounded(t_mid, weights, n, generator=None):
+        w = weights.to(torch.bfloat16).to(torch.float32)
+        return importance(t_mid, w, n, generator)
+
     out = {}
-    for where, to in (("cpu", lambda t: t),
-                      ("cuda", lambda t: bridge.to_device(t, dev))):
-        grad_fn = nerf_train.value_and_grad(
-            nerf_train.make_nerf_loss(cfg, qat=True))
-        (loss, aux), grads = grad_fn(to(params), to(batch))
-        p1, o1, m = nerf_train.make_nerf_train_step(cfg, ocfg, qat=True)(
-            to(params), to(opt), to(batch))
-        out[where] = (loss, aux, bridge.to_device(grads, "cpu"),
-                      bridge.to_device(p1, "cpu"), m)
-    (lc, ac, gc, pc, mc), (lg, ag, gg, pg, mg) = out["cpu"], out["cuda"]
+    try:
+        if round_resample:
+            sampling.importance = rounded
+        for where, to in (("cpu", lambda t: t),
+                          ("cuda", lambda t: bridge.to_device(t, dev))):
+            grad_fn = nerf_train.value_and_grad(
+                nerf_train.make_nerf_loss(cfg, qat=True))
+            (loss, aux), grads = grad_fn(to(params), to(batch))
+            p1, o1, m = nerf_train.make_nerf_train_step(cfg, ocfg, qat=True)(
+                to(params), to(opt), to(batch))
+            out[where] = (loss, m, bridge.to_device(grads, "cpu"),
+                          bridge.to_device(p1, "cpu"))
+    finally:
+        sampling.importance = importance
+    return out["cpu"], out["cuda"]
+
+
+def _leaf_gaps(gc, gg) -> list:
+    """(path, max |g_card - g_cpu|, largest |g_cpu| of the leaf) per
+    gradient leaf."""
+    return [(path, float((b - a).abs().max()), float(a.abs().max()))
+            for path, a, b in zip(_leaf_paths(gc), adam.tree_leaves(gc),
+                                  adam.tree_leaves(gg))]
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu():
+    """One deterministic QAT train step (no generator) at the full
+    ``NerfConfig()`` width on 128 dataset rays, on the card and on the
+    CPU from the same weights, state and batch, TF32 off: loss and
+    metrics within 1e-5 relative; every gradient leaf within 1e-3 of the
+    largest |g| of the whole gradient (each leaf against its own:
+    ``test_train_step_leaf_gaps_do_not_come_from_the_resampler``); the
+    params after the step within 1e-6 (1e-5 relative) wherever |g|
+    exceeds 1e-3 of the largest, since a first Adam step moves a weight
+    by lr * sign(g). Prints each leaf's gap against its own largest |g|,
+    the worst first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (lc, mc, gc, pc), (lg, mg, gg, pg) = _train_step_on_both(False)
     np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
     for k in mc:
         np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5)
-    scale = max(float(g.abs().max()) for g in adam.tree_leaves(gc))
-    for gcpu, gcard, pcpu, pcard in zip(
-            adam.tree_leaves(gc), adam.tree_leaves(gg),
-            adam.tree_leaves(pc), adam.tree_leaves(pg)):
-        assert float((gcard - gcpu).abs().max()) <= 1e-3 * scale
+    gaps = _leaf_gaps(gc, gg)
+    for path, gap, own in sorted(gaps, key=lambda g: -g[1] / max(g[2], 1e-30)):
+        print(f"leaf {path}: gap {gap:.3e}, own max |g| {own:.3e}, "
+              f"ratio {gap / max(own, 1e-30):.3e}")
+    scale = max(own for _, _, own in gaps)
+    for (path, gap, _), pcpu, pcard, gcpu in zip(
+            gaps, adam.tree_leaves(pc), adam.tree_leaves(pg),
+            adam.tree_leaves(gc)):
+        assert gap <= 1e-3 * scale, (path, gap, scale)
         settled = gcpu.abs() > 1e-3 * scale
         np.testing.assert_allclose(pcard[settled].numpy(),
                                    pcpu[settled].numpy(), atol=1e-6,
                                    rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_step_leaf_gaps_do_not_come_from_the_resampler():
+    """The step twice more, with the resampler's input as it is and
+    rounded to bf16 on both sides (so that no last-ulp difference of the
+    coarse weights moves a fine sample): each leaf's gap against its own
+    largest |g| is printed for both, and the rounding leaves them where
+    they were (the worst leaf the same, its ratio within 20%), so the
+    resampler does not explain them. They sit in the fine trunk, whose
+    own gradients are one to two orders below the largest; before
+    ``rmcm.quantize`` divided exactly on the card they were about twice
+    as large (the RMCM scales differed:
+    ``test_rmcm_quantize_on_card_equals_cpu``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    worst = {}
+    for resample in ("as_is", "rounded_bf16"):
+        (lc, _, gc, _), (lg, _, gg, _) = _train_step_on_both(
+            resample == "rounded_bf16")
+        np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+        ratios = sorted(((gap / max(own, 1e-30), path, gap, own)
+                         for path, gap, own in _leaf_gaps(gc, gg)),
+                        reverse=True)
+        for ratio, path, gap, own in ratios:
+            print(f"{resample} leaf {path}: gap {gap:.3e}, own max |g| "
+                  f"{own:.3e}, ratio {ratio:.3e}")
+        worst[resample] = ratios[0][:2]
+    (r0, p0), (r1, p1) = worst["as_is"], worst["rounded_bf16"]
+    assert p0 == p1 and abs(r1 - r0) <= 0.2 * r0, worst
+
+
+@pytest.mark.gpu
+def test_rmcm_quantize_on_card_equals_cpu():
+    """RMCM quantization of the same weights on the card and on the CPU,
+    bit for bit: scale, magnitudes, signs, and QAT's fake-quant values
+    (the scale is a true division on both; a product with the reciprocal
+    of 255 rounds most scales differently)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.standard_normal((283, 256)).astype(np.float32))
+    wc = w.to("cuda")
+    q, qc = rmcm.quantize(w), rmcm.quantize(wc)
+    for k in ("scale", "mag", "sign"):
+        assert torch.equal(qc[k].cpu(), q[k]), k
+    assert torch.equal(rmcm.fake_quant(wc).cpu(), rmcm.fake_quant(w))
 
 
 @pytest.mark.gpu

@@ -132,6 +132,37 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    reference's gates (training gain >= 3 dB, exact vs RMCM > 20 dB,
    adaptive drop <= 0.1 dB), and the count of memo-dead rays.
 
+15. The paper's SDF workload through K3 (``sdf_phase``, after step 3):
+   the SDF at full width (widths 256 x 4, an rff_iso PEU of 128 features
+   at sigma 2, K = 259) fitted to a sphere of radius 0.5 for 400 Adam
+   steps (plain autograd), RMCM-quantized and packed once
+   (``mlp.pack_quant``); then, counters zeroed just before and read just
+   after, ``eval_grid`` at 128^3 in 65,536-point chunks, ``sphere_trace``
+   of a 128x128 view at 64 steps and ``sdf_normal`` at the hits, every
+   RMCM layer through K3. Held to the plain route (the unpacked tree):
+   distances and t within 5e-3, hit masks equal except rays whose plain
+   distance at their end point lies within a factor 4 of ``hit_eps``.
+   Times per grid and per view of both routes; K3 per layer shape on the
+   workload's activations beside its bound, its plain version and
+   ``torch.matmul`` on the dequantized weight.
+16. The SLF workload through K3 (``slf_phase``): ``make_slf_peu()``
+   defaults (K = 262), widths (256, 256, 128), fitted to
+   ``examples/torch_slf_render.py``'s ``surface_radiance`` for 400 steps,
+   quantized and packed; one 128x128 view through K3 (counters zeroed
+   before, read after) within 5e-3 of the plain route, PSNR of both on
+   the sphere's pixels, the same timings.
+17. The per-cell engine (``percell_engine_phase``, after step 13): step
+   6's trace with every scene's trunk sharded over 8 cells on this card
+   (``plcore_mesh(devices=["cuda:0"] * 8)``, one layer per cell),
+   ``--route-by-shard --percell-dispatch``, traced; K2 once per dispatch
+   on its home cell's stream; stagings equal to the owner table's remote
+   layers; images equal the replicated engine's bit for bit; the check's
+   sharding gates. On one card the staged "remote" layers are on-card
+   copies, counted as the traffic of one device per cell.
+18. Step 4's views also read the board's energy (NVML) over the timed
+   views: ``uj_per_sample_measured`` must be measured (the RMCM + ERT
+   run now serves 3 views).
+
 Every main-path run zeroes the launch counters just before and reads
 them just after; the instances the main path runs (tiny()'s K2 in f32 and
 RMCM and its K1, the full width's K2 in both) must each have launched.
@@ -162,7 +193,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs.nerf_icarus import CONFIG, tiny  # noqa: E402
-from repro_torch.core import nerf_train, plcore, rmcm, sampling  # noqa: E402
+from repro_torch.core import (encoding, mlp, nerf_train, plcore,  # noqa: E402
+                              rmcm, sampling, sdf, slf)
 from repro_torch.core.pipeline import (AdaptiveRenderer,  # noqa: E402
                                        PackedPlcore, build_scene_aux)
 from repro_torch.core.plcore import plcore_decls  # noqa: E402
@@ -172,7 +204,12 @@ from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.serving import loadgen  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
-from repro_torch.optim.adam import AdamConfig, tree_leaves  # noqa: E402
+from repro_torch.optim.adam import (AdamConfig, adam_update,  # noqa: E402
+                                    opt_state_decls, tree_leaves)
+from repro_torch.runtime import sharding  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "examples"))
+import torch_slf_render as slf_example  # noqa: E402
 
 DEV = torch.device("cuda")
 HW = 128
@@ -234,6 +271,21 @@ PSNR_DROP_GATE_DB = 0.1
 # tiny(): 250 QAT steps, 24x24 views; run from three weight draws
 FIG8_TINY_STEPS, FIG8_TINY_HW = 250, 24
 FIG8_TINY_SEEDS = (0, 1, 2)
+# the paper's other workloads through K3: the SDF at the
+# reference's default widths, an rff_iso PEU of 128 features (K = 259),
+# fitted for a few hundred steps so the trace meets a surface; the SLF at
+# make_slf_peu()'s defaults (K = 262) and the reference's widths
+WORKLOAD_TOL = 5e-3
+SDF_WIDTHS = (256, 256, 256, 256)
+SDF_FIT_STEPS, SDF_FIT_POINTS = 400, 8192
+SDF_GRID_RES, SDF_CHUNK = 128, 65536
+SDF_VIEW_HW, SDF_TRACE_STEPS = 128, 64
+SLF_WIDTHS = (256, 256, 128)
+SLF_FIT_STEPS = 400
+SLF_VIEW_HW = 128
+# per-cell dispatch on this one card: 8 cells (one trunk layer each)
+PERCELL_CELLS = 8
+DEV_INDEXED = "cuda:0"
 
 
 def smi(query: str) -> str:
@@ -669,7 +721,8 @@ def k3_phase(peaks: dict) -> dict:
 
 def serve_phase(out_dir: str, extra: list, views: int) -> dict:
     """Main path through the serve entry point; launch counts zeroed just
-    before and read just after."""
+    before and read just after. The board energy per sample over the
+    timed views (``uj_per_sample_measured``, NVML) must be measured."""
     zero_launches()
     stats = serve.main(["--mode", "nerf", "--full", "--kernel",
                         "--fuse-two-pass", "--views", str(views), "--hw",
@@ -678,11 +731,18 @@ def serve_phase(out_dir: str, extra: list, views: int) -> dict:
     assert stats["device"].startswith("cuda"), stats["device"]
     assert stats["weight_packs_since_load"] == 0, stats
     assert launches["two_pass_plcore_call"] >= views, launches
+    uj = stats["uj_per_sample_measured"]
+    assert uj is not None and uj > 0, ("no measured energy", stats)
     for v in stats["views"]:
         assert v["finite"] and v["pixel_std"] > 0, v
     print(f"main path {extra or ['f32']}: launches {launches}, per-view "
-          f"wall_s {[v['wall_s'] for v in stats['views']]}", flush=True)
-    return launches
+          f"wall_s {[v['wall_s'] for v in stats['views']]}, "
+          f"uj_per_sample_measured {uj} ({stats['energy_j_measured']} J over "
+          f"{views} views of {stats['samples']} samples; "
+          f"{smi('name,power.limit')})", flush=True)
+    return {"launches": launches, "uj_per_sample_measured": uj,
+            "energy_j_measured": stats["energy_j_measured"],
+            "wall_s": [v["wall_s"] for v in stats["views"]]}
 
 
 ENGINE_ARGV = ["--mode", "engine", "--full", "--kernel", "--fuse-two-pass",
@@ -697,12 +757,14 @@ def zero_launches() -> None:
             counts[k] = 0
     fused_plcore.K2_LAUNCHES_BY_NF.clear()
     fused_plcore.INSTANCE_LAUNCHES.clear()
+    k3.SHAPE_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
     return {**fused_plcore.LAUNCHES, **k3.LAUNCHES,
             "k2_by_nf": dict(fused_plcore.K2_LAUNCHES_BY_NF),
-            "instances": dict(fused_plcore.INSTANCE_LAUNCHES)}
+            "instances": dict(fused_plcore.INSTANCE_LAUNCHES),
+            "k3_by_shape": dict(k3.SHAPE_LAUNCHES)}
 
 
 def engine_phase(extra: list) -> dict:
@@ -1651,6 +1713,350 @@ def train_phase(cfg, peaks: dict, steps: int = TRAIN_STEPS) -> dict:
             "k2_by_nf": adaptive_launches["k2_by_nf"]}
 
 
+# ------------------------------------------------- SDF and SLF through K3 --
+def adam_fit(decls, loss_of, steps: int, opt_cfg, seed: int):
+    """Fit a generic MLP with plain autograd and the port's Adam (weights
+    from ``torch.Generator().manual_seed(seed)``): ``loss_of(params, i)``
+    is step i's loss. Returns (params on the card, per-step losses)."""
+    params = bridge.to_device(
+        init_params(decls, torch.Generator().manual_seed(seed)), DEV)
+    opt = bridge.to_device(init_params(opt_state_decls(decls, opt_cfg),
+                                       torch.Generator()), DEV)
+    grad_fn = nerf_train.value_and_grad(lambda p, i: (loss_of(p, i), {}))
+    losses = []
+    for i in range(steps):
+        (loss, _), grads = grad_fn(params, i)
+        params, opt, _ = adam_update(opt_cfg, params, grads, opt)
+        losses.append(loss)
+    return params, torch.stack(losses).cpu().numpy()
+
+
+def k3_layer_rows(workload: str, x0: torch.Tensor, params: dict,
+                  quant: dict, packed: dict, launches: dict,
+                  peaks: dict) -> dict:
+    """K3 at each RMCM layer of a generic MLP on real activations (``x0``
+    the PEU output; each next input the plain route's ReLU of this
+    layer's output): the kernel against its plain version (the
+    reference's product on the unpacked weight), both timed with CUDA
+    events beside the bound and one ``torch.matmul`` on the dequantized
+    weight (the weights stay in L2, as in the workload). One row per
+    layer shape, timed at its first layer, its error the largest over its
+    layers; ``launches``: K3's launches at that shape in the workload
+    run."""
+    rows, x, n = {}, x0, len(params)
+    for i in range(n):
+        layer = f"l{i}"
+        qp, qd = packed[layer]["w"], quant[layer]["w"]
+        M, K = x.shape
+        N = qp["mag"].shape[1]
+        shape = f"{M}x{K}x{N}"
+        got = ops.rmcm_matmul(x, qp)
+        want = rmcm.rmcm_matmul_ref(x, qd)
+        err = check(f"K3 {workload} {layer} ({shape})", (got,), (want,),
+                    (WORKLOAD_TOL,))
+        row = rows.get(f"{workload} {shape}")
+        if row is not None:
+            row["layers"].append(layer)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        else:
+            w_dense = rmcm.dequantize(qd)
+            ms, _ = cuda_ms(lambda: ops.rmcm_matmul(x, qp), 20)
+            plain_ms, _ = cuda_ms(lambda: rmcm.rmcm_matmul_ref(x, qd), 20)
+            lib_ms, _ = cuda_ms(lambda: torch.matmul(x, w_dense), 20)
+            b_ms, b_by = bound_ms(3 * 2.0 * M * K * N / peaks["bf16"],
+                                  k3_bytes(x, qp, got))
+            rows[f"{workload} {shape}"] = {
+                "shape_mkn": [M, K, N], "layers": [layer],
+                "route": k3.route(M), "launches": launches.get(shape, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            print(f"K3 {workload} {shape}: {ms:.4f} ms (bound {b_ms:.4f} ms "
+                  f"by {b_by}, {100 * b_ms / ms:.1f}% of it; plain "
+                  f"{plain_ms:.4f} ms; torch.matmul on the dequantized "
+                  f"weight {lib_ms:.4f} ms)", flush=True)
+        y = want + params[layer]["b"]
+        x = torch.relu(y) if i < n - 1 else y
+    return rows
+
+
+def sdf_phase(peaks: dict) -> dict:
+    """The paper's SDF workload at full width (``SDF_WIDTHS``, rff_iso PEU
+    of 128 features at sigma 2, K = 259): fitted to ``sphere_sdf`` (radius
+    0.5) for ``SDF_FIT_STEPS`` Adam steps on ``SDF_FIT_POINTS`` points in
+    [-1.2, 1.2]^3 a step (plain autograd), then RMCM-quantized and packed
+    once. The workload run, counters zeroed just before it and read just
+    after: ``eval_grid`` at resolution 128 (2,097,152 points in
+    65,536-point chunks), ``sphere_trace`` of a 128x128 view at 64 steps,
+    ``sdf_normal`` at the hits, every RMCM layer through K3. The plain
+    route (the unpacked tree) of the same work: distances and t within
+    5e-3, hit masks equal except for rays whose plain distance at their
+    end point lies within a factor 4 of ``hit_eps`` (counted). Times per
+    grid and per view of both routes, K3 per layer shape
+    (``k3_layer_rows``)."""
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    peu = encoding.PEU("rff_iso", 3, n_features=128, sigma=2.0,
+                       generator=gen, device=DEV)
+    decls = sdf.sdf_decls(peu, widths=SDF_WIDTHS)
+    fit_pts = (torch.rand((SDF_FIT_STEPS, SDF_FIT_POINTS, 3), generator=gen,
+                          device=DEV) * 2.4 - 1.2)
+    opt_cfg = AdamConfig(lr=1e-3, warmup_steps=20, total_steps=SDF_FIT_STEPS,
+                         weight_decay=0.0)
+    t0 = time.perf_counter()
+    params, losses = adam_fit(
+        decls, lambda p, i: torch.mean(torch.square(
+            sdf.sdf_eval(peu, p, fit_pts[i])
+            - sdf.sphere_sdf(fit_pts[i], radius=0.5))),
+        SDF_FIT_STEPS, opt_cfg, seed=17)
+    fit_s = time.perf_counter() - t0
+    fit_loss = float(losses[-10:].mean())
+    assert np.isfinite(losses).all() and fit_loss < 2e-3, (
+        "SDF fit", losses[:3], fit_loss)
+    quant = rmcm.quantize_tree(params)
+    packed = mlp.pack_quant(quant)
+    hw, steps, t_max, hit_eps = SDF_VIEW_HW, SDF_TRACE_STEPS, 4.0, 1e-3
+    ro, rd = rays.camera_rays(rays.pose_spherical(30.0, -20.0, 2.0), hw, hw,
+                              0.9 * hw)
+    ro, rd = ro.reshape(-1, 3).to(DEV), rd.reshape(-1, 3).to(DEV)
+
+    def run(q):
+        grid = sdf.eval_grid(peu, params, SDF_GRID_RES, chunk=SDF_CHUNK,
+                             quant=q)
+        t, hit = sdf.sphere_trace(peu, params, ro, rd, n_steps=steps,
+                                  t_max=t_max, hit_eps=hit_eps, quant=q)
+        pts = (ro + t[:, None] * rd)[hit]
+        normal = sdf.sdf_normal(peu, params, pts, quant=q)
+        return grid, t, hit, normal
+
+    zero_launches()
+    grid, t, hit, normal = run(packed)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    grid_p, t_p, hit_p, normal_p = run(quant)
+    torch.cuda.synchronize()
+    n_layers = len(params)
+    n_hit = int(hit.sum())
+    expect = n_layers * (-(-SDF_GRID_RES ** 3 // SDF_CHUNK) + steps
+                         + (6 if n_hit else 0))
+    assert launches["rmcm_matmul"] == expect, (launches, expect)
+    assert launches["two_pass_plcore_call"] == 0, launches
+    grid_err = check("SDF grid K3 vs plain", (grid,), (grid_p,),
+                     (WORKLOAD_TOL,))
+    # rays whose hit status may rightly differ: the plain distance at
+    # either route's end point within a factor 4 of hit_eps
+    end_d = torch.minimum(
+        sdf.sdf_eval(peu, params, ro + t[:, None] * rd, quant).abs(),
+        sdf.sdf_eval(peu, params, ro + t_p[:, None] * rd, quant).abs())
+    borderline = (end_d > hit_eps / 4) & (end_d < 4 * hit_eps)
+    flips = hit != hit_p
+    assert not bool((flips & ~borderline).any()), int(flips.sum())
+    agree = ~flips & ~borderline
+    t_err = check("SDF trace t K3 vs plain", (t[agree],), (t_p[agree],),
+                  (WORKLOAD_TOL,))
+    hit_frac = n_hit / hit.numel()
+    assert 0.05 < hit_frac < 0.95, ("the trace hits no surface", hit_frac)
+    # the analytic sphere's intersection at the hits
+    b = torch.sum(ro * rd, -1)
+    t_true = -b - torch.sqrt(torch.clamp(b * b - (ro * ro).sum(-1) + 0.25,
+                                         min=0.0))
+    t_vs_sphere = float((t - t_true)[hit].abs().median())
+    both = hit & hit_p
+    normal_err = float((normal - normal_p).abs().max()) if n_hit else 0.0
+    assert bool(torch.isfinite(normal).all()), "non-finite normals"
+    grid_ms, _ = cuda_ms(lambda: sdf.eval_grid(
+        peu, params, SDF_GRID_RES, chunk=SDF_CHUNK, quant=packed), 2)
+    grid_plain_ms, _ = cuda_ms(lambda: sdf.eval_grid(
+        peu, params, SDF_GRID_RES, chunk=SDF_CHUNK, quant=quant), 2)
+    view_ms, _ = cuda_ms(lambda: sdf.sphere_trace(
+        peu, params, ro, rd, n_steps=steps, t_max=t_max, quant=packed), 2)
+    view_plain_ms, _ = cuda_ms(lambda: sdf.sphere_trace(
+        peu, params, ro, rd, n_steps=steps, t_max=t_max, quant=quant), 2)
+    chunk_pts = torch.stack(torch.meshgrid(
+        *[torch.linspace(-1.0, 1.0, SDF_GRID_RES, device=DEV)] * 3,
+        indexing="ij"), -1).reshape(-1, 3)[:SDF_CHUNK]
+    layer_rows = k3_layer_rows("sdf_grid", peu(chunk_pts), params, quant,
+                               packed, launches["k3_by_shape"], peaks)
+    layer_rows.update(k3_layer_rows("sdf_trace", peu(ro), params, quant,
+                                    packed, launches["k3_by_shape"], peaks))
+    summary = {
+        "widths": list(SDF_WIDTHS), "peu": "rff_iso 128 features sigma 2",
+        "k": peu.out_dim, "fit_steps": SDF_FIT_STEPS,
+        "fit_points": SDF_FIT_POINTS, "fit_loss": fit_loss, "fit_s": fit_s,
+        "grid_points": SDF_GRID_RES ** 3, "grid_chunk": SDF_CHUNK,
+        "view": f"{hw}x{hw}", "trace_steps": steps, "hit_fraction": hit_frac,
+        "borderline_rays": int(borderline.sum()),
+        "hit_flips": int(flips.sum()),
+        "t_median_abs_vs_analytic_sphere": t_vs_sphere,
+        "grid_max_abs_err": grid_err, "t_max_abs_err": t_err,
+        "normal_max_abs_err": normal_err, "hits_both": int(both.sum()),
+        "k3_launches": launches["rmcm_matmul"],
+        "k3_launches_by_shape": launches["k3_by_shape"],
+        "grid_ms": grid_ms, "grid_plain_ms": grid_plain_ms,
+        "view_ms": view_ms, "view_plain_ms": view_plain_ms,
+        "k3_layers": layer_rows, "launches": launches,
+        "card": smi("name,power.limit")}
+    print(f"sdf: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def slf_phase(peaks: dict) -> dict:
+    """The paper's SLF workload at full width: ``make_slf_peu()`` defaults
+    (rff_aniso, 128 features, sigmas 8 and 1, K = 262), widths (256, 256,
+    128), fitted to ``examples/torch_slf_render.py``'s
+    ``surface_radiance`` (``SLF_FIT_STEPS`` Adam steps on 4096 surface
+    samples, plain autograd), then RMCM-quantized and packed once. One
+    128x128 view (the example's camera) through K3, counters zeroed just
+    before and read just after, against the plain route within 5e-3;
+    PSNR of both against the analytic radiance on the sphere's pixels.
+    Times per view and K3 per layer shape."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    peu = slf.make_slf_peu(gen, device=DEV)
+    decls = slf.slf_decls(peu, widths=SLF_WIDTHS)
+    opt_cfg = AdamConfig(lr=1e-3, warmup_steps=20, total_steps=SLF_FIT_STEPS,
+                         weight_decay=0.0)
+    t0 = time.perf_counter()
+    params, losses = adam_fit(
+        decls, lambda p, i: slf.slf_loss(
+            peu, p, slf_example.surface_batch(4096, gen)),
+        SLF_FIT_STEPS, opt_cfg, seed=23)
+    fit_s = time.perf_counter() - t0
+    assert (np.isfinite(losses).all()
+            and losses[-10:].mean() < losses[:10].mean() / 4), (
+        "SLF fit", losses[:3], losses[-3:])
+    quant = rmcm.quantize_tree(params)
+    packed = mlp.pack_quant(quant)
+    hw = SLF_VIEW_HW
+    ro, rd = rays.camera_rays(rays.pose_spherical(40.0, -15.0, 3.0), hw, hw,
+                              1.4 * hw)
+    ro, rd = ro.reshape(-1, 3).to(DEV), rd.reshape(-1, 3).to(DEV)
+    t, hit = slf_example.ray_sphere(ro, rd)
+    p = ro + t[..., None] * rd
+    zero_launches()
+    rgb = slf.slf_eval(peu, params, p, rd, quant=packed)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches["rmcm_matmul"] == len(params), launches
+    rgb_p = slf.slf_eval(peu, params, p, rd, quant=quant)
+    err = check("SLF view K3 vs plain", (rgb,), (rgb_p,), (WORKLOAD_TOL,))
+    gt = slf_example.surface_radiance(p, rd)
+
+    def hit_psnr(img):
+        mse = float((torch.square(img - gt) * hit[:, None]).sum()
+                    / max(int(hit.sum()) * 3, 1))
+        return -10.0 * math.log10(max(mse, 1e-12))
+    view_ms, _ = cuda_ms(lambda: slf.slf_eval(peu, params, p, rd,
+                                              quant=packed), 10)
+    view_plain_ms, _ = cuda_ms(lambda: slf.slf_eval(peu, params, p, rd,
+                                                    quant=quant), 10)
+    x0 = peu(torch.cat([p, rd], -1))
+    summary = {
+        "widths": list(SLF_WIDTHS),
+        "peu": "rff_aniso 128 features, sigmas 8 (point) and 1 (direction)",
+        "k": peu.out_dim, "fit_steps": SLF_FIT_STEPS,
+        "fit_loss": float(losses[-10:].mean()), "fit_s": fit_s,
+        "view": f"{hw}x{hw}", "hit_pixels": int(hit.sum()),
+        "max_abs_err": err, "psnr_k3_vs_analytic": hit_psnr(rgb),
+        "psnr_plain_vs_analytic": hit_psnr(rgb_p),
+        "k3_launches": launches["rmcm_matmul"],
+        "k3_launches_by_shape": launches["k3_by_shape"],
+        "view_ms": view_ms, "view_plain_ms": view_plain_ms,
+        "k3_layers": k3_layer_rows("slf_view", x0, params, quant, packed,
+                                   launches["k3_by_shape"], peaks),
+        "launches": launches, "card": smi("name,power.limit")}
+    print(f"slf: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+# ------------------------------------------------------ per-cell engine --
+def percell_engine_phase() -> dict:
+    """The engine phase's trace at full width with every scene's trunk
+    sharded over 8 cells on this one card (``plcore_mesh(devices=[cuda:0]
+    * 8)``: one trunk layer per cell), ``--route-by-shard
+    --percell-dispatch``, depth 2, traced: counters zeroed just before the
+    run and read just after (K2 once per dispatch, on the home cell's own
+    stream). Its images equal the replicated engine's on the same trace
+    bit for bit; the check's gates (depth 1, unrouted and mesh-wide
+    routed reruns, per-cell tiles, stagings, cross-cell concurrency).
+    Reports the ``percell_report``, the gather and stage counters against
+    the owner table, rays/s beside the replicated engine's (cold, then the
+    trace again on the warm engines in turns: replicated, per-cell,
+    per-cell, replicated), the device busy share from the trace and the
+    host time of the traced ``plcore.dispatch`` and ``plcore.stage``
+    spans."""
+    trace_out = ROOT / "build" / "percell_trace.json"
+    args = serve.build_parser().parse_args(
+        ENGINE_ARGV + ["--shard-weights", "--route-by-shard",
+                       "--percell-dispatch", "--trace-out", str(trace_out)])
+    mesh = sharding.plcore_mesh(devices=[DEV_INDEXED] * PERCELL_CELLS)
+    L = CONFIG.trunk_layers
+    stage0 = (sharding.plcore_stage_count(), sharding.plcore_stage_bytes())
+    gather0 = (sharding.plcore_gather_count(), sharding.plcore_gather_bytes())
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args, shard_mesh=mesh)
+    launches = read_launches()
+    stages = (sharding.plcore_stage_count() - stage0[0],
+              sharding.plcore_stage_bytes() - stage0[1])
+    gathers = (sharding.plcore_gather_count() - gather0[0],
+               sharding.plcore_gather_bytes() - gather0[1])
+    st, pc = report["engine"], report["percell"]
+    assert report["weight_shards"] == PERCELL_CELLS == L, report
+    assert launches["two_pass_plcore_call"] == st["dispatches"], (
+        launches, st)
+    assert launches["fused_plcore_call"] == 0, launches
+    assert pc["percell_tiles"] == st["dispatches"], pc
+    assert st["plcore_gather_count"] == 0, st
+    # staging against the owner table: each scene stages into its home
+    # cell once, every layer it does not own, per stacked array (trunk_w,
+    # trunk_b and the tensor-core stream) of both networks
+    homes = {s: sharding.plcore_home_cell(mesh, L, s)
+             for s in sorted({item.request.scene_id for item in trace})}
+    owned = sharding.plcore_owner_table(mesh, L).sum(1)
+    want_layers = sum(2 * 3 * (L - int(owned[c])) for c in homes.values())
+    assert pc["stage_events"] == len(homes), (pc, homes)
+    assert pc["stage_layers"] == stages[0] == want_layers, (
+        pc, stages, want_layers)
+    assert gathers == (0, 0), gathers
+    obs = report["observability"]
+    busy = obs["device_busy"]
+    assert busy["kernel_spans"] == st["dispatches"], busy
+    # the replicated engine on the same trace: bit for bit
+    base_args = serve.build_parser().parse_args(ENGINE_ARGV)
+    base_report, base, _, _ = serve.run_engine(base_args)
+    n_cmp = serve.compare_images(engine, base, "replicated engine")
+    assert all(r.fallbacks == 0 for r in engine.completed.values())
+    compared = serve.check_engine(args, report, engine, rerun)
+    events = json.loads(trace_out.read_text())["traceEvents"]
+    host_ms = {name: sum(e["dur"] for e in events
+                         if e["name"] == name and e["ph"] == "X") / 1e3
+               for name in ("plcore.dispatch", "plcore.stage")}
+    warm = {"replicated": [], "percell": []}
+    for label, eng in (("replicated", base), ("percell", engine),
+                       ("percell", engine), ("replicated", base)):
+        rays0 = eng.stats["rays_rendered"]
+        t0 = time.perf_counter()
+        loadgen.run_trace(eng, trace, mode=args.loop,
+                          concurrency=args.concurrency)
+        warm[label].append((eng.stats["rays_rendered"] - rays0)
+                           / (time.perf_counter() - t0))
+    summary = {
+        "cells": PERCELL_CELLS, "cell_devices": sorted({str(d) for d in mesh}),
+        "note": "one card: every cell is cuda:0 with its own stream; the "
+                "staged 'remote' layers are on-card copies, counted as "
+                "the traffic one device per cell would pay",
+        "homes": homes, "percell": pc, "stage_layers": stages[0],
+        "stage_bytes": stages[1], "stage_layers_owner_table": want_layers,
+        "rays_per_s": report["rays_per_s"],
+        "replicated_rays_per_s": base_report["rays_per_s"],
+        "wall_s": report["wall_s"], "replicated_wall_s": base_report["wall_s"],
+        "warm_rays_per_s": warm, "host_ms_traced": host_ms,
+        "latency_ms": report["latency_ms"],
+        "max_in_flight": st["max_in_flight"], "dispatches": st["dispatches"],
+        "device_busy": busy, "integrity_ok": obs["integrity"]["ok"],
+        "images_equal_replicated": n_cmp, "check_compared": compared,
+        "launches": launches, "card": smi("name,power.limit")}
+    print(f"percell engine: {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1673,15 +2079,18 @@ def main() -> None:
     width_rows = width_phase(peaks)
 
     k3_row = k3_phase(peaks)
+    sdf_run = sdf_phase(peaks)
+    slf_run = slf_phase(peaks)
 
     out_dir = str(ROOT / "chiprun_out" / "smoke_views")
-    main_launches = serve_phase(out_dir, [], 3)
-    rmcm_launches = serve_phase(out_dir, ["--rmcm", "--ert", "0.01"], 1)
+    main_serve = serve_phase(out_dir, [], 3)
+    rmcm_serve = serve_phase(out_dir, ["--rmcm", "--ert", "0.01"], 3)
     tiny_serve = tiny_serve_phase(out_dir + "/tiny")
     oracle_launches = oracle_phase(cfg, params)
     clean = engine_phase([])
     chaos = engine_phase(["--inject-faults"])
     traced = traced_engine_phase()
+    percell = percell_engine_phase()
     budgets = budget_phase(cfg, params, peaks)
     view = adaptive_view_phase(cfg, params)
     adaptive = adaptive_engine_phase()
@@ -1690,11 +2099,13 @@ def main() -> None:
 
     k2 = "two_pass_plcore_call"
     # every main-path run: counters zeroed just before, read just after
-    runs = [main_launches, rmcm_launches, tiny_serve["f32"]["launches"],
+    runs = [main_serve["launches"], rmcm_serve["launches"],
+            tiny_serve["f32"]["launches"],
             tiny_serve["rmcm_ert"]["launches"], tiny_serve["tiled"]["launches"],
             clean["launches"], traced["launches"], view["launches"],
             adaptive["launches"], fig8_tiny["launches"],
-            trained["launches"]]
+            trained["launches"], sdf_run["launches"], slf_run["launches"],
+            percell["launches"]]
     main_path = {k: sum(r[k] for r in runs)
                  for k in ("fused_plcore_call", k2, "rmcm_matmul")}
     instances: dict = {}
@@ -1748,9 +2159,18 @@ def main() -> None:
                                  "weight tiles by TMA; large_m or small_m "
                                  "(split K) by M",
                     "replaces": REPLACES["rmcm_matmul"],
-                    "launches_on": "rmcm_matmul entry point",
-                    "main_path_launches": main_path["rmcm_matmul"],
-                    **k3_row})
+                    **k3_row,
+                    "launches_on": "the SDF (grid, trace, normals) and SLF "
+                                   "(view) workloads' RMCM layers",
+                    "launches": main_path["rmcm_matmul"],
+                    "entry_point_launches": k3_row["launches"]})
+    for workload in (sdf_run, slf_run):
+        for label, row in workload["k3_layers"].items():
+            kernels.append({"name": f"rmcm_matmul[{label}]", "route": "cuda",
+                            "source": SOURCE["rmcm_matmul"],
+                            "replaces": REPLACES["rmcm_matmul"],
+                            "launches_on": "launches at this shape in the "
+                                           "workload run", **row})
     # the instances the main path runs: tiny()'s K2 (serve without
     # --full, f32 and RMCM), its K1 (serve --tiled), the full width's K2
     tiny_cfg = tiny()
@@ -1762,7 +2182,17 @@ def main() -> None:
                  fused_plcore.instance_name(cfg, k2, (True, True))):
         assert instances.get(inst, 0) >= 1, (inst, instances)
     print(json.dumps({"engine": {"clean": clean, "chaos": chaos,
-                                 "adaptive": adaptive, "traced": traced},
+                                 "adaptive": adaptive, "traced": traced,
+                                 "percell": percell},
+                      "serve_energy": {
+                          "f32": {k: v for k, v in main_serve.items()
+                                  if k != "launches"},
+                          "rmcm_ert": {k: v for k, v in rmcm_serve.items()
+                                       if k != "launches"}},
+                      "sdf": {k: v for k, v in sdf_run.items()
+                              if k not in ("k3_layers", "launches")},
+                      "slf": {k: v for k, v in slf_run.items()
+                              if k not in ("k3_layers", "launches")},
                       "tiny_serve": tiny_serve, "adaptive_view": view,
                       "train": trained["summary"], "fig8": trained["fig8"],
                       "fig8_tiny": fig8_tiny,

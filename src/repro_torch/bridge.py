@@ -6,11 +6,18 @@ plain arrays for vectors). Handed over as numpy arrays, they become the
 port's tensors under the same key paths, with the same dtypes (float32,
 uint8 magnitudes, bool signs), bit for bit. Only numpy crosses: this module
 imports neither the reference package nor its framework.
+
+``mlp_from_numpy`` and ``peu_from_numpy`` carry a generic coordinate MLP
+(its params, its RMCM quant tree, packed for K3 on request) and a PEU's
+frequency matrix across, so that both packages evaluate the same SDF or
+SLF network.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.encoding import PEU
 
 
 def to_torch(tree, device=None):
@@ -50,3 +57,26 @@ def to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+def mlp_from_numpy(params, quant=None, device=None, pack: bool = False):
+    """A generic MLP's ``params`` and optional RMCM ``quant`` tree (nested
+    dicts of numpy arrays, the reference's ``quantize_tree`` layout) ->
+    ``(params, quant)`` as tensors on ``device``; ``pack`` packs the quant
+    tree for the K3 route (``core.mlp.pack_quant``)."""
+    from repro_torch.core.mlp import pack_quant
+    p = to_torch(params, device)
+    q = None if quant is None else to_torch(quant, device)
+    if q is not None and pack:
+        q = pack_quant(q)
+    return p, q
+
+
+def peu_from_numpy(mode: str, in_dim: int, A, *, include_input: bool = True,
+                   device=None) -> PEU:
+    """A random-feature PEU (``rff_iso`` or ``rff_aniso``) on a frequency
+    matrix ``A`` (in_dim, F) handed over as data, e.g. the reference's
+    ``PEU.A``: its keyed draw cannot be repeated by a ``torch.Generator``."""
+    A = np.asarray(A, np.float32)
+    return PEU(mode, in_dim, n_features=A.shape[1], A=A,
+               include_input=include_input, device=device)

@@ -8,7 +8,12 @@ RMCM weights (``quant``); the sigma and rgb heads (SONB) stay exact f32.
 
 ``mlp_decls`` / ``mlp_apply``: the generic coordinate MLP (ReLU between
 layers, an optional final activation) that the SDF and SLF workloads use;
-each layer's matmul may read RMCM weights.
+each layer's matmul may read RMCM weights. ``pack_quant`` packs a generic
+MLP's quant tree once at load (``rmcm.pack`` per layer: signs 8 per byte
+along K); ``mlp_apply`` sends a packed layer on the card through K3
+(``kernels.ops.rmcm_matmul``) and on the CPU through the plain product of
+the unpacked weight, the reference's ``rmcm_matmul_ref``. The NeRF MLP
+keeps the plain product: it is the in-package oracle of K1 and K2.
 """
 from __future__ import annotations
 
@@ -111,6 +116,30 @@ def nerf_mlp_apply(cfg: NerfConfig, params: dict, pe_pos, pe_dir,
 
 
 # ----------------------------------------------------- generic coordinate MLP
+def pack_quant(quant: dict) -> dict:
+    """A generic MLP's RMCM quant tree (``rmcm.quantize_tree`` of its
+    params) -> the same tree with every layer's weight in ``rmcm.pack``'s
+    storage form (uint8 magnitudes, signs 8 per byte along K, per-column
+    scales): the load-time pack of the K3 route, done once."""
+    return {name: {**layer, "w": rmcm.pack(layer["w"])}
+            for name, layer in quant.items()}
+
+
+def _mlp_matmul(x, layer, quant_layer):
+    """One linear of the generic MLP. A packed RMCM weight runs through
+    K3 on the card and through the plain product of its unpacked weight on
+    the CPU; an unpacked one takes the plain product everywhere."""
+    qw = None if quant_layer is None else quant_layer["w"]
+    if qw is None or "sign_bits" not in qw:
+        return _matmul(x, layer, quant_layer)
+    if x.device.type == "cuda":
+        from repro_torch.kernels import ops
+        y = ops.rmcm_matmul(x, qw)
+    else:
+        y = rmcm.rmcm_matmul_ref(x, rmcm.unpack(qw))
+    return y + layer["b"]
+
+
 def mlp_decls(in_dim: int, widths: Sequence[int], out_dim: int) -> dict:
     dims = [in_dim, *widths, out_dim]
     return {f"l{i}": _linear(dims[i], dims[i + 1])
@@ -120,11 +149,12 @@ def mlp_decls(in_dim: int, widths: Sequence[int], out_dim: int) -> dict:
 def mlp_apply(params: dict, x, quant: Optional[dict] = None,
               final_activation=None):
     """x (..., in_dim) -> (..., out_dim): every layer a linear (RMCM where
-    ``quant`` has the layer), ReLU between them, ``final_activation`` (a
-    callable) after the last."""
+    ``quant`` has the layer; a ``pack_quant`` layer through K3 on the
+    card), ReLU between them, ``final_activation`` (a callable) after the
+    last."""
     n = len(params)
     for i in range(n):
-        x = _matmul(x, params[f"l{i}"], (quant or {}).get(f"l{i}"))
+        x = _mlp_matmul(x, params[f"l{i}"], (quant or {}).get(f"l{i}"))
         if i < n - 1:
             x = torch.relu(x)
     return final_activation(x) if final_activation else x

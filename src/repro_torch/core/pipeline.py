@@ -18,6 +18,12 @@
   ``render_tile_oracle`` renders the tile through the two-dispatch kernel
   chain, the fallback of a retry ladder. ``budget=`` renders a tile at an
   adaptive fine-sample count, ``alive=`` masks dead rows out of K2.
+* ``PackedPlcore(shard_mesh=...)`` — the trunk weight stacks layer-sharded
+  over a cell list (``runtime.sharding``): renders gather them
+  (``_materialize``), ``tile_gather_cost(home_cell)`` prices the layers a
+  routed tile's home cell does not own, and ``dispatch_tile(percell=True)``
+  runs a tile on its home cell against weights staged there once
+  (``cell_view``, ``render_tile_cell``), on the cell's own CUDA stream.
 * ASDR, adaptive sampling: ``build_scene_aux`` (the load-time density
   probe), ``trunk_rows`` (coarse-trunk rows for the memo),
   ``recon_rows`` (dead rays' pixels from memo rows) and
@@ -26,6 +32,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from contextlib import contextmanager
@@ -96,33 +103,102 @@ class TileHandle:
                 anchor.elapsed_time(self.end) / 1e3)
 
 
+def _materialize(cfg: NerfConfig, params, quant, packed, shard_mesh,
+                 use_kernel: bool, device, count: bool):
+    """The weights a render computes with when they are layer-sharded over
+    a cell list: every trunk stack gathered onto ``device`` layer by layer
+    (``runtime.sharding.gather_plcore_packed``; its counters tick when
+    ``count``). The kernel path reads the gathered layout; the plain path
+    rebuilds the per-layer trunk params (and RMCM quant dicts) from it,
+    losslessly (``unstack_trunk_params``), so both render the replicated
+    pixels bit for bit. Without a cell list the weights pass through."""
+    if shard_mesh is None:
+        return params, quant, packed
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import sharding as rsh
+    gathered = {net: rsh.gather_plcore_packed(p, device, count)
+                for net, p in packed.items()}
+    if use_kernel:
+        return params, quant, gathered
+    new_p: dict = {}
+    new_q = None if quant is None else {}
+    for net, g in gathered.items():
+        trunk_p, trunk_q = kops.unstack_trunk_params(cfg, g)
+        new_p[net] = {**params[net], "trunk": trunk_p}
+        if new_q is not None:
+            new_q[net] = {**quant[net], "trunk": trunk_q}
+    return new_p, new_q, None
+
+
 class PackedPlcore:
     """A loaded PLCore: params + optional RMCM quantization + the kernel
     weight layout, packed once at construction and kept on ``device``
-    (default ``"cuda"``; without a card only an explicit ``"cpu"`` works)."""
+    (default ``"cuda"``; without a card only an explicit ``"cpu"`` works).
+
+    ``shard_mesh``: a cell list (``runtime.sharding.plcore_mesh``) over
+    which the trunk weight stacks shard layer-wise. The sharded stacks
+    are then the only resident trunk copy (the raw trunk params are
+    dropped, so each cell holds about 1/n of the trunk), and every render
+    re-gathers the layers onto ``device`` (default: the first cell's)
+    with the same pixels bit for bit. With a cell list the weights are
+    packed even without ``use_kernel``: the plain path keeps only the
+    trunk stacks of the layout and rebuilds its trunk params from them.
+    Routed tiles can instead run on their home cell against a staged copy
+    (``cell_view``, ``render_tile_cell``, ``dispatch_tile(percell=True)``),
+    each cell's launches on its own CUDA stream."""
 
     def __init__(self, cfg: NerfConfig, params: dict, *,
                  quant: Optional[dict] = None, use_kernel: bool = False,
                  fuse_two_pass: bool = False,
-                 ert_eps: Optional[float] = None, device=None):
+                 ert_eps: Optional[float] = None, device=None,
+                 shard_mesh=None):
         if fuse_two_pass and not use_kernel:
             raise ValueError("fuse_two_pass routes through the fused kernel "
                              "— pass use_kernel=True")
         self.cfg = cfg
+        self.shard_mesh = None if shard_mesh is None else tuple(shard_mesh)
+        if device is None and self.shard_mesh is not None:
+            device = self.shard_mesh[0]
         self.device = resolve_device(device, "PackedPlcore")
         self.use_kernel = use_kernel
         self.fuse_two_pass = fuse_two_pass
         self.ert_eps = cfg.ert_eps if ert_eps is None else float(ert_eps)
-        self.params = to_device(params, self.device)
-        self.quant = None if quant is None else to_device(quant, self.device)
-        self.packed = None
-        if use_kernel:
+        self._gather_costs: dict = {}   # home cell -> tile_gather_cost
+        self._cell_views: dict = {}     # cell -> staged per-cell view
+        params = to_device(params, self.device)
+        quant = None if quant is None else to_device(quant, self.device)
+        packed = None
+        if use_kernel or self.shard_mesh is not None:
             from repro_torch.kernels import ops as kops
-            q = self.quant or {}
-            self.packed = {
-                net: kops.kernel_weights(cfg, self.params[net],
-                                               q.get(net))
-                for net in ("coarse", "fine")}
+            q = quant or {}
+            pack = kops.kernel_weights if use_kernel else \
+                kops.stack_plcore_weights
+            packed = {net: pack(cfg, params[net], q.get(net))
+                      for net in ("coarse", "fine")}
+        if self.shard_mesh is not None:
+            from repro_torch.runtime import sharding as rsh
+            if not use_kernel:
+                # the plain path reads only the trunk stacks of the layout
+                # (its heads render from the raw params kept below)
+                packed = {net: {k: v for k, v in p.items()
+                                if k.startswith("trunk")}
+                          for net, p in packed.items()}
+            # the program shape whose first render counts the gathers
+            self._layout = tuple(
+                (net, k, tuple(v.shape), str(v.dtype))
+                for net, p in packed.items() for k, v in sorted(p.items()))
+            packed = {net: rsh.shard_plcore_packed(p, self.shard_mesh, cfg)
+                      for net, p in packed.items()}
+            # the sharded stacks are the only trunk residency now
+            params = {net: {k: v for k, v in params[net].items()
+                            if k != "trunk"} for net in ("coarse", "fine")}
+            if quant is not None:
+                quant = {net: {k: v for k, v in quant[net].items()
+                               if k != "trunk"}
+                         for net in ("coarse", "fine")}
+        self.params = params
+        self.quant = quant
+        self.packed = packed
 
     def _rays(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -130,22 +206,40 @@ class PackedPlcore:
     def _eps(self, ert_eps: Optional[float]) -> float:
         return self.ert_eps if ert_eps is None else float(ert_eps)
 
+    def _weights(self, *program):
+        """(params, quant, packed) to render with: as resident, or gathered
+        from the cell list (``_materialize``), the gathers counted the first
+        time this program shape runs."""
+        if self.shard_mesh is None:
+            return self.params, self.quant, self.packed
+        from repro_torch.runtime import sharding as rsh
+        count = rsh.note_program((program, self.cfg, self.use_kernel,
+                                  self.fuse_two_pass, self.shard_mesh,
+                                  self._layout))
+        return _materialize(self.cfg, self.params, self.quant, self.packed,
+                            self.shard_mesh, self.use_kernel, self.device,
+                            count)
+
     def render_rays(self, rays_o, rays_d, generator=None, *,
                     ert_eps: Optional[float] = None) -> dict:
         """Render one ray batch (R, 3) -> {rgb, rgb_coarse, depth, acc}."""
+        eps = self._eps(ert_eps)
+        params, quant, packed = self._weights("rays", eps)
         return plcore.render_rays(
-            self.cfg, self.params, self._rays(rays_o), self._rays(rays_d),
-            generator, quant=self.quant, packed=self.packed,
+            self.cfg, params, self._rays(rays_o), self._rays(rays_d),
+            generator, quant=quant, packed=packed,
             use_kernel=self.use_kernel, fuse_two_pass=self.fuse_two_pass,
-            ert_eps=self._eps(ert_eps), white_bkgd=True)
+            ert_eps=eps, white_bkgd=True)
 
     def render_image(self, rays_o, rays_d, *, rays_per_batch: int = 4096,
                      ert_eps: Optional[float] = None) -> torch.Tensor:
+        eps = self._eps(ert_eps)
+        params, quant, packed = self._weights("image", eps)
         return render_image_single(
-            self.cfg, self.params, self._rays(rays_o), self._rays(rays_d),
-            quant=self.quant, packed=self.packed,
+            self.cfg, params, self._rays(rays_o), self._rays(rays_d),
+            quant=quant, packed=packed,
             use_kernel=self.use_kernel, fuse_two_pass=self.fuse_two_pass,
-            rays_per_batch=rays_per_batch, ert_eps=self._eps(ert_eps))
+            rays_per_batch=rays_per_batch, ert_eps=eps)
 
     def render_tile(self, o_tile, d_tile, ert_eps: Optional[float] = None,
                     coarse_only: bool = False, budget: Optional[int] = None,
@@ -157,40 +251,52 @@ class PackedPlcore:
         budget`` (K2 gets that config, so ``sample_rows`` gives it the
         budget's resample grid); ``alive`` is an optional (n,) dead-row
         mask, 0 = dead, for the fused path."""
-        o, d = self._rays(o_tile), self._rays(d_tile)
+        eps = self._eps(ert_eps)
+        weights = self._weights("tile", eps, coarse_only, budget,
+                                alive is not None)
+        return self._tile_body(weights, self._rays(o_tile),
+                               self._rays(d_tile), eps, coarse_only, budget,
+                               None if alive is None else self._rays(alive))
+
+    def _tile_body(self, weights, o, d, eps: float, coarse_only: bool,
+                   budget: Optional[int] = None, alive=None) -> torch.Tensor:
+        """The tile render on ``weights`` = (params, quant, packed), on the
+        device the rays lie on."""
+        params, quant, packed = weights
         cfg = self.cfg
         if budget is not None and int(budget) != cfg.n_fine:
             cfg = dataclasses.replace(cfg, n_fine=int(budget))
         if coarse_only:
             t_c = sampling.stratified(cfg.near, cfg.far, cfg.n_coarse,
-                                      o.shape[:-1], device=self.device)
+                                      o.shape[:-1], device=o.device)
             rgb_c, aux_c = plcore._eval_pass(
-                cfg, self.params["coarse"], (self.quant or {}).get("coarse"),
-                o, d, t_c, self.use_kernel,
-                (self.packed or {}).get("coarse"))
+                cfg, params["coarse"], (quant or {}).get("coarse"),
+                o, d, t_c, self.use_kernel, (packed or {}).get("coarse"))
             return volume.white_background(rgb_c, aux_c["acc"])
         return plcore.render_rays(
-            cfg, self.params, o, d, quant=self.quant,
-            packed=self.packed, use_kernel=self.use_kernel,
-            fuse_two_pass=self.fuse_two_pass, ert_eps=self._eps(ert_eps),
-            white_bkgd=True,
-            alive=None if alive is None else self._rays(alive))["rgb"]
+            cfg, params, o, d, quant=quant, packed=packed,
+            use_kernel=self.use_kernel, fuse_two_pass=self.fuse_two_pass,
+            ert_eps=eps, white_bkgd=True, alive=alive)["rgb"]
 
     def render_tile_oracle(self, o_tile, d_tile,
                            ert_eps: Optional[float] = None) -> torch.Tensor:
         """The retry ladder's last rung: the tile through the two-dispatch
         chain (K1 for each pass, the resample between them on the host);
         for a non-fused instance, its own tile program."""
+        eps = self._eps(ert_eps)
+        params, quant, packed = self._weights("oracle", eps)
         return plcore.render_rays(
-            self.cfg, self.params, self._rays(o_tile), self._rays(d_tile),
-            quant=self.quant, packed=self.packed,
+            self.cfg, params, self._rays(o_tile), self._rays(d_tile),
+            quant=quant, packed=packed,
             use_kernel=self.use_kernel, fuse_two_pass=False,
-            ert_eps=self._eps(ert_eps), white_bkgd=True)["rgb"]
+            ert_eps=eps, white_bkgd=True)["rgb"]
 
     def dispatch_tile(self, o_tile, d_tile, *,
+                      home_cell: Optional[int] = None,
                       ert_eps: Optional[float] = None,
-                      coarse_only: bool = False,
-                      budget: Optional[int] = None, alive=None):
+                      coarse_only: bool = False, percell: bool = False,
+                      budget: Optional[int] = None, alive=None,
+                      tracer=None, trace_attrs=None):
         """Enqueue ONE tile and return ``(handle, cost)`` at once. On the
         card: the rays go up through pinned memory, the render is
         launched on the current stream, a non-blocking copy of the pixels
@@ -198,14 +304,53 @@ class PackedPlcore:
         ``handle.result()`` waits on that event only. On the CPU the
         handle holds the finished pixels. ``budget``/``alive`` as in
         ``render_tile``; ``cost`` is the weight-gather record,
-        ``tile_gather_cost()``."""
-        o, d = self._upload(o_tile), self._upload(d_tile)
-        a = None if alive is None else self._upload(alive)
-        start = self.tile_start()
-        rgb = self.render_tile(o, d, ert_eps=ert_eps,
-                               coarse_only=coarse_only, budget=budget,
-                               alive=a)
-        return self.handle(rgb, start), self.tile_gather_cost()
+        ``tile_gather_cost(home_cell)``.
+
+        ``percell=True`` with a routed ``home_cell`` and a cell list runs
+        the tile on its home cell instead (``render_tile_cell``): against
+        the cell's staged weights, on the cell's own CUDA stream (the
+        handle's events are recorded there). The cost record then carries
+        ``layers = bytes = 0``, the ``cell``, and ``stage_layers`` /
+        ``stage_bytes``, nonzero only on the dispatch that staged the
+        (scene, cell) weights. ``tracer`` records the host-side enqueue as
+        a ``plcore.dispatch`` span (``trace_attrs`` added to it)."""
+        use_percell = (percell and home_cell is not None
+                       and self.shard_mesh is not None)
+        if use_percell and (budget is not None or alive is not None):
+            raise ValueError("adaptive budgets and dead-row masks are a "
+                             "replicated single-cell feature — not with "
+                             "percell")
+        t0 = tracer.clock() if tracer is not None else None
+        if use_percell:
+            cell = int(home_cell)
+            staged_now = cell not in self._cell_views
+            handle = self.render_tile_cell(o_tile, d_tile, cell,
+                                           ert_eps=ert_eps,
+                                           coarse_only=coarse_only,
+                                           tracer=tracer, handle=True)
+            stage = self.cell_stage_cost(cell)
+            cost = {"layers": 0, "bytes": 0, "cell": cell,
+                    "stage_layers": stage["layers"] if staged_now else 0,
+                    "stage_bytes": stage["bytes"] if staged_now else 0}
+        else:
+            o, d = self._upload(o_tile), self._upload(d_tile)
+            a = None if alive is None else self._upload(alive)
+            start = self.tile_start()
+            rgb = self.render_tile(o, d, ert_eps=ert_eps,
+                                   coarse_only=coarse_only, budget=budget,
+                                   alive=a)
+            handle = self.handle(rgb, start)
+            cost = self.tile_gather_cost(home_cell)
+        if tracer is not None:
+            tracer.complete("plcore.dispatch", t0, cat="plcore",
+                            rays=int(o_tile.shape[0]),
+                            coarse_only=bool(coarse_only),
+                            percell=bool(use_percell),
+                            cell=int(home_cell) if use_percell else -1,
+                            gather_layers=cost["layers"],
+                            gather_bytes=cost["bytes"],
+                            **(trace_attrs or {}))
+        return handle, cost
 
     def tile_start(self):
         """On the card, a timing event recorded now on the current stream:
@@ -218,11 +363,12 @@ class PackedPlcore:
         return event
 
     def handle(self, rgb: torch.Tensor, start=None) -> TileHandle:
-        """A ``TileHandle`` for pixels rendered on this instance's device:
-        on the card, a non-blocking copy into pinned host memory and a
-        timing event after it (``start``: the event of ``tile_start``
-        before the render); on the CPU, the pixels themselves."""
-        if self.device.type != "cuda":
+        """A ``TileHandle`` for pixels rendered on the card or the CPU (the
+        pixels' own device decides): on the card, a non-blocking copy into
+        pinned host memory and a timing event after it on the current
+        stream (``start``: the event of ``tile_start`` before the render);
+        on the CPU, the pixels themselves."""
+        if rgb.device.type != "cuda":
             return TileHandle(rgb)
         host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
         host.copy_(rgb, non_blocking=True)
@@ -230,18 +376,121 @@ class PackedPlcore:
         event.record()
         return TileHandle(host, event, rgb, start)
 
-    def tile_gather_cost(self) -> dict:
-        """Weight-gather traffic of one tile dispatch: zero, since every
-        weight is replicated on the one device that renders the tile."""
-        return {"layers": 0, "bytes": 0}
+    def tile_gather_cost(self, home_cell: Optional[int] = None) -> dict:
+        """Weight-gather traffic of one tile dispatch in the owner-map
+        model: every trunk layer the tile's home cell does NOT own is one
+        remote layer fetch, priced per layer-stacked array of the packed
+        layout (the tensor-core stream's trunk segments included) at its
+        bytes. ``home_cell=None`` (unrouted) owns nothing, the worst case.
+        Zero without a cell list: every weight is on the one device that
+        renders the tile."""
+        if self.shard_mesh is None or not self.packed:
+            return {"layers": 0, "bytes": 0}
+        cost = self._gather_costs.get(home_cell)
+        if cost is None:
+            from repro_torch.runtime import sharding as rsh
+            layers = nbytes = 0
+            for p in self.packed.values():
+                for a in p.values():
+                    if not isinstance(a, rsh.LayerShards):
+                        continue
+                    remote = ~rsh.plcore_owned_layer_mask(
+                        self.shard_mesh, a.n_layers, home_cell)
+                    layers += int(remote.sum())
+                    nbytes += sum(nb for nb, r in zip(a.layer_nbytes, remote)
+                                  if r)
+            cost = {"layers": layers, "bytes": nbytes}
+            self._gather_costs[home_cell] = cost
+        return dict(cost)
 
-    def _upload(self, x, dtype=torch.float32) -> torch.Tensor:
-        """Host data -> the device without a stream sync: a pageable
-        host-to-device copy would wait for every tile queued before it."""
+    def cell_stage_cost(self, cell: int) -> dict:
+        """One-time cost of staging this scene's weights on cell ``cell``:
+        the layers and bytes ``tile_gather_cost(cell)`` prices per
+        dispatch, paid once per (scene, cell) instead."""
+        return self.tile_gather_cost(int(cell))
+
+    def staged_cells(self) -> list:
+        """Cells holding a staged view of this scene."""
+        return sorted(self._cell_views)
+
+    def cell_view(self, cell: int, tracer=None) -> dict:
+        """The staged view of cell ``cell``: ``{"params", "quant",
+        "packed"}`` with every tensor on the cell's device
+        (``runtime.sharding.stage_plcore_packed_to_cell`` fetches, and
+        counts, the layers the cell does not own). Built once per cell on
+        the current stream, traced as a ``plcore.stage`` span. For the
+        plain path the per-layer trunk params are rebuilt from the staged
+        stacks (``unstack_trunk_params``, lossless)."""
+        if self.shard_mesh is None:
+            raise ValueError("per-cell views need a shard_mesh cell list")
+        cell = int(cell)
+        view = self._cell_views.get(cell)
+        if view is not None:
+            return view
+        t0 = tracer.clock() if tracer is not None else None
+        from repro_torch.kernels import ops as kops
+        from repro_torch.runtime import sharding as rsh
+        dev = self.shard_mesh[cell]
+        staged = {net: rsh.stage_plcore_packed_to_cell(
+            p, self.shard_mesh, cell) for net, p in self.packed.items()}
+        params = to_device(self.params, dev)
+        quant = None if self.quant is None else to_device(self.quant, dev)
+        if self.use_kernel:
+            packed = staged
+            if self.fuse_two_pass:
+                # K2's sample grids on the cell's device, made here on the
+                # current stream before any cell stream reads them
+                kops.sample_rows(self.cfg, dev)
+        else:
+            packed = None
+            params, quant = _materialize(self.cfg, params, quant, staged,
+                                         (dev,), False, dev, False)[:2]
+        view = {"params": params, "quant": quant, "packed": packed}
+        self._cell_views[cell] = view
+        if tracer is not None:
+            cost = self.cell_stage_cost(cell)
+            tracer.complete("plcore.stage", t0, cat="plcore", cell=cell,
+                            stage_layers=cost["layers"],
+                            stage_bytes=cost["bytes"])
+        return view
+
+    def render_tile_cell(self, o_tile, d_tile, cell: int,
+                         ert_eps: Optional[float] = None,
+                         coarse_only: bool = False, tracer=None,
+                         handle: bool = False):
+        """``render_tile`` on cell ``cell``: the rays go to the cell's
+        device and render against its staged ``cell_view``, on the cell's
+        own CUDA stream (which first waits for the work queued before it
+        on the current stream). Pixels equal ``render_tile``'s bit for bit
+        (placement only). Returns the pixels, or with ``handle`` a
+        ``TileHandle`` whose events are recorded on the cell's stream."""
+        from repro_torch.runtime import sharding as rsh
+        cell = int(cell)
+        view = self.cell_view(cell, tracer=tracer)
+        dev = self.shard_mesh[cell]
+        stream = rsh.cell_stream(self.shard_mesh, cell)
+        ctx = contextlib.nullcontext()
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            ctx = torch.cuda.stream(stream)
+        with ctx:
+            o = self._upload(o_tile, device=dev)
+            d = self._upload(d_tile, device=dev)
+            start = self.tile_start() if stream is not None else None
+            rgb = self._tile_body((view["params"], view["quant"],
+                                   view["packed"]), o, d,
+                                  self._eps(ert_eps), coarse_only)
+            return self.handle(rgb, start) if handle else rgb
+
+    def _upload(self, x, dtype=torch.float32, device=None) -> torch.Tensor:
+        """Host data -> the device (this instance's, or ``device``) without
+        a stream sync: a pageable host-to-device copy would wait for every
+        tile queued before it."""
+        device = self.device if device is None else torch.device(device)
         t = torch.as_tensor(x, dtype=dtype)
-        if self.device.type != "cuda" or t.device.type == "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type != "cuda" or t.device.type == "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 # ----------------------------------------------------------------- ASDR -----

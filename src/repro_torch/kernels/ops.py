@@ -22,6 +22,8 @@
   kernels and their plain versions handle a ragged last
   tile themselves, so no ray is padded here. K2's ray-independent sample
   grids come from ``sample_rows``, built once per config and device.
+* ``plcore_resident_weight_bytes``: one network's per-cell bytes of that
+  layout when its trunk is layer-sharded over a cell list.
 * ``pack_count`` and ``dispatch_count`` read two counters of the
   process-wide metrics registry (``obs.metrics.global_registry``, so the
   exporters see them): packs at load and kernel dispatches. The fused
@@ -240,6 +242,30 @@ def kernel_weights(cfg: NerfConfig, params: dict,
     packed = stack_plcore_weights(cfg, params, quant)
     packed["mma"] = mma_stream(cfg, packed)
     return packed
+
+
+def plcore_resident_weight_bytes(cfg: NerfConfig, n_shards: int = 1) -> int:
+    """Per-cell bytes of one network's f32 ``kernel_weights`` layout when
+    its trunk is layer-sharded ``n_shards`` ways (``runtime.sharding``: a
+    count that does not divide the layers replicates): the cell holding
+    the most of the trunk stacks (``trunk_w``, ``trunk_b`` and the trunk
+    layers' segments of the tensor-core stream, TF32 hi/lo pairs) plus the
+    heads, which every cell keeps. ``n_shards=1`` is the replicated
+    layout. This is what the scene cache budgets a sharded resident at."""
+    W, C, L = cfg.trunk_width, cfg.color_width, cfg.trunk_layers
+    P, P2 = packed_rows(cfg)
+    n = n_shards if n_shards >= 1 and L % n_shards == 0 else 1
+    per = L // n
+    layer = [4 * (P * W + W) for _ in range(L)]      # trunk_w + trunk_b
+    heads = 4 * (W + 1 + W + C + 3 * C + 3 + W * W + P2 * C)
+    for (name, rows, ncols), (lo, hi) in zip(_fp.mma_segments(cfg),
+                                             _fp.mma_offsets(cfg, False)):
+        base = name.partition(".")[0]
+        if base.startswith("trunk"):
+            layer[int(base[5:])] += 4 * (hi - lo)
+        else:
+            heads += 4 * (hi - lo)
+    return max(sum(layer[c * per:(c + 1) * per]) for c in range(n)) + heads
 
 
 def trunk_rows(cfg: NerfConfig, i: int) -> int:

@@ -21,8 +21,9 @@ A CUDA tensor launches the kernel on the current stream (``y`` and the
 scratch allocated here with ``torch.empty``); a CPU tensor takes the plain
 version, ``kernels.ref.rmcm_matmul_ref``. Nothing else: no fallback from
 one to the other. ``LAUNCHES`` counts kernel launches (one per call, both
-routes) and ``ROUTE_LAUNCHES`` the same launches by route; both are
-touched nowhere but at a launch.
+routes), ``ROUTE_LAUNCHES`` the same launches by route and
+``SHAPE_LAUNCHES`` by shape ("MxKxN"); all are touched nowhere but at a
+launch.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from repro_torch.kernels import ref
 
 LAUNCHES = {"rmcm_matmul": 0}
 ROUTE_LAUNCHES = {"large_m": 0, "small_m": 0}
+SHAPE_LAUNCHES: dict = {}
 SMALL_M = 64     # the largest M of the small route (csrc/rmcm_matmul.cu)
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -118,4 +120,6 @@ def rmcm_matmul(x: torch.Tensor, packed: dict, *, bm: int = 128,
         raise RuntimeError(f"rmcm_matmul failed to launch: CUDA error {rc}")
     LAUNCHES["rmcm_matmul"] += 1
     ROUTE_LAUNCHES[route(M)] += 1
+    shape = f"{M}x{K}x{N}"
+    SHAPE_LAUNCHES[shape] = SHAPE_LAUNCHES.get(shape, 0) + 1
     return y

@@ -5,8 +5,11 @@ RMCM-quantized and packed ONCE at load), then serves ``--views`` requests,
 one camera pose each (``--theta`` stepped around the orbit, ``--phi``,
 focal ``--focal``), rendering each image in one render call and writing
 it under ``runs/`` as a PPM and as the float32 pixels in ``.npy``. Prints
-per-view wall times, rays/s, samples/s and ``weight_packs_since_load``
-(0: no request re-packed weights) as JSON. ``--ckpt DIR`` serves the
+per-view wall times, rays/s, samples/s, ``weight_packs_since_load``
+(0: no request re-packed weights) and, on the card,
+``uj_per_sample_measured`` (the board's energy over the timed views, from
+NVML's total-energy counter, per sample as the reference counts them) as
+JSON. ``--ckpt DIR`` serves the
 ``params`` of the newest checkpoint in DIR (``checkpoint.Checkpointer``'s
 format, written by either package) in place of the seeded weights.
 
@@ -25,6 +28,15 @@ trunk memo of ``--memo-mb`` per scene, memo-dead rows masked out of K2);
 into the synthetic scenes (the adaptive gates need a mixed scene: -0.5 on
 the tiny config; at full width, where the initial sigma spreads narrower,
 -0.5 leaves no density at all and -0.1 is mixed).
+``--shard-weights`` shards every resident's trunk weight stacks layer-wise
+over a cell list (``runtime.sharding.plcore_mesh``: the first
+``--shard-devices`` visible cards, or the CPU with ``--device cpu``; one
+card gives one cell, as one device gives the reference one);
+``--route-by-shard`` (with it) routes each scene's tiles to a home cell
+by the owner map, and ``--percell-dispatch`` (with that) runs each routed
+tile on its home cell against staged weights on the cell's own stream.
+More cells than cards come through the Python API: ``run_engine(args,
+shard_mesh=plcore_mesh(devices=[...]))``.
 Prints the loadgen report as JSON; ``--check`` gates it (see
 ``check_engine``). ``--trace-out PATH`` traces the primary engine's
 request and tile lifecycle (1 request chain in ``--trace-sample``; tiles
@@ -64,6 +76,7 @@ weights packed per call), and refuses ``--ert`` and ``--fuse-two-pass``.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import time
 from dataclasses import replace
@@ -134,10 +147,80 @@ def budget_classes(args):
     return tuple(int(b) for b in args.budget_classes.split(","))
 
 
-def load_plcore(cfg, args, seed: int,
-                params: Optional[dict] = None) -> PackedPlcore:
+def _shard_mesh_from_args(args):
+    """``--shard-weights`` -> the cell list over the first
+    ``--shard-devices`` visible cards (all by default), or over the CPU
+    with ``--device cpu``; None without the flag."""
+    if not args.shard_weights:
+        return None
+    from repro_torch.runtime import sharding as rsh
+    if torch.device(args.device).type == "cpu":
+        return rsh.plcore_mesh(args.shard_devices, devices=["cpu"])
+    return rsh.plcore_mesh(args.shard_devices)
+
+
+def sharding_guards(args) -> None:
+    """The flag checks of weight sharding, routing and per-cell dispatch."""
+    if args.route_by_shard and not args.shard_weights:
+        raise SystemExit("--route-by-shard routes tiles by sharded-weight "
+                         "ownership; it requires --shard-weights")
+    if args.percell_dispatch and not args.route_by_shard:
+        raise SystemExit("--percell-dispatch executes tiles on their "
+                         "routed home cell; it requires --route-by-shard")
+    if args.shard_weights and args.tiled:
+        raise SystemExit("--shard-weights needs the single-call pipeline's "
+                         "gathers; drop --tiled")
+    if args.adaptive_sampling:
+        for flag, name in ((args.shard_weights, "--shard-weights"),
+                           (args.route_by_shard, "--route-by-shard"),
+                           (args.percell_dispatch, "--percell-dispatch")):
+            if flag:
+                raise SystemExit(f"--adaptive-sampling is a replicated "
+                                 f"single-cell feature — incompatible with "
+                                 f"{name}")
+
+
+class _Nvml:
+    """The board's energy counter through NVML (``libnvidia-ml.so.1``,
+    loaded with ctypes): ``energy_mj()`` is
+    ``nvmlDeviceGetTotalEnergyConsumption``, a running total in
+    millijoules, of the card behind a CUDA device (matched by PCI bus
+    id)."""
+
+    def __init__(self, device: torch.device):
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        self._call("nvmlInit_v2")
+        props = torch.cuda.get_device_properties(device)
+        self.handle = ctypes.c_void_p()
+        if hasattr(props, "pci_bus_id"):
+            bus = (f"{props.pci_domain_id:08x}:{props.pci_bus_id:02x}:"
+                   f"{props.pci_device_id:02x}.0").encode()
+            self._call("nvmlDeviceGetHandleByPciBusId_v2",
+                       ctypes.c_char_p(bus), ctypes.byref(self.handle))
+        else:
+            # an older PyTorch without the bus id: CUDA's device index
+            index = (torch.cuda.current_device() if device.index is None
+                     else device.index)
+            self._call("nvmlDeviceGetHandleByIndex_v2", ctypes.c_uint(index),
+                       ctypes.byref(self.handle))
+
+    def _call(self, name: str, *args) -> None:
+        rc = getattr(self.lib, name)(*args)
+        if rc != 0:
+            raise RuntimeError(f"NVML {name} failed with code {rc}")
+
+    def energy_mj(self) -> int:
+        e = ctypes.c_ulonglong()
+        self._call("nvmlDeviceGetTotalEnergyConsumption", self.handle,
+                   ctypes.byref(e))
+        return int(e.value)
+
+
+def load_plcore(cfg, args, seed: int, params: Optional[dict] = None,
+                shard_mesh=None) -> PackedPlcore:
     """A PackedPlcore for the flags, with ``params`` or else weights drawn
-    from a ``torch.Generator`` seeded ``seed``."""
+    from a ``torch.Generator`` seeded ``seed``; its trunk sharded over
+    ``shard_mesh`` when one is given."""
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = init_params(plcore_decls(cfg), gen, "float32")
@@ -154,10 +237,10 @@ def load_plcore(cfg, args, seed: int,
     return PackedPlcore(cfg, params, quant=quant,
                         use_kernel=args.kernel and not args.tiled,
                         fuse_two_pass=args.fuse_two_pass,
-                        device=args.device)
+                        device=args.device, shard_mesh=shard_mesh)
 
 
-def load_model(args):
+def load_model(args, shard_mesh=None):
     """(cfg, PackedPlcore) for the flags: the ``params`` of the newest
     checkpoint in ``--ckpt``, else weights drawn from ``--seed``."""
     cfg = model_config(args)
@@ -165,12 +248,16 @@ def load_model(args):
     if args.ckpt:
         state, _ = Checkpointer(args.ckpt).restore(device=args.device)
         params = state["params"]
-    return cfg, load_plcore(cfg, args, args.seed, params)
+    return cfg, load_plcore(cfg, args, args.seed, params, shard_mesh)
 
 
 def serve_nerf(args) -> dict:
-    cfg, engine = load_model(args)
+    sharding_guards(args)
+    shard_mesh = _shard_mesh_from_args(args)
+    cfg, engine = load_model(args, shard_mesh)
     packs_at_load = kops.pack_count()
+    nvml = _Nvml(engine.device) if engine.device.type == "cuda" else None
+    energy_mj = 0
     scene = R.SCENES[args.scene]()
     H = W = args.hw
     n_rays = H * W
@@ -182,6 +269,7 @@ def serve_nerf(args) -> dict:
             R.pose_spherical(theta, args.phi, scene.radius), H, W,
             args.focal or 0.9 * W)
         _sync(engine.device)
+        e0 = None if nvml is None else nvml.energy_mj()
         t0 = time.perf_counter()
         if args.tiled:
             img = render_image_tiled(
@@ -193,6 +281,8 @@ def serve_nerf(args) -> dict:
                                       rays_per_batch=args.rays_per_batch)
         _sync(engine.device)
         dt = time.perf_counter() - t0
+        if nvml is not None:
+            energy_mj += nvml.energy_mj() - e0
         out = Path(args.out or "runs") / f"serve_nerf_{args.scene}_v{v}.ppm"
         out.parent.mkdir(parents=True, exist_ok=True)
         write_ppm(str(out), img)
@@ -218,7 +308,20 @@ def serve_nerf(args) -> dict:
                      "two_dispatch" if args.kernel else "plain"),
         "ert_eps": cfg.ert_eps,
         "weight_packs_since_load": kops.pack_count() - packs_at_load,
+        # the board's energy over the timed views per sample (the samples
+        # counted as the reference counts them); None off the card
+        "energy_j_measured": None if nvml is None else energy_mj / 1e3,
+        "uj_per_sample_measured": (None if nvml is None else
+                                   1e3 * energy_mj
+                                   / (n_samples * len(views))),
     }
+    if shard_mesh is not None:
+        from repro_torch.runtime import sharding as rsh
+        from repro_torch.serving.scene_cache import plcore_nbytes
+        stats["shard_devices"] = len(shard_mesh)
+        stats["weight_shards"] = rsh.plcore_shard_count(shard_mesh,
+                                                        cfg.trunk_layers)
+        stats["resident_mb_per_device"] = plcore_nbytes(engine) / (1 << 20)
     print(json.dumps(stats, indent=2))
     return stats
 
@@ -229,22 +332,32 @@ def serve_nerf(args) -> dict:
 ORACLE_ATOL = 1e-3
 
 
-def run_engine(args):
+def run_engine(args, shard_mesh=None):
     """Serve the trace of ``--mode engine``: returns ``(report, engine,
-    trace, rerun)``. Request ids follow the trace order. ``rerun(depth)``
-    serves the same trace again on a clean engine at ``depth`` (no fault
-    plan, a fresh cache) and returns that engine."""
+    trace, rerun)``. Request ids follow the trace order. ``rerun(depth,
+    adaptive=None, routed=None)`` serves the same trace again on a clean
+    engine at ``depth`` (no fault plan, a fresh cache, not per-cell;
+    ``routed`` defaults to ``--route-by-shard``) and returns that engine.
+    ``shard_mesh`` (a cell list) replaces the one of ``--shard-weights``,
+    e.g. more cells than the machine has cards."""
     from repro_torch.serving import (FaultConfig, FaultPlan, RenderEngine,
                                      SceneCache, loadgen)
 
+    sharding_guards(args)
     cfg = model_config(args)
     classes = budget_classes(args)
     scene_ids = [f"scene{i}" for i in range(args.scenes)]
+    if shard_mesh is None:
+        shard_mesh = _shard_mesh_from_args(args)
+    elif not args.shard_weights:
+        raise SystemExit("a shard_mesh serves sharded residents; set "
+                         "--shard-weights")
 
     def load_scene(scene_id: str) -> PackedPlcore:
         # one synthetic model per scene id: a distinct weight draw stands
         # in for a distinct trained checkpoint
-        return load_plcore(cfg, args, args.seed + scene_ids.index(scene_id))
+        return load_plcore(cfg, args, args.seed + scene_ids.index(scene_id),
+                           shard_mesh=shard_mesh)
 
     plan = (FaultPlan(FaultConfig.chaos(args.fault_seed))
             if args.inject_faults else None)
@@ -257,10 +370,13 @@ def run_engine(args):
               if args.trace_out else None)
 
     def make_engine(depth: int, chaos: bool,
-                    adaptive: Optional[bool] = None) -> RenderEngine:
+                    adaptive: Optional[bool] = None,
+                    routed: Optional[bool] = None,
+                    percell: bool = False) -> RenderEngine:
         # reference reruns are clean: no fault plan (reusing this run's
-        # plan would continue its streams, not replay them) and a fresh
-        # cache with the unwrapped loader
+        # plan would continue its streams, not replay them), a fresh
+        # cache with the unwrapped loader, and never per-cell: the
+        # mesh-wide engine is the anchor a per-cell run is held to
         loader = (plan.wrap_loader(load_scene) if chaos and plan is not None
                   else load_scene)
         if adaptive is None:
@@ -269,6 +385,12 @@ def run_engine(args):
         # built exactly as one that never heard of them
         kw = (dict(adaptive_sampling=True, budget_classes=classes,
                    memo_mb=args.memo_mb) if adaptive else {})
+        if routed is None:
+            routed = args.route_by_shard
+        if routed:
+            kw["route_by_shard"] = True
+        if percell:
+            kw["percell_dispatch"] = True
         return RenderEngine(SceneCache(loader, capacity_mb=args.cache_mb),
                             tile_rays=args.tile_rays, pipeline_depth=depth,
                             max_queue=args.max_queue,
@@ -277,7 +399,8 @@ def run_engine(args):
                             tile_service_prior_s=prior_s,
                             tracer=tracer if chaos else None, **kw)
 
-    engine = make_engine(args.pipeline_depth, chaos=True)
+    engine = make_engine(args.pipeline_depth, chaos=True,
+                         percell=args.percell_dispatch)
     deadline_choices = ((None,) if args.deadline_ms is None
                         else (args.deadline_ms / 1e3,))
     trace = loadgen.poisson_trace(
@@ -302,8 +425,17 @@ def run_engine(args):
               "fuse_two_pass": bool(args.fuse_two_pass),
               "rmcm": bool(args.rmcm), "ert_eps": cfg.ert_eps,
               "pipeline_depth": args.pipeline_depth,
+              "route_by_shard": bool(args.route_by_shard),
+              "percell_dispatch": bool(args.percell_dispatch),
               "inject_faults": bool(args.inject_faults),
               "deadline_ms": args.deadline_ms, **report}
+    if shard_mesh is not None:
+        from repro_torch.runtime import sharding as rsh
+        report["shard_devices"] = len(shard_mesh)
+        report["weight_shards"] = rsh.plcore_shard_count(shard_mesh,
+                                                         cfg.trunk_layers)
+    if args.percell_dispatch:
+        report["percell"] = engine.percell_report()
     if args.adaptive_sampling:
         report["adaptive_sampling"] = True
         report["scene_bias"] = args.scene_bias
@@ -311,8 +443,10 @@ def run_engine(args):
     if observability:
         report["observability"] = observability
 
-    def rerun(depth: int, adaptive: Optional[bool] = None) -> RenderEngine:
-        ref = make_engine(depth, chaos=False, adaptive=adaptive)
+    def rerun(depth: int, adaptive: Optional[bool] = None,
+              routed: Optional[bool] = None) -> RenderEngine:
+        ref = make_engine(depth, chaos=False, adaptive=adaptive,
+                          routed=routed)
         loadgen.run_trace(ref, trace, mode=args.loop,
                           concurrency=args.concurrency)
         return ref
@@ -399,7 +533,8 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
     rerun's. Under ``--adaptive-sampling`` (``check_adaptive``): a tile
     took the adaptive path, the memo served hits, every budget class
     rendered rays, and an adaptive-off rerun at this depth equals one at
-    depth 1. Returns the counts compared."""
+    depth 1. With ``--shard-weights``, ``check_sharding``'s gates. Returns
+    the counts compared."""
     if report["requests_completed"] != args.requests:
         raise SystemExit(f"engine check: {report['requests_completed']}"
                          f"/{args.requests} requests completed")
@@ -431,6 +566,59 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
                                             "synchronous depth=1")
     if args.adaptive_sampling:
         compared["adaptive_off"] = check_adaptive(args, report, rerun)
+    if args.shard_weights:
+        compared.update(check_sharding(args, report, engine, rerun))
+    return compared
+
+
+def check_sharding(args, report: dict, engine, rerun) -> dict:
+    """The gates of weight sharding, routing and per-cell dispatch: the
+    layer split engaged (more than one shard); with ``--route-by-shard``
+    the images equal an unrouted rerun's and (closed loop) routing
+    gathered fewer layers; with ``--percell-dispatch`` tiles ran on their
+    cells, a (scene, cell) staging was counted, the images equal the
+    mesh-wide routed engine's bit for bit, and (closed loop, two scenes or
+    more on two cells or more) at least two cells held tiles in flight.
+    Returns the counts of images compared."""
+    if report["weight_shards"] <= 1:
+        raise SystemExit(
+            f"engine check: --shard-weights fell back to replicated "
+            f"(weight_shards={report['weight_shards']} on "
+            f"{report['shard_devices']} cells; the cell count must divide "
+            f"the trunk layers)")
+    deterministic = args.loop == "closed"
+    compared = {}
+    if args.route_by_shard:
+        unrouted = rerun(args.pipeline_depth, routed=False)
+        compared["unrouted"] = compare_images(engine, unrouted, "unrouted")
+        routed_g = report["engine"]["plcore_gather_count"]
+        unrouted_g = unrouted.stats["plcore_gather_count"]
+        if args.percell_dispatch:
+            # per-cell tiles gather nothing: hold the mesh-wide routed run
+            spmd = rerun(args.pipeline_depth)
+            compared["spmd"] = compare_images(engine, spmd,
+                                              "mesh-wide routed")
+            routed_g = spmd.stats["plcore_gather_count"]
+        if deterministic and not routed_g < unrouted_g:
+            raise SystemExit(f"engine check: --route-by-shard did not reduce "
+                             f"plcore_gather_count (routed {routed_g} vs "
+                             f"unrouted {unrouted_g})")
+    if args.percell_dispatch:
+        pc = report["percell"]
+        if pc["percell_tiles"] < 1:
+            raise SystemExit("engine check: --percell-dispatch armed but no "
+                             "tile ran through a per-cell program")
+        if pc["stage_events"] < 1:
+            raise SystemExit("engine check: per-cell dispatch ran but no "
+                             "(scene, cell) staging was accounted")
+        if deterministic and args.scenes >= 2 and report["shard_devices"] >= 2:
+            engaged = [c for c, v in pc["cells"].items()
+                       if v["max_in_flight"] >= 1]
+            if len(engaged) < 2:
+                raise SystemExit(
+                    f"engine check: --percell-dispatch with {args.scenes} "
+                    f"scenes on {report['shard_devices']} cells engaged only "
+                    f"cells {engaged} — no cross-cell concurrency")
     return compared
 
 
@@ -564,6 +752,23 @@ def build_parser():
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="write the engine's and the process-wide metrics "
                          "registries as Prometheus text after the run")
+    ap.add_argument("--shard-weights", action="store_true",
+                    help="shard every resident's packed trunk stacks "
+                         "layer-wise over a cell list (the visible cards, "
+                         "or the CPU with --device cpu); pixels unchanged, "
+                         "about 1/n_shards of the trunk per cell")
+    ap.add_argument("--shard-devices", type=int, default=None,
+                    help="cap the cells of --shard-weights at this many "
+                         "devices")
+    ap.add_argument("--route-by-shard", action="store_true",
+                    help="owner-map tile routing (with --shard-weights): "
+                         "each scene's tiles go to a home cell owning the "
+                         "most of its trunk layers (--mode engine)")
+    ap.add_argument("--percell-dispatch", action="store_true",
+                    help="per-cell tile execution (with --route-by-shard): "
+                         "a routed tile renders on its home cell against "
+                         "weights staged there once per (scene, cell), on "
+                         "the cell's own stream, depth slots per cell")
     ap.add_argument("--check", action="store_true",
                     help="gate the engine run (see check_engine)")
     return ap

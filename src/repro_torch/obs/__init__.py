@@ -10,6 +10,8 @@ from repro_torch.obs.export import (chrome_trace, device_busy,
                                     write_chrome_trace)
 from repro_torch.obs.metrics import (CLUSTER_STATS_SCHEMA,
                                      ENGINE_STATS_SCHEMA,
+                                     PERCELL_STATS_SCHEMA,
+                                     ROUTING_STATS_SCHEMA,
                                      SAMPLING_STATS_SCHEMA, CountsView,
                                      EngineMetrics, Histogram,
                                      MetricsRegistry, StatsView,
@@ -21,7 +23,8 @@ __all__ = ["SpanTracer", "NullTracer", "NULL_TRACER", "Span",
            "MetricsRegistry", "StatsView", "EngineMetrics", "Histogram",
            "engine_stats_view", "extend_stats_view", "global_registry",
            "log_buckets", "ENGINE_STATS_SCHEMA", "CLUSTER_STATS_SCHEMA",
-           "SAMPLING_STATS_SCHEMA",
+           "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
+           "PERCELL_STATS_SCHEMA",
            "CountsView", "chrome_trace", "write_chrome_trace",
            "prometheus_text", "snapshot", "validate_trace",
            "validate_chrome_trace", "device_busy"]

@@ -37,7 +37,8 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
     "StatsView", "CountsView", "log_buckets", "global_registry",
     "engine_stats_view", "extend_stats_view", "ENGINE_STATS_SCHEMA",
-    "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "EngineMetrics",
+    "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
+    "PERCELL_STATS_SCHEMA", "EngineMetrics",
     "TIME_BUCKETS",
     "DEPTH_BUCKETS",
 ]
@@ -308,6 +309,28 @@ CLUSTER_STATS_SCHEMA = (
      "summed requeue -> redispatch latency"),
 )
 
+# The shard-routing block, bound by ``extend_stats_view`` only when an
+# engine runs with ``route_by_shard`` (the reference keeps this key in its
+# engine block; here the default stats keep the keys they had before
+# routing was ported).
+ROUTING_STATS_SCHEMA = (
+    ("routed_tiles", "counter", 0, "tiles with a home cell assigned"),
+)
+
+# The per-cell dispatch block, bound by ``extend_stats_view`` only when an
+# engine runs with ``percell_dispatch``, as in the reference.
+PERCELL_STATS_SCHEMA = (
+    ("percell_tiles", "counter", 0,
+     "tiles executed through a per-cell program"),
+    ("percell_stage_events", "counter", 0,
+     "(scene, cell) one-time weight stagings performed"),
+    ("percell_stage_layers", "counter", 0,
+     "remote trunk layers paid by those stagings"),
+    ("percell_stage_bytes", "counter", 0, "... and their bytes"),
+    ("percell_cells_active", "gauge", 0,
+     "distinct cells that have executed a tile"),
+)
+
 # The adaptive-sampling block, bound by ``extend_stats_view`` only when an
 # engine runs with ``adaptive_sampling``, so the default stats keep their
 # keys. The gauge ``dead_ray_fraction`` exports as
@@ -423,6 +446,17 @@ class EngineMetrics:
         self.request_latency_seconds = registry.histogram(
             f"{prefix}_request_latency_seconds",
             "submit -> terminal status per delivered request", unit="s")
+        # per-cell families (per-cell dispatch runs): tiles and slot
+        # occupancy by home cell
+        self.cell_dispatches = registry.counter(
+            f"{prefix}_cell_dispatches_total",
+            "per-cell tiles dispatched through per-cell programs")
+        self.cell_in_flight = registry.gauge(
+            f"{prefix}_cell_in_flight_tiles",
+            "occupied executor slots per home cell")
+        self.cell_max_in_flight = registry.gauge(
+            f"{prefix}_cell_max_in_flight_tiles",
+            "peak executor slot occupancy per home cell")
         # per-budget-class families (adaptive-sampling runs): the budget
         # histogram behind the engine's sampling report, as
         # {budget_class=...} children
@@ -443,6 +477,7 @@ def engine_stats_view(registry: MetricsRegistry) -> StatsView:
 
 
 def extend_stats_view(view: StatsView, schema) -> StatsView:
-    """Append a schema block (``SAMPLING_STATS_SCHEMA``) to an existing
+    """Append a schema block (``SAMPLING_STATS_SCHEMA``,
+    ``ROUTING_STATS_SCHEMA``, ``PERCELL_STATS_SCHEMA``) to an existing
     view: same registry, same write-through binding."""
     return view.bind_schema(schema)

@@ -68,6 +68,20 @@ down to 32 rays when a bucket runs low); the executor renders each at its
 class's ``n_fine`` with the memo-dead rows masked out of K2, and a tile of
 dead rays only never reaches the kernel.
 
+Shard routing and per-cell dispatch
+-----------------------------------
+
+With residents whose trunk stacks are layer-sharded over a cell list
+(``runtime.sharding``), ``route_by_shard`` gives every scene a home cell
+from the owner map (the most layers owned, ties spread by scene id), so
+the modeled weight-gather traffic of each dispatch
+(``plcore_gather_count``/``_bytes``) counts only the layers its home cell
+does not own. ``percell_dispatch`` runs each routed tile ON its home cell:
+the scene's weights are staged there once per (scene, cell), the tile's
+K2 launch goes to the cell's own CUDA stream, and the in-flight budget is
+``pipeline_depth`` per cell (``percell_report``). Pixels equal the
+replicated engine's bit for bit either way.
+
 Tracing
 -------
 
@@ -92,7 +106,9 @@ import numpy as np
 import torch
 
 from repro_torch.data import rays as R
-from repro_torch.obs.metrics import (SAMPLING_STATS_SCHEMA, MetricsRegistry,
+from repro_torch.obs.metrics import (PERCELL_STATS_SCHEMA,
+                                     ROUTING_STATS_SCHEMA,
+                                     SAMPLING_STATS_SCHEMA, MetricsRegistry,
                                      engine_stats_view, extend_stats_view)
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import FaultPlan, InjectedDispatchError
@@ -209,6 +225,7 @@ class _Tile:
     rays_o: np.ndarray
     rays_d: np.ndarray
     n_real: int                 # non-pad rays
+    home_cell: Optional[int] = None   # shard-locality routing
     degraded: bool = False      # coarse-only program
     budget: Optional[int] = None   # adaptive fine-sample budget
     dead_bucket: bool = False   # rays all hinted dead: resolve the memo
@@ -300,14 +317,15 @@ class AdaptiveSampling:
 class TileScheduler:
     """Layer 1 — policy. Queue, admission control, priority/sticky-scene
     pick (with optional deterministic priority aging), overload
-    degradation, deadline expiry and tile coalescing. Produces ``_Tile``s
-    and never touches the device. A scene whose ``SceneCache.get`` raises
-    is skipped for the current tile, and its queued requests are
-    terminated once the cache reports ``max_load_failures`` consecutive
-    real failures."""
+    degradation, deadline expiry, tile coalescing and shard-locality
+    routing. Produces ``_Tile``s and never touches the device. A scene
+    whose ``SceneCache.get`` raises is skipped for the current tile, and
+    its queued requests are terminated once the cache reports
+    ``max_load_failures`` consecutive real failures."""
 
     def __init__(self, cache: SceneCache, *, tile_rays: int,
                  max_sticky_tiles: int, stats: dict, clock,
+                 route_by_shard: bool = False,
                  max_queue: Optional[int] = None,
                  aging_tiles: Optional[int] = None,
                  degrade_on_overload: bool = False,
@@ -327,6 +345,7 @@ class TileScheduler:
         # request wins even at equal priority: residency amortizes, but
         # an early request for another scene is not starved forever
         self.max_sticky_tiles = int(max_sticky_tiles)
+        self.route_by_shard = bool(route_by_shard)
         self.stats = stats
         self._clock = clock
         self.max_queue = max_queue
@@ -341,6 +360,7 @@ class TileScheduler:
         self._tile_seq = 0           # deterministic per-engine tile ids
         self._current_scene: Optional[str] = None
         self._sticky_run = 0         # consecutive tiles for current scene
+        self._home_cells: Dict[str, int] = {}   # scene -> routed cell
         self._deadlines_armed = False
         self.completion: Optional["CompletionSink"] = None   # wired by engine
         self.executor: Optional["TileExecutor"] = None       # wired by engine
@@ -472,6 +492,22 @@ class TileScheduler:
                 a.degraded = True
                 self.stats["degraded_requests"] += 1
 
+    def _route(self, scene_id: str, pp) -> Optional[int]:
+        """Shard-locality routing: the tile's home cell is a cell owning
+        the most of this scene's trunk layers (the owner map), scenes
+        spread over tied cells by their ids; every layer it owns is a
+        remote fetch the scene's dispatches do not pay. ``None``
+        (unrouted) when routing is off or the resident is not sharded."""
+        if not self.route_by_shard or getattr(pp, "shard_mesh", None) is None:
+            return None
+        home = self._home_cells.get(scene_id)
+        if home is None:
+            from repro_torch.runtime import sharding as rsh
+            home = rsh.plcore_home_cell(pp.shard_mesh, pp.cfg.trunk_layers,
+                                        salt=scene_id)
+            self._home_cells[scene_id] = home
+        return home
+
     def _note_load_failure(self, scene: str, err: SceneLoadError) -> None:
         """Account one failed ``cache.get``; once the cache reports
         ``max_load_failures`` consecutive real failures, terminate every
@@ -599,7 +635,8 @@ class TileScheduler:
         tid = self._tile_seq
         self._tile_seq += 1
         tile = _Tile(scene, pp, spans, np.concatenate(chunks_o),
-                     np.concatenate(chunks_d), n, degraded=degraded,
+                     np.concatenate(chunks_d), n,
+                     home_cell=self._route(scene, pp), degraded=degraded,
                      budget=budget,
                      dead_bucket=(bucket is not None
                                   and bucket == n_buckets - 1),
@@ -613,6 +650,14 @@ class TileScheduler:
         if m is not None:
             m.coalesce_seconds.observe(self._clock() - t_coalesce0)
         return tile
+
+
+def _gather_cost(tile: _Tile) -> dict:
+    """The resident's weight-gather record of one dispatch of ``tile``: at
+    its home cell, or unrouted (asked without one)."""
+    if tile.home_cell is None:
+        return tile.pp.tile_gather_cost()
+    return tile.pp.tile_gather_cost(tile.home_cell)
 
 
 # ---------------------------------------------------------------------------
@@ -629,7 +674,12 @@ class TileExecutor:
     so ``dispatch``/``drain_one`` do not raise for these fault classes.
     The optional ``StragglerMonitor`` abandons and redispatches tiles past
     its deadline factor. A ``FaultPlan`` injects failures at exactly these
-    boundaries; the ladder's oracle is never wrapped."""
+    boundaries; the ladder's oracle is never wrapped.
+
+    ``percell``: routed tiles run on their home cell (staged weights, the
+    cell's own CUDA stream), and the in-flight budget is counted per cell:
+    each cell gets its own ``depth`` slots, so two cells hold different
+    scenes' tiles at once instead of sharing one ring."""
 
     def __init__(self, completion: "CompletionSink", cache: SceneCache,
                  stats: dict, depth: int = 1, *,
@@ -638,7 +688,7 @@ class TileExecutor:
                  retry_backoff_s: float = 0.0,
                  max_retry_backoff_s: float = 0.05,
                  check_finite: bool = True, clock=time.perf_counter,
-                 sleep=time.sleep, tracer=None,
+                 sleep=time.sleep, tracer=None, percell: bool = False,
                  adaptive: Optional[AdaptiveSampling] = None):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
@@ -652,6 +702,9 @@ class TileExecutor:
         self.depth = int(depth)
         self.faults = faults
         self.straggler = straggler
+        self.percell = bool(percell)
+        # cell -> {"dispatches", "max_in_flight"} (per-cell dispatch)
+        self.cell_stats: Dict[Optional[int], dict] = {}
         self.max_tile_retries = int(max_tile_retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.max_retry_backoff_s = float(max_retry_backoff_s)
@@ -691,10 +744,18 @@ class TileExecutor:
                          budget_class=tile.budget, dead=info["dead"],
                          full_dead=info["full_dead"])
             handle = tile.pp.handle(rgb, start)
-            cost = tile.pp.tile_gather_cost()
+            cost = _gather_cost(tile)
         else:
-            handle, cost = tile.pp.dispatch_tile(tile.rays_o, tile.rays_d,
-                                                 coarse_only=tile.degraded)
+            # the routing and tracing keywords only when in play: an
+            # unrouted resident is called as one that never heard of cells
+            kw = {}
+            if tile.home_cell is not None:
+                kw.update(home_cell=tile.home_cell, percell=self.percell)
+            if self.tracer.enabled:
+                kw.update(tracer=self.tracer, trace_attrs={
+                    "tile": tile.tid, "scene": tile.scene_id})
+            handle, cost = tile.pp.dispatch_tile(
+                tile.rays_o, tile.rays_d, coarse_only=tile.degraded, **kw)
         extra = (fault["extra_s"]
                  if fault is not None and fault["kind"] == "straggle"
                  else 0.0)
@@ -755,7 +816,7 @@ class TileExecutor:
         rgb = (pp.render_tile(tile.rays_o, tile.rays_d, coarse_only=True)
                if tile.degraded
                else pp.render_tile_oracle(tile.rays_o, tile.rays_d))
-        return rgb.cpu().numpy(), pp.tile_gather_cost()
+        return rgb.cpu().numpy(), _gather_cost(tile)
 
     def _device_clock(self, tile: _Tile) -> None:
         """Once per traced engine, before its first tile on the card: the
@@ -791,8 +852,60 @@ class TileExecutor:
         st["rays_rendered"] += tile.n_real
         st["plcore_gather_count"] += cost["layers"]
         st["plcore_gather_bytes"] += cost["bytes"]
+        if tile.home_cell is not None and "routed_tiles" in st:
+            st["routed_tiles"] += 1
         if tile.degraded:
             st["degraded_tiles"] += 1
+        if "cell" in cost and "percell_tiles" in st:
+            # a per-cell execution: the dispatch itself gathers nothing;
+            # stage_* is nonzero only on the dispatch that staged the
+            # (scene, cell) weights
+            st["percell_tiles"] += 1
+            if cost.get("stage_layers"):
+                st["percell_stage_events"] += 1
+                st["percell_stage_layers"] += cost["stage_layers"]
+                st["percell_stage_bytes"] += cost["stage_bytes"]
+
+    # --------------------------------------------------- per-cell slots ----
+    def _cell_of(self, tile: _Tile) -> Optional[int]:
+        """The in-flight ring a tile occupies: its home cell under per-cell
+        dispatch, else the single global (None) ring."""
+        return tile.home_cell if self.percell else None
+
+    def _cell_in_flight(self, cell: Optional[int]) -> int:
+        return sum(1 for s in self._slots if self._cell_of(s[0]) == cell)
+
+    def _note_cell_dispatch(self, tile: _Tile) -> None:
+        """Per-cell occupancy at dispatch time: the cell's dispatches and
+        its peak of tiles in flight."""
+        if not self.percell:
+            return
+        cell = self._cell_of(tile)
+        n = self._cell_in_flight(cell)
+        cs = self.cell_stats.setdefault(
+            cell, {"dispatches": 0, "max_in_flight": 0})
+        cs["dispatches"] += 1
+        cs["max_in_flight"] = max(cs["max_in_flight"], n)
+        st = self.stats
+        if "percell_cells_active" in st:
+            st["percell_cells_active"] = len(self.cell_stats)
+        m = getattr(st, "m", None)
+        if m is not None:
+            label = "none" if cell is None else cell
+            m.cell_dispatches.labels(cell=label).inc()
+            m.cell_in_flight.labels(cell=label).set(n)
+            m.cell_max_in_flight.labels(cell=label).set(cs["max_in_flight"])
+
+    def drain_cell_one(self, cell: Optional[int]) -> bool:
+        """Drain the OLDEST in-flight tile of ONE cell's ring (it may sit
+        mid-deque: other cells' younger tiles stay in flight). Same
+        recovery, scatter and unpin as ``drain_one``."""
+        for i, s in enumerate(self._slots):
+            if self._cell_of(s[0]) == cell:
+                del self._slots[i]
+                self._finish_slot(*s)
+                return True
+        return False
 
     def _update_service_ewma(self, dt: float) -> None:
         prev = self.stats.get("tile_service_s_ewma")
@@ -809,13 +922,13 @@ class TileExecutor:
         most ``depth`` tiles are ever enqueued. A dispatch-time failure is
         resolved synchronously through the retry ladder and never occupies
         a slot."""
-        self.cache.pin(tile.scene_id)
+        self.cache.pin(tile.scene_id, cell=self._cell_of(tile))
         tr = self.tracer
         if tr.enabled:
             self._device_clock(tile)
             tr.event("tile.dispatch", cat="tile", tile=tile.tid,
                      scene=tile.scene_id, slot=len(self._slots),
-                     degraded=tile.degraded)
+                     degraded=tile.degraded, home_cell=tile.home_cell)
         try:
             handle, cost, extra = self._attempt(tile)
         except Exception as e:
@@ -828,20 +941,28 @@ class TileExecutor:
             arr, cost = self._resolve_sync(tile)
             self._account(tile, cost)
             self.completion.scatter(tile, arr)
-            self.cache.unpin(tile.scene_id)
+            self.cache.unpin(tile.scene_id, cell=self._cell_of(tile))
             return
         sp = (tr.begin("tile.device_compute", cat="tile", tile=tile.tid,
                        slot=len(self._slots))
               if tr.enabled else None)
         self._slots.append((tile, handle, self._clock(), extra, sp))
         self._account(tile, cost)
+        self._note_cell_dispatch(tile)
         self.stats["max_in_flight"] = max(self.stats["max_in_flight"],
                                           len(self._slots))
         m = getattr(self.stats, "m", None)
         if m is not None:
             m.in_flight_tiles.set(len(self._slots))
-        while len(self._slots) >= self.depth:
-            self.drain_one()
+        if self.percell:
+            # the depth budget is per cell: this tile's ring drains when
+            # its cell is full, other cells' tiles stay in flight
+            cell = self._cell_of(tile)
+            while self._cell_in_flight(cell) >= self.depth:
+                self.drain_cell_one(cell)
+        else:
+            while len(self._slots) >= self.depth:
+                self.drain_one()
 
     def drain_one(self) -> bool:
         """Materialize the OLDEST in-flight tile (the only wait in the
@@ -895,7 +1016,7 @@ class TileExecutor:
             m.in_flight_tiles.set(len(self._slots))
         self._update_service_ewma(dt)
         self.completion.scatter(tile, arr)
-        self.cache.unpin(tile.scene_id)
+        self.cache.unpin(tile.scene_id, cell=self._cell_of(tile))
 
 
 # ---------------------------------------------------------------------------
@@ -1008,7 +1129,12 @@ class RenderEngine:
     card has exactly this many rays, and only a tail tile carries padding.
     ``pipeline_depth`` bounds the executor's in-flight slots (1 =
     synchronous; >= 2 overlaps host coalescing and scatter with the card's
-    work).
+    work). ``route_by_shard`` routes each scene's tiles to a home cell by
+    the owner map of residents sharded over a cell list
+    (``PackedPlcore(shard_mesh=...)``), and ``percell_dispatch`` (with
+    it) runs every routed tile on its home cell: staged weights, the
+    cell's own CUDA stream, ``pipeline_depth`` slots per cell
+    (``percell_report``).
 
     Fault-tolerance knobs (all default to the fault-free behavior):
     ``max_queue`` bounds the request queue; requests with a ``deadline_s``
@@ -1031,7 +1157,8 @@ class RenderEngine:
 
     def __init__(self, cache: SceneCache, *, tile_rays: int = 512,
                  max_sticky_tiles: int = 64, clock=time.perf_counter,
-                 pipeline_depth: int = 1,
+                 pipeline_depth: int = 1, route_by_shard: bool = False,
+                 percell_dispatch: bool = False,
                  max_queue: Optional[int] = None,
                  aging_tiles: Optional[int] = None,
                  degrade_on_overload: bool = False,
@@ -1051,11 +1178,20 @@ class RenderEngine:
                  adaptive_grid_res: int = 32,
                  adaptive_probe_hw: int = 8,
                  tracer=None, registry=None):
+        if percell_dispatch and not route_by_shard:
+            raise ValueError("percell_dispatch executes tiles on their "
+                             "routed home cell — pass route_by_shard=True")
+        if adaptive_sampling and (route_by_shard or percell_dispatch):
+            # the probe and the memo read the replicated raw trunk params
+            raise ValueError("adaptive_sampling is a replicated "
+                             "single-cell feature — incompatible with "
+                             "route_by_shard / percell_dispatch")
         if adaptive_sampling and degrade_on_overload:
             raise ValueError("adaptive_sampling and degrade_on_overload "
                              "both rewrite the per-ray sample budget — "
                              "arm one")
         self.cache = cache
+        self.percell_dispatch = bool(percell_dispatch)
         self.faults = faults
         self._clock = clock
         # a per-engine registry backs the stats dict; the tracer records
@@ -1064,6 +1200,12 @@ class RenderEngine:
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.stats = engine_stats_view(self.registry)
+        # the routing and per-cell blocks are bound only when armed, so the
+        # default stats keep their keys
+        if route_by_shard:
+            extend_stats_view(self.stats, ROUTING_STATS_SCHEMA)
+        if percell_dispatch:
+            extend_stats_view(self.stats, PERCELL_STATS_SCHEMA)
         self.adaptive: Optional[AdaptiveSampling] = None
         if adaptive_sampling:
             # the sampling block is bound only when armed, so the default
@@ -1075,7 +1217,8 @@ class RenderEngine:
         cache.tracer = self.tracer
         self.scheduler = TileScheduler(
             cache, tile_rays=tile_rays, max_sticky_tiles=max_sticky_tiles,
-            stats=self.stats, clock=clock, max_queue=max_queue,
+            stats=self.stats, clock=clock, route_by_shard=route_by_shard,
+            max_queue=max_queue,
             aging_tiles=aging_tiles,
             degrade_on_overload=degrade_on_overload,
             degrade_queue_tiles=degrade_queue_tiles,
@@ -1102,7 +1245,7 @@ class RenderEngine:
             max_tile_retries=max_tile_retries,
             retry_backoff_s=retry_backoff_s,
             check_finite=check_finite, clock=clock, tracer=self.tracer,
-            adaptive=self.adaptive)
+            percell=percell_dispatch, adaptive=self.adaptive)
         # admission control needs the in-flight count; termination needs
         # the sink
         self.scheduler.completion = self.completion
@@ -1201,6 +1344,25 @@ class RenderEngine:
         if self.faults is not None:
             out["faults_injected"] = self.faults.summary()
         return out
+
+    def percell_report(self) -> Optional[dict]:
+        """The per-cell dispatch summary (``None`` unless the engine runs
+        with ``percell_dispatch``): per-cell dispatches and peak in-flight
+        tiles, and the one-time staging totals."""
+        if not self.percell_dispatch:
+            return None
+        st = self.stats
+        cells = {str(c): dict(v)
+                 for c, v in sorted(self.executor.cell_stats.items(),
+                                    key=lambda kv: (kv[0] is None, kv[0]))}
+        return {
+            "cells": cells,
+            "percell_tiles": st["percell_tiles"],
+            "stage_events": st["percell_stage_events"],
+            "stage_layers": st["percell_stage_layers"],
+            "stage_bytes": st["percell_stage_bytes"],
+            "cells_active": st["percell_cells_active"],
+        }
 
     def sampling_report(self) -> Optional[dict]:
         """The adaptive-sampling summary (``None`` unless the engine runs

@@ -20,16 +20,24 @@ Auxiliary residents (adaptive sampling's per-scene ``SceneAux``:
 calibration stats + trunk memo, attached by ``ensure_aux``) count against
 the same capacity at their LIVE size (the memo grows and evicts while
 serving, so eviction re-reads ``aux.nbytes``) and leave with their scene.
+
+The accounting is PER CELL: a replicated tensor costs its full size on
+every cell (so it counts once), but a resident whose trunk stacks are
+layer-sharded over a cell list (``PackedPlcore(..., shard_mesh=...)``)
+costs each cell only its shard (``device_nbytes``), so the same
+``capacity_mb`` holds about n_shards times more scenes. Under per-cell
+dispatch a pin may also name the tile's home cell (``pinned_cells``).
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.pipeline import PackedPlcore
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.runtime.sharding import LayerShards
 
 
 class SceneLoadError(RuntimeError):
@@ -43,18 +51,28 @@ class SceneLoadError(RuntimeError):
         self.fail_fast = fail_fast
 
 
+def device_nbytes(a) -> int:
+    """Per-cell resident bytes of one array: the most any single cell
+    holds. A tensor (replicated, or on one device) costs its full size; a
+    trunk stack sharded k ways over a cell list about size / k."""
+    if isinstance(a, LayerShards):
+        return max(a.cell_nbytes(c) for c in range(len(a.mesh)))
+    return a.numel() * a.element_size()
+
+
 def tree_nbytes(tree) -> int:
-    """Bytes of every tensor in a nested dict (other leaves count 0)."""
+    """Per-cell bytes of every array in a nested dict (``device_nbytes``;
+    other leaves count 0)."""
     if isinstance(tree, dict):
         return sum(tree_nbytes(v) for v in tree.values())
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
+    if isinstance(tree, (torch.Tensor, LayerShards)):
+        return device_nbytes(tree)
     return 0
 
 
 def plcore_nbytes(pp: PackedPlcore) -> int:
-    """Resident bytes of one loaded scene: raw params + RMCM quant tree +
-    packed kernel layout."""
+    """Per-cell resident bytes of one loaded scene: raw params + RMCM quant
+    tree + packed kernel layout, sharded stacks at their per-cell size."""
     return tree_nbytes(pp.params) + tree_nbytes(pp.quant) \
         + tree_nbytes(pp.packed)
 
@@ -89,6 +107,9 @@ class SceneCache:
         # scene -> auxiliary resident (sampling.SceneAux) riding the entry
         self._aux: Dict[str, object] = {}
         self._pins: Dict[str, int] = {}
+        # per-cell pins (per-cell dispatch): scene -> cell -> refcount, a
+        # sub-account of _pins; eviction still gates on the total
+        self._cell_pins: Dict[str, Dict[int, int]] = {}
         self.fail_backoff = int(fail_backoff)
         self.max_fail_backoff = int(max_fail_backoff)
         # scene -> [consecutive real failures, fail-fast credits left]
@@ -149,27 +170,47 @@ class SceneCache:
         self._evict_over_capacity(keep=scene_id)
         return aux
 
-    def pin(self, scene_id: str) -> None:
+    def pin(self, scene_id: str, cell: Optional[int] = None) -> None:
         """Refcount one in-flight use of a resident scene: a pinned entry
         is skipped by eviction until its last ``unpin`` (the executor pins
-        at tile dispatch and unpins when the tile's scatter drains)."""
+        at tile dispatch and unpins when the tile's scatter drains).
+        ``cell`` (per-cell dispatch) also books the pin to the tile's home
+        cell (``pinned_cells``); eviction still gates on the total."""
         self._pins[scene_id] = self._pins.get(scene_id, 0) + 1
+        if cell is not None:
+            by_cell = self._cell_pins.setdefault(scene_id, {})
+            by_cell[int(cell)] = by_cell.get(int(cell), 0) + 1
         if self.tracer.enabled:
             self.tracer.event("cache.pin", cat="cache", scene=scene_id,
-                              refs=self._pins[scene_id])
+                              cell=cell, refs=self._pins[scene_id])
 
-    def unpin(self, scene_id: str) -> None:
+    def unpin(self, scene_id: str, cell: Optional[int] = None) -> None:
         n = self._pins.get(scene_id, 0) - 1
         if n <= 0:
             self._pins.pop(scene_id, None)
         else:
             self._pins[scene_id] = n
+        if cell is not None:
+            by_cell = self._cell_pins.get(scene_id)
+            if by_cell is not None:
+                c = by_cell.get(int(cell), 0) - 1
+                if c <= 0:
+                    by_cell.pop(int(cell), None)
+                else:
+                    by_cell[int(cell)] = c
+                if not by_cell:
+                    self._cell_pins.pop(scene_id, None)
         if self.tracer.enabled:
             self.tracer.event("cache.unpin", cat="cache", scene=scene_id,
-                              refs=max(0, n))
+                              cell=cell, refs=max(0, n))
 
     def pinned(self, scene_id: str) -> bool:
         return scene_id in self._pins
+
+    def pinned_cells(self, scene_id: str) -> dict:
+        """cell -> in-flight pin refcount of one scene (empty when none of
+        its per-cell tiles is in flight)."""
+        return dict(self._cell_pins.get(scene_id, {}))
 
     def discard(self, scene_id: str) -> bool:
         """Drop one resident entry (and its aux) outside the LRU policy.

@@ -524,3 +524,100 @@ def test_training_entry_points_default_to_the_card(tmp_path):
               + list(ds.values()) + [ro, rd, gt]
               + adam.tree_leaves(restored))
     assert all(t.device.type == "cuda" for t in leaves)
+
+
+# ------------------------------------------------- SDF / SLF through K3 --
+# the SDF's and SLF's RMCM layers at full width: K = PEU.out_dim (259,
+# 262; not multiples of 8), the hidden widths, and the heads' N = 1 and 3
+_WORKLOAD_SHAPES = [(4096, 259, 256), (4096, 256, 256), (4096, 256, 1),
+                    (4096, 262, 256), (4096, 256, 128), (4096, 128, 3),
+                    (37, 259, 256), (37, 256, 1), (37, 128, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", _WORKLOAD_SHAPES)
+def test_rmcm_matmul_at_sdf_and_slf_shapes_on_card(m, k, n):
+    """K3 at the SDF and SLF layer shapes (f32 x, both routes) against its
+    plain version at the reference test's tolerances; the ragged edges at
+    N < 8 masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(m + 5 * k + 11 * n)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    packed = bridge.to_device(rmcm.pack(rmcm.quantize(w)), dev)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev)
+    n0 = k3.LAUNCHES["rmcm_matmul"]
+    got = k3.rmcm_matmul(x, packed)
+    want = ref.rmcm_matmul_ref(x, packed)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["rmcm_matmul"] == n0 + 1
+    assert got.shape == (m, n)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sdf_and_slf_route_rmcm_layers_through_k3_on_card():
+    """The generic MLP on the card: a ``pack_quant`` tree sends every layer
+    through K3 (one launch per layer and call), within 5e-3 of the plain
+    route (the unpacked tree) for the SDF's distances, its sphere trace and
+    the SLF's colours."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import encoding, mlp, sdf, slf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    peu = encoding.PEU("rff_iso", 3, n_features=128, sigma=2.0,
+                       generator=gen, device=dev)
+    p = bridge.to_device(torch_init(sdf.sdf_decls(peu),
+                                    torch.Generator().manual_seed(1)), dev)
+    q = rmcm.quantize_tree(p)
+    qp = mlp.pack_quant(q)
+    pts = torch.rand((1000, 3), generator=gen, device=dev) * 2 - 1
+    n0 = k3.LAUNCHES["rmcm_matmul"]
+    d_k3 = sdf.sdf_eval(peu, p, pts, quant=qp)
+    assert k3.LAUNCHES["rmcm_matmul"] == n0 + 5
+    d_plain = sdf.sdf_eval(peu, p, pts, quant=q)
+    assert k3.LAUNCHES["rmcm_matmul"] == n0 + 5
+    torch.testing.assert_close(d_k3, d_plain, atol=5e-3, rtol=0)
+    speu = slf.make_slf_peu(gen, device=dev)
+    sp = bridge.to_device(torch_init(slf.slf_decls(speu),
+                                     torch.Generator().manual_seed(2)), dev)
+    sq = rmcm.quantize_tree(sp)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((1000, 3), generator=gen, device=dev), dim=-1)
+    torch.testing.assert_close(
+        slf.slf_eval(speu, sp, pts, dirs, quant=mlp.pack_quant(sq)),
+        slf.slf_eval(speu, sp, pts, dirs, quant=sq), atol=5e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_percell_dispatch_on_one_card_with_eight_cells():
+    """The single-card stand-in: 8 cells on cuda:0, each with its own
+    stream; K2 per-cell tiles equal the replicated render bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.nerf_icarus import tiny
+    from repro_torch.core.pipeline import PackedPlcore
+    from repro_torch.runtime import sharding as rsh
+    import dataclasses
+    cfg = dataclasses.replace(tiny(), trunk_layers=8, skip_at=(4,))
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(0))
+    mesh = rsh.plcore_mesh(devices=["cuda:0"] * 8)
+    base = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True)
+    pp = PackedPlcore(cfg, params, use_kernel=True, fuse_two_pass=True,
+                      shard_mesh=mesh)
+    o, d = _rays(300)
+    want = base.render_tile(o, d).cpu().numpy()
+    streams = set()
+    for cell in range(8):
+        h, cost = pp.dispatch_tile(o, d, home_cell=cell, percell=True)
+        assert cost["cell"] == cell
+        assert np.array_equal(h.result(), want)
+        streams.add(rsh.cell_stream(mesh, cell))
+    assert len(streams) == 8 and None not in streams
+    assert np.array_equal(pp.render_tile(o, d).cpu().numpy(), want)

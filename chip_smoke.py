@@ -162,6 +162,25 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 18. Step 4's views also read the board's energy (NVML) over the timed
    views: ``uj_per_sample_measured`` must be measured (the RMCM + ERT
    run now serves 3 views).
+19. The multi-host cluster (``cluster_phase``, after step 17, so every
+   kernel is built before a heartbeat is watched): step 6's trace through
+   ``serve --hosts 2`` at full width, K2, four runs, each printed as a
+   ``cluster <label>:`` line. (a) ``kill``: ``--host-kill 1:@6``; K2's
+   launches equal the dispatches plus the synchronous failovers, no retry,
+   fallback or dispatch error, no heartbeat timeout, one kill, at least one
+   cross-host redispatch, each ok image equal to a direct render and the
+   check's cluster gates; rays/s beside the one-host engine and a two-host
+   engine without a kill on the same trace (cold, then warm in turns).
+   (b) ``chaos``: ``--inject-faults`` (the cluster chaos mix); every
+   recovery traces back to an injected fault. (c) ``traced``: the kill
+   with ``--trace-out``/``--metrics-out``; both validator verdicts ok,
+   ``host.kill``, ``tile.requeue`` and ``tile.abandon`` among the spans,
+   the four per-host families in the Prometheus text, the device busy
+   share, and the kill's recovery cost (re-queued tiles, ms from the kill
+   to the last of them scattering). (d) ``sharded``: two hosts over
+   ``split_devices(2, [cuda:0] * 8)`` (4 cells each), routed and per-cell,
+   host 1 killed at dispatch 6; images equal the replicated one-host
+   engine's bit for bit, and the check's sharding gates.
 
 Every main-path run zeroes the launch counters just before and reads
 them just after; the instances the main path runs (tiny()'s K2 in f32 and
@@ -767,6 +786,40 @@ def read_launches() -> dict:
             "k3_by_shape": dict(k3.SHAPE_LAUNCHES)}
 
 
+def direct_images(args, engine, trace, rb) -> tuple:
+    """Hold every ok image of an engine run against a direct
+    ``PackedPlcore.render_image`` of its pose (replicated, one host): bit
+    for bit, or within ``serve.ORACLE_ATOL`` where the oracle rung
+    rendered one of its tiles. Returns ``(n_exact, n_close)``."""
+    n_exact = n_close = 0
+    direct_models = {}
+    for rid, item in enumerate(trace):
+        res = engine.completed[rid]
+        if res.status != "ok":
+            continue
+        req = item.request
+        ro, rd = rays.camera_rays(
+            rays.pose_spherical(req.theta, req.phi, req.radius), req.hw,
+            req.hw, 0.9 * req.hw)
+        if req.scene_id not in direct_models:
+            direct_models[req.scene_id] = serve.load_plcore(
+                serve.model_config(args), args,
+                args.seed + int(req.scene_id.removeprefix("scene")))
+        direct = direct_models[req.scene_id].render_image(
+            ro, rd, rays_per_batch=args.tile_rays).cpu().numpy()
+        if res.fallbacks:
+            assert np.allclose(res.image, direct, rtol=0,
+                               atol=serve.ORACLE_ATOL), rid
+            n_close += 1
+        else:
+            assert np.array_equal(res.image, direct), (
+                rid, float(np.abs(res.image - direct).max()))
+            n_exact += 1
+    assert n_exact >= 1 and n_exact + n_close == \
+        rb["status_counts"].get("ok", 0), (n_exact, n_close, rb)
+    return n_exact, n_close
+
+
 def engine_phase(extra: list) -> dict:
     """The serving engine through ``serve --mode engine`` (its run, then
     its ``--check`` gates): launch counts zeroed just before the run and
@@ -800,32 +853,7 @@ def engine_phase(extra: list) -> dict:
     assert launches["fused_plcore_call"] == 2 * st["oracle_fallbacks"], (
         launches, st)
     assert launches["two_pass_plcore_call"] >= 1, launches
-    n_exact = n_close = 0
-    direct_models = {}
-    for rid, item in enumerate(trace):
-        res = engine.completed[rid]
-        if res.status != "ok":
-            continue
-        req = item.request
-        ro, rd = rays.camera_rays(
-            rays.pose_spherical(req.theta, req.phi, req.radius), req.hw,
-            req.hw, 0.9 * req.hw)
-        if req.scene_id not in direct_models:
-            direct_models[req.scene_id] = serve.load_plcore(
-                serve.model_config(args), args,
-                args.seed + int(req.scene_id.removeprefix("scene")))
-        direct = direct_models[req.scene_id].render_image(
-            ro, rd, rays_per_batch=args.tile_rays).cpu().numpy()
-        if res.fallbacks:
-            assert np.allclose(res.image, direct, rtol=0,
-                               atol=serve.ORACLE_ATOL), rid
-            n_close += 1
-        else:
-            assert np.array_equal(res.image, direct), (
-                rid, float(np.abs(res.image - direct).max()))
-            n_exact += 1
-    assert n_exact >= 1 and n_exact + n_close == \
-        rb["status_counts"].get("ok", 0), (n_exact, n_close, rb)
+    n_exact, n_close = direct_images(args, engine, trace, rb)
     compared = serve.check_engine(args, report, engine, rerun)
     extra_summary = {}
     if not args.inject_faults:
@@ -2057,6 +2085,228 @@ def percell_engine_phase() -> dict:
     return summary
 
 
+CLUSTER_ARGV = ENGINE_ARGV + ["--hosts", "2"]
+CLUSTER_KILL = ["--host-kill", "1:@6"]
+
+
+def cluster_launches(report: dict, launches: dict) -> dict:
+    """K2's launches of a cluster run against the engine's counters: one
+    per dispatch attempt that did not raise (primary and retry ladder), and
+    one per synchronous cross-host failover (the redispatch hook; the other
+    cross-host redispatches are re-queued tiles, already dispatches). K1
+    twice per oracle fallback. Returns the counts."""
+    st, cl = report["engine"], report["cluster"]
+    hook = cl["cross_host_redispatches"] - cl["failovers"]
+    want = st["dispatches"] + st["tile_retries"] - st["dispatch_errors"] \
+        + hook
+    assert launches["fused_plcore_call"] == 2 * st["oracle_fallbacks"], (
+        launches, st)
+    return {"k2": launches["two_pass_plcore_call"], "dispatches":
+            st["dispatches"], "tile_retries": st["tile_retries"],
+            "dispatch_errors": st["dispatch_errors"], "failover_hook": hook,
+            "accounted": want}
+
+
+def recovery_from_trace(tracer) -> dict:
+    """The kill's recovery cost from the span stream: the tiles re-queued
+    at ``host.kill`` and the time from the kill to the last of them
+    scattering on another host."""
+    spans = tracer.spans()
+    kills = [s for s in spans if s.name == "host.kill"]
+    assert len(kills) == 1, [s.attrs for s in kills]
+    t_kill = kills[0].t0
+    tids = {s.attrs["tile"] for s in spans if s.name == "tile.requeue"}
+    ends = [s.t1 for s in spans
+            if s.name == "tile.scatter" and s.attrs.get("tile") in tids]
+    assert len(ends) == len(tids) >= 1, (tids, ends)
+    redispatch = [s.attrs.get("host") for s in spans
+                  if s.name == "tile.dispatch" and s.attrs.get("tile") in tids
+                  and s.t0 > t_kill]
+    assert redispatch and 1 not in redispatch, redispatch
+    return {"requeued_tiles": len(tids),
+            "kill_to_last_scatter_ms": 1e3 * (max(ends) - t_kill)}
+
+
+def cluster_run(argv: list, shard_mesh=None) -> tuple:
+    """One cluster run through ``serve.run_engine``: counters zeroed just
+    before, read just after; the gates every cluster run shares (K2's
+    launches accounted for, no heartbeat timeout, each ok image equal to a
+    direct render, the serve check's gates). Returns ``(summary, report,
+    engine, trace, rerun)``."""
+    args = serve.build_parser().parse_args(argv)
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args,
+                                                    shard_mesh=shard_mesh)
+    launches = read_launches()
+    acc = cluster_launches(report, launches)
+    st, rb, cl = report["engine"], report["robustness"], report["cluster"]
+    assert report["device"].startswith("cuda"), report["device"]
+    assert report["hosts"] == 2 and cl["n_hosts"] == 2, report["hosts"]
+    # no hang is scheduled: every kill is one the run asked for
+    assert cl["heartbeat_timeouts"] == 0, cl
+    assert cl["host_kills"] == len(args.host_kill), cl
+    if args.inject_faults:
+        inj = rb["faults_injected"]["injected"]
+        # every recovery traces back to an injected fault: the failover
+        # hook draws dispatch and corrupt faults too, and declines those
+        # without counting them as the engine's
+        assert rb["dispatch_errors"] <= inj["dispatch_error"], (rb, inj)
+        assert rb["corrupt_tiles"] <= inj["corrupt"], (rb, inj)
+        assert rb["scene_load_errors"] == inj["loader_error"], (rb, inj)
+        assert cl["host_slow_events"] == inj["host_slow"], (cl, inj)
+        # a hook launch whose result was corrupted declines after it ran
+        assert acc["accounted"] <= acc["k2"] <= acc["accounted"] \
+            + inj["corrupt"], acc
+    else:
+        assert (rb["dispatch_errors"], rb["tile_retries"],
+                rb["oracle_fallbacks"], rb["corrupt_tiles"]) == \
+            (0, 0, 0, 0), rb
+        assert acc["k2"] == acc["accounted"] == st["dispatches"] + \
+            acc["failover_hook"], acc
+    if args.host_kill:
+        assert cl["requeued_tiles"] >= 1 and cl["failovers"] >= 1, cl
+        assert cl["cross_host_redispatches"] >= 1, cl
+        assert cl["hosts"][1]["state"] == "dead", cl["hosts"]
+    n_exact, n_close = direct_images(args, engine, trace, rb)
+    compared = serve.check_engine(args, report, engine, rerun)
+    summary = {
+        "rays_per_s": report["rays_per_s"], "wall_s": report["wall_s"],
+        "latency_ms": report["latency_ms"], "goodput": rb["goodput"],
+        "status_counts": rb["status_counts"], "launches_accounted": acc,
+        "dispatches_per_host": {h: v["dispatches"]
+                                for h, v in cl["hosts"].items()},
+        "host_states": {h: v["state"] for h, v in cl["hosts"].items()},
+        **{k: cl[k] for k in ("host_kills", "heartbeat_timeouts",
+                              "requeued_tiles", "failovers",
+                              "cross_host_redispatches", "host_slow_events",
+                              "slow_host_flags", "failover_latency_s",
+                              "quarantines", "quarantine_probes",
+                              "quarantine_recoveries")},
+        "tile_retries": rb["tile_retries"],
+        "oracle_fallbacks": rb["oracle_fallbacks"],
+        "dispatch_errors": rb["dispatch_errors"],
+        "corrupt_tiles": rb["corrupt_tiles"],
+        "straggler_redispatches": rb["straggler_redispatches"],
+        "images_exact_vs_direct": n_exact,
+        "images_within_oracle_atol": n_close, "check_compared": compared,
+        "launches": launches}
+    if args.inject_faults:
+        summary["faults_injected"] = rb["faults_injected"]["injected"]
+    return summary, report, engine, trace, rerun
+
+
+def warm_rays_per_s(engines: list, args) -> dict:
+    """The trace again on warm engines in turns (A, B, B, A ...): rays/s
+    of each turn by label."""
+    out: dict = {}
+    for label, eng, trace in engines:
+        rays0 = eng.stats["rays_rendered"]
+        t0 = time.perf_counter()
+        loadgen.run_trace(eng, trace, mode=args.loop,
+                          concurrency=args.concurrency)
+        out.setdefault(label, []).append(
+            (eng.stats["rays_rendered"] - rays0) / (time.perf_counter() - t0))
+    return out
+
+
+def cluster_phase() -> dict:
+    """The multi-host serving cluster at full width through ``serve
+    --mode engine --hosts 2`` (the engine phase's trace, K2), after the
+    engine phases so every kernel is built before a heartbeat is watched:
+
+    (a) clean with a kill (``--host-kill 1:@6``): K2's launches equal the
+        dispatches plus the synchronous failovers (none here: the
+        re-queued tiles' second dispatches are dispatches), no retry,
+        fallback or dispatch error, no heartbeat timeout, one kill, a
+        cross-host redispatch, each ok image equal to a direct render; the
+        check's cluster gates (bit for bit against a clean single-host
+        rerun). Rays/s beside the one-host engine and a two-host engine
+        without the kill on the same trace, cold and warm in turns.
+    (b) chaos (``--inject-faults``, the cluster chaos mix): every recovery
+        traces back to an injected fault.
+    (c) traced with the kill: both validator verdicts ok, ``host.kill``
+        among the spans, the per-host families in the Prometheus text, the
+        device busy share, and the kill's recovery cost from the trace.
+    (d) sharded through the API: two hosts over ``split_devices(2,
+        [cuda:0] * 8)`` (4 cells each, one stream per cell list slot),
+        routed and per-cell, host 1 killed at dispatch 6 (``abandon_all``
+        on cell streams); images equal the replicated single-host
+        engine's bit for bit, and the check's sharding gates."""
+    out = {}
+    # (a) and the one-host and two-host references on the same trace
+    kill, report, killed, trace, rerun = cluster_run(CLUSTER_ARGV
+                                                     + CLUSTER_KILL)
+    args = serve.build_parser().parse_args(ENGINE_ARGV)
+    one_report, one, _, _ = serve.run_engine(args)
+    two_report, two, _, _ = serve.run_engine(
+        serve.build_parser().parse_args(CLUSTER_ARGV))
+    assert two_report["cluster"]["host_kills"] == 0, two_report["cluster"]
+    assert two_report["cluster"]["heartbeat_timeouts"] == 0
+    assert serve.compare_images(killed, one, "one-host engine") >= 1
+    warm = warm_rays_per_s([("one_host", one, trace), ("two_hosts", two, trace),
+                            ("two_hosts", two, trace), ("one_host", one, trace)],
+                           args)
+    kill["rays_per_s_one_host"] = one_report["rays_per_s"]
+    kill["rays_per_s_two_hosts_no_kill"] = two_report["rays_per_s"]
+    kill["dispatches_per_host_no_kill"] = {
+        h: v["dispatches"] for h, v in two_report["cluster"]["hosts"].items()}
+    kill["warm_rays_per_s"] = warm
+    kill["card"] = smi("name,power.limit")
+    print(f"cluster kill: {json.dumps(kill)}", flush=True)
+    out["kill"] = kill
+    # (b)
+    chaos = cluster_run(CLUSTER_ARGV + ["--inject-faults"])[0]
+    assert chaos["faults_injected"]["host_slow"] >= 1, chaos
+    print(f"cluster chaos: {json.dumps(chaos)}", flush=True)
+    out["chaos"] = chaos
+    # (c)
+    trace_out = ROOT / "build" / "cluster_trace.json"
+    metrics_out = ROOT / "build" / "cluster_metrics.prom"
+    traced, report, engine, _, _ = cluster_run(
+        CLUSTER_ARGV + CLUSTER_KILL + ["--trace-out", str(trace_out),
+                                       "--metrics-out", str(metrics_out)])
+    obs = report["observability"]
+    assert obs["integrity"]["ok"] and obs["chrome_integrity"]["ok"], obs
+    names = {s.name for s in engine.tracer.spans()}
+    assert {"host.kill", "tile.requeue", "tile.abandon"} <= names, names
+    prom = metrics_out.read_text()
+    for family, kind in (("engine_host_dispatches_total", "counter"),
+                         ("engine_host_tile_service_seconds", "histogram"),
+                         ("engine_host_service_ewma_seconds", "gauge"),
+                         ("engine_host_state", "gauge")):
+        assert f"# TYPE {family} {kind}" in prom, family
+    assert 'engine_host_state{host="1"} 3' in prom, "host 1 not dead"
+    busy = obs["device_busy"]
+    k2_spans = traced["launches_accounted"]["k2"]
+    assert busy["busy_share"] is not None and 0 < busy["busy_share"] <= 1
+    assert busy["kernel_spans"] == report["engine"]["dispatches"] - \
+        traced["requeued_tiles"] <= k2_spans, (busy, traced)
+    traced.update(recovery_from_trace(engine.tracer))
+    traced.update({"device_busy": busy, "integrity": obs["integrity"],
+                   "chrome_integrity": obs["chrome_integrity"],
+                   "trace_bytes": trace_out.stat().st_size,
+                   "card": smi("name,power.limit")})
+    print(f"cluster traced: {json.dumps(traced)}", flush=True)
+    out["traced"] = traced
+    # (d)
+    mesh = sharding.plcore_mesh(devices=[DEV_INDEXED] * PERCELL_CELLS)
+    sharded, report, engine, _, _ = cluster_run(
+        CLUSTER_ARGV + CLUSTER_KILL + ["--shard-weights", "--route-by-shard",
+                                       "--percell-dispatch"],
+        shard_mesh=mesh)
+    groups = [h.mesh for h in engine.pool]
+    assert [len(g) for g in groups] == [PERCELL_CELLS // 2] * 2, groups
+    assert report["percell"]["percell_tiles"] == \
+        report["engine"]["dispatches"], report["percell"]
+    sharded["images_equal_replicated_one_host"] = serve.compare_images(
+        engine, one, "replicated single-host engine")
+    sharded["percell"] = report["percell"]
+    sharded["cells_per_host"] = [len(g) for g in groups]
+    print(f"cluster sharded: {json.dumps(sharded)}", flush=True)
+    out["sharded"] = sharded
+    return out
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2091,6 +2341,7 @@ def main() -> None:
     chaos = engine_phase(["--inject-faults"])
     traced = traced_engine_phase()
     percell = percell_engine_phase()
+    cluster = cluster_phase()
     budgets = budget_phase(cfg, params, peaks)
     view = adaptive_view_phase(cfg, params)
     adaptive = adaptive_engine_phase()
@@ -2105,7 +2356,8 @@ def main() -> None:
             clean["launches"], traced["launches"], view["launches"],
             adaptive["launches"], fig8_tiny["launches"],
             trained["launches"], sdf_run["launches"], slf_run["launches"],
-            percell["launches"]]
+            percell["launches"]] + [cluster[run]["launches"] for run in (
+                "kill", "chaos", "traced", "sharded")]
     main_path = {k: sum(r[k] for r in runs)
                  for k in ("fused_plcore_call", k2, "rmcm_matmul")}
     instances: dict = {}
@@ -2128,7 +2380,8 @@ def main() -> None:
                         "mma_route": "wgmma: 3xTF32 (f32 weights), bf16x3 "
                                      "(RMCM); weights by bulk copy",
                         "replaces": REPLACES[k], "launches": launches,
-                        "launches_on": ("main path" if k == k2
+                        "launches_on": ("main path, the four cluster "
+                                        "runs included" if k == k2
                                         else "oracle path and serve --tiled"),
                         "launches_by_instance": {
                             i: n for i, n in instances.items()
@@ -2184,6 +2437,9 @@ def main() -> None:
     print(json.dumps({"engine": {"clean": clean, "chaos": chaos,
                                  "adaptive": adaptive, "traced": traced,
                                  "percell": percell},
+                      "cluster": {run: {k: v for k, v in r.items()
+                                        if k != "launches"}
+                                  for run, r in cluster.items()},
                       "serve_energy": {
                           "f32": {k: v for k, v in main_serve.items()
                                   if k != "launches"},

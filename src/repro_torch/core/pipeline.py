@@ -93,6 +93,11 @@ class TileHandle:
             self._event = self._device_rgb = None
         return self._host.numpy()
 
+    def done(self) -> bool:
+        """Whether the tile's work has run, asked without waiting (an
+        event query); always true on the CPU."""
+        return self._event is None or self._event.query()
+
     def device_interval(self, anchor) -> Optional[tuple]:
         """(start, end) of the tile's work in seconds after the ``anchor``
         event (recorded earlier on the same device), or None on the CPU

@@ -37,6 +37,16 @@ by the owner map, and ``--percell-dispatch`` (with that) runs each routed
 tile on its home cell against staged weights on the cell's own stream.
 More cells than cards come through the Python API: ``run_engine(args,
 shard_mesh=plcore_mesh(devices=[...]))``.
+``--hosts N`` serves through the multi-host ``serving.ClusterEngine``: N
+hosts, each with its own scene cache and executor (under
+``--shard-weights`` each over its own group of the cells,
+``serving.split_devices``), behind one global scheduler with heartbeats,
+cross-host failover and per-host scene quarantine. ``--host-kill
+HOST:AT`` kills a host AT seconds after the start, or at the engine's
+dispatch count N with ``HOST:@N``; ``--host-slow HOST:AT`` adds
+``--host-slow-extra-ms`` to each of its dispatches from then on; with
+``--inject-faults`` the plan is the cluster chaos mix (host slow-downs
+on top of the single-host classes). On one card every host renders on it.
 Prints the loadgen report as JSON; ``--check`` gates it (see
 ``check_engine``). ``--trace-out PATH`` traces the primary engine's
 request and tile lifecycle (1 request chain in ``--trace-sample``; tiles
@@ -68,6 +78,10 @@ weights packed per call), and refuses ``--ert`` and ``--fuse-two-pass``.
         --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
         --loop closed --pipeline-depth 2 --tile-rays 4096 --check \\
         --trace-out runs/engine_trace.json --metrics-out runs/engine.prom
+    python -m repro_torch.launch.serve --mode engine --full --kernel \\
+        --fuse-two-pass --scenes 3 --requests 12 --hw-mix 64,128 \\
+        --loop closed --pipeline-depth 2 --tile-rays 4096 --hosts 2 \\
+        --host-kill 1:@6 --check
     python -m repro_torch.launch.serve --mode engine --full --kernel \\
         --fuse-two-pass --adaptive-sampling --scene-bias -0.1 --scenes 3 \\
         --requests 12 --hw-mix 64,128 --loop closed --pipeline-depth 2 \\
@@ -138,7 +152,8 @@ def budget_classes(args):
                          "kernel's dead rows; it requires --kernel "
                          "--fuse-two-pass")
     for flag, name in ((args.degrade_on_overload, "--degrade-on-overload"),
-                       (args.inject_faults, "--inject-faults")):
+                       (args.inject_faults, "--inject-faults"),
+                       (args.hosts > 1, "--hosts > 1")):
         if flag:
             raise SystemExit(f"--adaptive-sampling is incompatible with "
                              f"{name}")
@@ -332,18 +347,60 @@ def serve_nerf(args) -> dict:
 ORACLE_ATOL = 1e-3
 
 
+def parse_host_events(args) -> list:
+    """``--host-kill HOST:AT`` / ``--host-slow HOST:AT`` -> HostEvents. AT
+    is seconds from the engine's start, or ``@N`` for "when the engine's
+    dispatch count reaches N" (clockless, deterministic)."""
+    from repro_torch.serving import HostEvent
+
+    def parse(spec: str, kind: str):
+        host, sep, at = spec.partition(":")
+        if not sep or not at:
+            raise SystemExit(f"--host-{kind}: expected HOST:AT_S or "
+                             f"HOST:@DISPATCHES, got {spec!r}")
+        try:
+            at_s = at_dispatch = None
+            if at.startswith("@"):
+                at_dispatch = int(at[1:])
+            else:
+                at_s = float(at)
+            return HostEvent(kind, int(host), at_s=at_s,
+                             at_dispatch=at_dispatch,
+                             extra_s=args.host_slow_extra_ms / 1e3)
+        except ValueError:
+            raise SystemExit(f"--host-{kind}: expected HOST:AT_S or "
+                             f"HOST:@DISPATCHES, got {spec!r}") from None
+
+    events = ([parse(s, "kill") for s in args.host_kill]
+              + [parse(s, "slow") for s in args.host_slow])
+    if args.hosts < 1:
+        raise SystemExit(f"--hosts must be >= 1, got {args.hosts}")
+    if events and args.hosts < 2:
+        raise SystemExit("--host-kill/--host-slow need --hosts >= 2 "
+                         "(a single-host engine has no pool)")
+    for e in events:
+        if not 0 <= e.host < args.hosts:
+            raise SystemExit(f"--host-{e.kind}: host {e.host} is not in "
+                             f"the pool of {args.hosts}")
+    return events
+
+
 def run_engine(args, shard_mesh=None):
     """Serve the trace of ``--mode engine``: returns ``(report, engine,
     trace, rerun)``. Request ids follow the trace order. ``rerun(depth,
     adaptive=None, routed=None)`` serves the same trace again on a clean
     engine at ``depth`` (no fault plan, a fresh cache, not per-cell;
-    ``routed`` defaults to ``--route-by-shard``) and returns that engine.
-    ``shard_mesh`` (a cell list) replaces the one of ``--shard-weights``,
-    e.g. more cells than the machine has cards."""
-    from repro_torch.serving import (FaultConfig, FaultPlan, RenderEngine,
-                                     SceneCache, loadgen)
+    ``routed`` defaults to ``--route-by-shard``) and returns that engine;
+    the reruns are single-host. ``shard_mesh`` (a cell list) replaces the
+    one of ``--shard-weights``, e.g. more cells than the machine has
+    cards; under ``--hosts`` its cells are split into the hosts' groups."""
+    from repro_torch.runtime import sharding as rsh
+    from repro_torch.serving import (ClusterEngine, FaultConfig, FaultPlan,
+                                     RenderEngine, SceneCache, loadgen,
+                                     split_devices)
 
     sharding_guards(args)
+    host_events = parse_host_events(args)
     cfg = model_config(args)
     classes = budget_classes(args)
     scene_ids = [f"scene{i}" for i in range(args.scenes)]
@@ -353,14 +410,34 @@ def run_engine(args, shard_mesh=None):
         raise SystemExit("a shard_mesh serves sharded residents; set "
                          "--shard-weights")
 
-    def load_scene(scene_id: str) -> PackedPlcore:
-        # one synthetic model per scene id: a distinct weight draw stands
-        # in for a distinct trained checkpoint
-        return load_plcore(cfg, args, args.seed + scene_ids.index(scene_id),
-                           shard_mesh=shard_mesh)
+    dev = torch.device(args.device)
+    # the hosts' device groups: the cells of the sharded residents split
+    # into contiguous groups, each host's residents sharded over its own;
+    # without sharding every host renders on --device
+    device_groups, host_meshes = None, [shard_mesh] * args.hosts
+    if args.hosts > 1:
+        device_groups = split_devices(
+            args.hosts, list(shard_mesh) if shard_mesh is not None
+            else [dev] if dev.type != "cuda" else None)
+        if shard_mesh is not None:
+            host_meshes = [rsh.plcore_mesh(args.shard_devices, devices=g)
+                           for g in device_groups]
 
-    plan = (FaultPlan(FaultConfig.chaos(args.fault_seed))
-            if args.inject_faults else None)
+    def make_loader(mesh):
+        def load_scene(scene_id: str) -> PackedPlcore:
+            # one synthetic model per scene id: a distinct weight draw
+            # stands in for a distinct trained checkpoint
+            return load_plcore(cfg, args,
+                               args.seed + scene_ids.index(scene_id),
+                               shard_mesh=mesh)
+        return load_scene
+
+    load_scene = make_loader(shard_mesh)
+    plan = None
+    if args.inject_faults:
+        plan = FaultPlan(FaultConfig.cluster_chaos(args.fault_seed)
+                         if args.hosts > 1
+                         else FaultConfig.chaos(args.fault_seed))
     prior_s = (None if args.service_prior_ms is None
                else args.service_prior_ms / 1e3)
     # --trace-out traces the PRIMARY engine only: the reruns stay
@@ -375,10 +452,12 @@ def run_engine(args, shard_mesh=None):
                     percell: bool = False) -> RenderEngine:
         # reference reruns are clean: no fault plan (reusing this run's
         # plan would continue its streams, not replay them), a fresh
-        # cache with the unwrapped loader, and never per-cell: the
-        # mesh-wide engine is the anchor a per-cell run is held to
-        loader = (plan.wrap_loader(load_scene) if chaos and plan is not None
-                  else load_scene)
+        # cache with the unwrapped loader, one host, and never per-cell:
+        # the mesh-wide single-host engine is the anchor a multi-host or
+        # per-cell run is held to
+        def wrap(loader):
+            return (plan.wrap_loader(loader) if chaos and plan is not None
+                    else loader)
         if adaptive is None:
             adaptive = args.adaptive_sampling
         # the adaptive keywords only when armed: an adaptive-off engine is
@@ -391,13 +470,20 @@ def run_engine(args, shard_mesh=None):
             kw["route_by_shard"] = True
         if percell:
             kw["percell_dispatch"] = True
-        return RenderEngine(SceneCache(loader, capacity_mb=args.cache_mb),
-                            tile_rays=args.tile_rays, pipeline_depth=depth,
-                            max_queue=args.max_queue,
-                            degrade_on_overload=args.degrade_on_overload,
-                            faults=plan if chaos else None,
-                            tile_service_prior_s=prior_s,
-                            tracer=tracer if chaos else None, **kw)
+        kw.update(tile_rays=args.tile_rays, pipeline_depth=depth,
+                  max_queue=args.max_queue,
+                  degrade_on_overload=args.degrade_on_overload,
+                  faults=plan if chaos else None,
+                  tile_service_prior_s=prior_s,
+                  tracer=tracer if chaos else None)
+        if chaos and args.hosts > 1:
+            caches = [SceneCache(wrap(make_loader(m)),
+                                 capacity_mb=args.cache_mb)
+                      for m in host_meshes]
+            return ClusterEngine(caches, meshes=host_meshes,
+                                 device_groups=device_groups, **kw)
+        return RenderEngine(SceneCache(wrap(load_scene),
+                                       capacity_mb=args.cache_mb), **kw)
 
     engine = make_engine(args.pipeline_depth, chaos=True,
                          percell=args.percell_dispatch)
@@ -409,12 +495,12 @@ def run_engine(args, shard_mesh=None):
         priorities=tuple(int(p) for p in args.priority_mix.split(",")),
         deadline_choices=deadline_choices, seed=args.seed)
     report = loadgen.run_trace(engine, trace, mode=args.loop,
-                               concurrency=args.concurrency)
+                               concurrency=args.concurrency,
+                               host_events=host_events or None)
     if tracer is not None:
         # a last drain closes the span chains of any slot still in flight
         engine.drain()
     observability = export_observability(args, engine, tracer)
-    dev = torch.device(args.device)
     report = {"device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
@@ -428,9 +514,10 @@ def run_engine(args, shard_mesh=None):
               "route_by_shard": bool(args.route_by_shard),
               "percell_dispatch": bool(args.percell_dispatch),
               "inject_faults": bool(args.inject_faults),
+              "hosts": args.hosts,
+              "host_events": [f"{e.kind}:{e.host}" for e in host_events],
               "deadline_ms": args.deadline_ms, **report}
     if shard_mesh is not None:
-        from repro_torch.runtime import sharding as rsh
         report["shard_devices"] = len(shard_mesh)
         report["weight_shards"] = rsh.plcore_shard_count(shard_mesh,
                                                          cfg.trunk_layers)
@@ -523,24 +610,29 @@ def compare_images(engine, ref, label: str) -> int:
 
 
 def check_engine(args, report: dict, engine, rerun) -> dict:
-    """The ``--check`` gates of one host: every request completes, the
-    scene cache hits, coalescing issues no more dispatches than the
-    per-request baseline (not under ``--adaptive-sampling``, whose budget
-    buckets split a request's rays over per-class tiles on purpose); under
+    """The ``--check`` gates: every request completes, the scene cache
+    hits, coalescing issues no more dispatches than the per-request
+    baseline (not counting the second dispatch of a tile a killed host
+    abandoned, and not under ``--adaptive-sampling``, whose budget buckets
+    split a request's rays over per-class tiles on purpose); under
     ``--inject-faults`` the plan injected something, goodput is at least
     0.75 and ok images equal a clean rerun's; at depth >= 2 (closed loop)
     two tiles were in flight at once and the images equal a depth-1
     rerun's. Under ``--adaptive-sampling`` (``check_adaptive``): a tile
     took the adaptive path, the memo served hits, every budget class
     rendered rays, and an adaptive-off rerun at this depth equals one at
-    depth 1. With ``--shard-weights``, ``check_sharding``'s gates. Returns
-    the counts compared."""
+    depth 1. With ``--shard-weights``, ``check_sharding``'s gates; with
+    ``--host-kill``/``--host-slow``, ``check_cluster``'s. Returns the
+    counts compared."""
     if report["requests_completed"] != args.requests:
         raise SystemExit(f"engine check: {report['requests_completed']}"
                          f"/{args.requests} requests completed")
     if report["cache"]["hit_rate"] <= 0.0:
         raise SystemExit("engine check: scene-cache hit rate is 0")
-    if report["dispatch_savings"] < 0 and not args.adaptive_sampling:
+    # a tile a killed host abandoned is dispatched again on another host:
+    # recovery work, not coalescing, so it leaves the comparison
+    redone = report.get("cluster", {}).get("failovers", 0)
+    if report["dispatch_savings"] + redone < 0 and not args.adaptive_sampling:
         raise SystemExit("engine check: coalescing issued MORE dispatches "
                          "than the per-request baseline")
     if args.trace_out:
@@ -556,6 +648,8 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
                              f"< 0.75")
         compared["clean"] = compare_images(
             engine, rerun(args.pipeline_depth), "clean (no-fault)")
+    if args.hosts > 1:
+        compared.update(check_cluster(args, report, engine, rerun))
     if args.pipeline_depth > 1:
         # occupancy is deterministic only in the clockless closed loop
         if args.loop == "closed" and report["engine"]["max_in_flight"] < 2:
@@ -568,6 +662,37 @@ def check_engine(args, report: dict, engine, rerun) -> dict:
         compared["adaptive_off"] = check_adaptive(args, report, rerun)
     if args.shard_weights:
         compared.update(check_sharding(args, report, engine, rerun))
+    return compared
+
+
+def check_cluster(args, report: dict, engine, rerun) -> dict:
+    """The multi-host gates under scheduled host events: goodput is at
+    least 0.75, every ok image equals a clean single-host rerun's (under
+    ``--inject-faults`` ``check_engine`` has compared it already), an
+    armed kill killed a host, and a kill at a dispatch count in the
+    closed loop sent at least one tile across hosts. Returns the counts
+    of images compared."""
+    events = parse_host_events(args)
+    if not events:
+        return {}
+    cl, rb = report["cluster"], report["robustness"]
+    if rb["goodput"] is None or rb["goodput"] < 0.75:
+        raise SystemExit(f"engine check: goodput {rb['goodput']} < 0.75 "
+                         f"under host events")
+    compared = {}
+    if not args.inject_faults:
+        compared["single_host"] = compare_images(
+            engine, rerun(args.pipeline_depth), "clean single-host")
+    kills = [e for e in events if e.kind == "kill"]
+    if kills and cl["host_kills"] < 1:
+        raise SystemExit("engine check: --host-kill armed but no host died")
+    if (args.loop == "closed" and any(e.at_dispatch is not None
+                                      for e in kills)
+            and cl["cross_host_redispatches"] < 1):
+        raise SystemExit("engine check: a host was killed mid-run but no "
+                         "tile was redispatched across hosts "
+                         "(cross_host_redispatches = 0): failover did not "
+                         "engage")
     return compared
 
 
@@ -718,6 +843,25 @@ def build_parser():
     ap.add_argument("--inject-faults", action="store_true",
                     help="arm the seeded chaos fault plan")
     ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="serve through the multi-host ClusterEngine: N "
+                         "hosts (each its own scene cache and executor, "
+                         "under --shard-weights over its own group of the "
+                         "cells) behind one global scheduler with "
+                         "heartbeats, cross-host failover and per-host "
+                         "scene quarantine")
+    ap.add_argument("--host-kill", action="append", default=[],
+                    metavar="HOST:AT",
+                    help="kill host HOST AT seconds after the start, or at "
+                         "the engine's dispatch count N with HOST:@N; "
+                         "repeatable; needs --hosts >= 2")
+    ap.add_argument("--host-slow", action="append", default=[],
+                    metavar="HOST:AT",
+                    help="from AT (seconds, or @dispatches) every dispatch "
+                         "on HOST pays --host-slow-extra-ms more latency; "
+                         "repeatable; needs --hosts >= 2")
+    ap.add_argument("--host-slow-extra-ms", type=float, default=50.0,
+                    help="the added per-dispatch latency of --host-slow")
     ap.add_argument("--service-prior-ms", type=float, default=None,
                     help="per-tile service time assumed by admission "
                          "control before the first tile drains")

@@ -287,8 +287,8 @@ ENGINE_STATS_SCHEMA = (
      "admission-control service estimator"),
 )
 
-# The cluster engine's stats block, the reference's, for the multi-host
-# engine still to port (ROADMAP queue 1 item 4).
+# The cluster engine's stats block, bound by ``extend_stats_view`` when a
+# ``serving.cluster.ClusterEngine`` is built.
 CLUSTER_STATS_SCHEMA = (
     ("cross_host_redispatches", "counter", 0,
      "tiles recovered on another host"),
@@ -420,8 +420,9 @@ class StatsView(dict):
 
 class EngineMetrics:
     """The derived per-phase instruments one engine owns: occupancy
-    gauges and per-phase latency histograms. Units are seconds
-    (histograms) and plain counts (gauges)."""
+    gauges, per-phase latency histograms, and the labeled per-host,
+    per-cell and per-budget families. Units are seconds (histograms) and
+    plain counts (gauges)."""
 
     def __init__(self, registry: MetricsRegistry, prefix: str = "engine"):
         self.queue_depth = registry.gauge(
@@ -446,6 +447,18 @@ class EngineMetrics:
         self.request_latency_seconds = registry.histogram(
             f"{prefix}_request_latency_seconds",
             "submit -> terminal status per delivered request", unit="s")
+        # per-host families (cluster runs): {host=...} children
+        self.host_dispatches = registry.counter(
+            f"{prefix}_host_dispatches_total", "tiles dispatched per host")
+        self.host_service_seconds = registry.histogram(
+            f"{prefix}_host_tile_service_seconds",
+            "per-tile service time per host", unit="s")
+        self.host_service_ewma = registry.gauge(
+            f"{prefix}_host_service_ewma_seconds",
+            "per-host service EWMA (straggler/health input)", unit="s")
+        self.host_state = registry.gauge(
+            f"{prefix}_host_state",
+            "host lifecycle (0 healthy / 1 suspect / 2 draining / 3 dead)")
         # per-cell families (per-cell dispatch runs): tiles and slot
         # occupancy by home cell
         self.cell_dispatches = registry.counter(
@@ -478,6 +491,7 @@ def engine_stats_view(registry: MetricsRegistry) -> StatsView:
 
 def extend_stats_view(view: StatsView, schema) -> StatsView:
     """Append a schema block (``SAMPLING_STATS_SCHEMA``,
-    ``ROUTING_STATS_SCHEMA``, ``PERCELL_STATS_SCHEMA``) to an existing
+    ``ROUTING_STATS_SCHEMA``, ``PERCELL_STATS_SCHEMA``,
+    ``CLUSTER_STATS_SCHEMA``) to an existing
     view: same registry, same write-through binding."""
     return view.bind_schema(schema)

@@ -218,7 +218,10 @@ class _Tile:
     completion. ``spans`` records which request contributed which rays
     (``(_Active, start, take)``: ``start`` an int for a contiguous span,
     an index array for an adaptive bucket's rays), so completion can
-    scatter out of order."""
+    scatter out of order. ``host_id`` and ``prev_host`` matter only under
+    the multi-host cluster (``serving.cluster``): the host the tile is
+    placed on, and the last host that dispatched it (a dispatch on another
+    host is the cross-host failover the cluster counts)."""
     scene_id: str
     pp: object                  # resident PackedPlcore
     spans: List[tuple]
@@ -229,6 +232,8 @@ class _Tile:
     degraded: bool = False      # coarse-only program
     budget: Optional[int] = None   # adaptive fine-sample budget
     dead_bucket: bool = False   # rays all hinted dead: resolve the memo
+    host_id: Optional[int] = None     # cluster placement
+    prev_host: Optional[int] = None   # last host that dispatched it
     tid: int = -1               # deterministic trace id
 
 
@@ -525,8 +530,10 @@ class TileScheduler:
 
     def _resolve_scene(self):
         """The best loadable scene and its resident weights:
-        ``(scene_id, pp, cands)``, or ``None`` when no request has rays
-        left (or every candidate scene's loader is failing)."""
+        ``(scene_id, pp, cands, host_id)``, or ``None`` when no request has
+        rays left (or every candidate scene's loader is failing).
+        ``host_id`` is ``None`` here; the multi-host ``ClusterScheduler``
+        overrides this to fold host placement into the same decision."""
         tried = set()
         while True:
             cands = [a for a in self._schedulable()
@@ -541,7 +548,7 @@ class TileScheduler:
                 tried.add(scene)
                 self._note_load_failure(scene, e)
                 continue
-            return scene, pp, cands
+            return scene, pp, cands, None
 
     def _bucket(self, scene: str, pp, scene_cands: List[_Active]):
         """Adaptive sampling: ``(bucket, budget, n_buckets)`` of the next
@@ -576,7 +583,7 @@ class TileScheduler:
         resolved = self._resolve_scene()
         if resolved is None:
             return None
-        scene, pp, cands = resolved
+        scene, pp, cands, host_id = resolved
         if scene != self._current_scene:
             self.stats["scene_switches"] += 1
             self._current_scene = scene
@@ -640,12 +647,13 @@ class TileScheduler:
                      budget=budget,
                      dead_bucket=(bucket is not None
                                   and bucket == n_buckets - 1),
-                     tid=tid)
+                     host_id=host_id, tid=tid)
         tr = self.tracer
         if tr.enabled:
             tr.complete("tile.coalesce", t_coalesce0, cat="tile", tile=tid,
                         scene=scene, rays=n, pad=pad, requests=len(spans),
-                        degraded=degraded, budget_class=budget)
+                        host=host_id, degraded=degraded,
+                        budget_class=budget)
         m = getattr(self.stats, "m", None)
         if m is not None:
             m.coalesce_seconds.observe(self._clock() - t_coalesce0)
@@ -679,7 +687,13 @@ class TileExecutor:
     ``percell``: routed tiles run on their home cell (staged weights, the
     cell's own CUDA stream), and the in-flight budget is counted per cell:
     each cell gets its own ``depth`` slots, so two cells hold different
-    scenes' tiles at once instead of sharing one ring."""
+    scenes' tiles at once instead of sharing one ring.
+
+    ``redispatch_hook`` (the cluster's cross-host failover) is tried
+    before the local retry ladder: a tile that failed here is first
+    offered to another host, and the ladder runs only when the hook
+    returns ``None``. ``abandon_all`` drops every slot without waiting on
+    the card (a killed host's tiles, re-queued by the cluster)."""
 
     def __init__(self, completion: "CompletionSink", cache: SceneCache,
                  stats: dict, depth: int = 1, *,
@@ -688,7 +702,8 @@ class TileExecutor:
                  retry_backoff_s: float = 0.0,
                  max_retry_backoff_s: float = 0.05,
                  check_finite: bool = True, clock=time.perf_counter,
-                 sleep=time.sleep, tracer=None, percell: bool = False,
+                 sleep=time.sleep, redispatch_hook=None, tracer=None,
+                 percell: bool = False,
                  adaptive: Optional[AdaptiveSampling] = None):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
@@ -705,6 +720,8 @@ class TileExecutor:
         self.percell = bool(percell)
         # cell -> {"dispatches", "max_in_flight"} (per-cell dispatch)
         self.cell_stats: Dict[Optional[int], dict] = {}
+        # cluster failover, tried before the local retry ladder
+        self.redispatch_hook = redispatch_hook
         self.max_tile_retries = int(max_tile_retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.max_retry_backoff_s = float(max_retry_backoff_s)
@@ -712,6 +729,9 @@ class TileExecutor:
         self._clock = clock
         self._sleep = sleep
         self._slots: deque = deque()    # (tile, handle, t0, extra_s, span)
+        # handles of abandoned slots, held until their work has run on the
+        # card so no buffer it still writes goes back to an allocator
+        self._abandoned: List[object] = []
         # (event, tracer clock, device index): see _device_clock
         self._anchor = None
 
@@ -741,8 +761,8 @@ class TileExecutor:
             tr = self.tracer
             if tr.enabled:
                 tr.event("tile.adaptive", cat="tile", tile=tile.tid,
-                         budget_class=tile.budget, dead=info["dead"],
-                         full_dead=info["full_dead"])
+                         host=tile.host_id, budget_class=tile.budget,
+                         dead=info["dead"], full_dead=info["full_dead"])
             handle = tile.pp.handle(rgb, start)
             cost = _gather_cost(tile)
         else:
@@ -753,7 +773,8 @@ class TileExecutor:
                 kw.update(home_cell=tile.home_cell, percell=self.percell)
             if self.tracer.enabled:
                 kw.update(tracer=self.tracer, trace_attrs={
-                    "tile": tile.tid, "scene": tile.scene_id})
+                    "tile": tile.tid, "host": tile.host_id,
+                    "scene": tile.scene_id})
             handle, cost = tile.pp.dispatch_tile(
                 tile.rays_o, tile.rays_d, coarse_only=tile.degraded, **kw)
         extra = (fault["extra_s"]
@@ -778,15 +799,21 @@ class TileExecutor:
         failed or drained corrupt: up to ``max_tile_retries`` fresh
         dispatches (each a new fault-plan event, with capped exponential
         backoff between them), then the oracle program, which the fault
-        plan never touches. Returns ``(finite rgb ndarray, gather_cost)``."""
+        plan never touches. A ``redispatch_hook`` (cross-host failover) is
+        tried first; the local ladder is the last rung. Returns ``(finite
+        rgb ndarray, gather_cost)``."""
         st = self.stats
         tr = self.tracer
+        if self.redispatch_hook is not None:
+            resolved = self.redispatch_hook(tile)
+            if resolved is not None:
+                return resolved
         for attempt in range(self.max_tile_retries):
             st["tile_retries"] += 1
             self._bump_retries(tile)
             if tr.enabled:
                 tr.event("tile.retry", cat="tile", tile=tile.tid,
-                         attempt=attempt + 1)
+                         host=tile.host_id, attempt=attempt + 1)
             if self.retry_backoff_s > 0.0:
                 self._sleep(min(self.retry_backoff_s * (2 ** attempt),
                                 self.max_retry_backoff_s))
@@ -808,7 +835,8 @@ class TileExecutor:
             st["corrupt_tiles"] += 1
         st["oracle_fallbacks"] += 1
         if tr.enabled:
-            tr.event("tile.fallback", cat="tile", tile=tile.tid)
+            tr.event("tile.fallback", cat="tile", tile=tile.tid,
+                     host=tile.host_id)
         for a, _, _ in tile.spans:
             if not a.terminal:
                 a.fallbacks += 1
@@ -927,8 +955,9 @@ class TileExecutor:
         if tr.enabled:
             self._device_clock(tile)
             tr.event("tile.dispatch", cat="tile", tile=tile.tid,
-                     scene=tile.scene_id, slot=len(self._slots),
-                     degraded=tile.degraded, home_cell=tile.home_cell)
+                     scene=tile.scene_id, host=tile.host_id,
+                     slot=len(self._slots), degraded=tile.degraded,
+                     home_cell=tile.home_cell)
         try:
             handle, cost, extra = self._attempt(tile)
         except Exception as e:
@@ -937,14 +966,14 @@ class TileExecutor:
             self.stats["dispatch_errors"] += 1
             if tr.enabled:
                 tr.event("tile.dispatch_error", cat="tile", tile=tile.tid,
-                         error=str(e)[:120])
+                         host=tile.host_id, error=str(e)[:120])
             arr, cost = self._resolve_sync(tile)
             self._account(tile, cost)
             self.completion.scatter(tile, arr)
             self.cache.unpin(tile.scene_id, cell=self._cell_of(tile))
             return
         sp = (tr.begin("tile.device_compute", cat="tile", tile=tile.tid,
-                       slot=len(self._slots))
+                       host=tile.host_id, slot=len(self._slots))
               if tr.enabled else None)
         self._slots.append((tile, handle, self._clock(), extra, sp))
         self._account(tile, cost)
@@ -979,7 +1008,8 @@ class TileExecutor:
         tr.end(sp)
         if tr.enabled:
             self._device_span(tile, handle)
-            tr.event("tile.drain", cat="tile", tile=tile.tid)
+            tr.event("tile.drain", cat="tile", tile=tile.tid,
+                     host=tile.host_id)
         if self.faults is not None:
             bad = self.faults.corrupt_tile(arr)
             if bad is not None:
@@ -995,7 +1025,7 @@ class TileExecutor:
                 self.stats["straggler_redispatches"] += 1
                 if tr.enabled:
                     tr.event("tile.straggler_redispatch", cat="tile",
-                             tile=tile.tid)
+                             tile=tile.tid, host=tile.host_id)
                 arr, _ = self._resolve_sync(tile)
                 redispatched = True
             elif extra > 0.0:
@@ -1007,7 +1037,8 @@ class TileExecutor:
         if not redispatched and not self._is_finite(arr, tile):
             self.stats["corrupt_tiles"] += 1
             if tr.enabled:
-                tr.event("tile.corrupt", cat="tile", tile=tile.tid)
+                tr.event("tile.corrupt", cat="tile", tile=tile.tid,
+                         host=tile.host_id)
             arr, _ = self._resolve_sync(tile)
         dt = self._clock() - t0
         m = getattr(self.stats, "m", None)
@@ -1017,6 +1048,34 @@ class TileExecutor:
         self._update_service_ewma(dt)
         self.completion.scatter(tile, arr)
         self.cache.unpin(tile.scene_id, cell=self._cell_of(tile))
+
+    def drain_all(self) -> None:
+        while self.drain_one():
+            pass
+
+    def abandon_all(self) -> List[_Tile]:
+        """Drop every in-flight slot, of every cell's ring, WITHOUT
+        materializing it (a dead host's results are unreachable) and
+        release the scene pins; returns the abandoned tiles for the cluster
+        to re-queue on another host. Their rays were already handed out,
+        so re-queueing the tiles (not rewinding the requests) keeps every
+        submit answered once. Nothing here waits on the card: the handles
+        are kept until their work has run (``TileHandle.done``), so the
+        buffers the card still writes are not reused meanwhile."""
+        tiles = []
+        tr = self.tracer
+        self._abandoned = [h for h in self._abandoned if not h.done()]
+        while self._slots:
+            tile, handle, _t0, _extra, sp = self._slots.popleft()
+            tr.end(sp, abandoned=True)
+            if tr.enabled:
+                tr.event("tile.abandon", cat="tile", tile=tile.tid,
+                         host=tile.host_id)
+            self.cache.unpin(tile.scene_id, cell=self._cell_of(tile))
+            if not handle.done():
+                self._abandoned.append(handle)
+            tiles.append(tile)
+        return tiles
 
 
 # ---------------------------------------------------------------------------
@@ -1059,7 +1118,7 @@ class CompletionSink:
         tr = self.tracer
         if tr.enabled:
             tr.complete("tile.scatter", t0, cat="tile", tile=tile.tid,
-                        scene=tile.scene_id, late=late)
+                        scene=tile.scene_id, host=tile.host_id, late=late)
         m = getattr(self.stats, "m", None)
         if m is not None:
             m.scatter_seconds.observe(self._clock() - t0)

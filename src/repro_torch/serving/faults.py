@@ -46,6 +46,12 @@ class FaultConfig:
     straggler_rate: float = 0.0        # dispatch gets artificial latency
     straggler_extra_s: float = 0.25    # the injected extra latency
     corrupt_inf_fraction: float = 0.5  # Inf vs NaN mix for corrupt rows
+    # host-level event site (multi-host cluster only): one draw per tile
+    # placement on a host, from that host's own seeded stream, so host 1's
+    # fate does not depend on how many tiles host 0 served
+    host_kill_rate: float = 0.0        # the whole host dies (failover)
+    host_slow_rate: float = 0.0        # this dispatch pays extra latency
+    host_slow_extra_s: float = 0.25    # ... this much
 
     @classmethod
     def chaos(cls, seed: int = 0) -> "FaultConfig":
@@ -54,6 +60,19 @@ class FaultConfig:
         path, low enough that goodput stays at or above 0.75."""
         return cls(seed=seed, dispatch_error_rate=0.15, corrupt_rate=0.15,
                    loader_error_rate=0.25, straggler_rate=0.1)
+
+    @classmethod
+    def cluster_chaos(cls, seed: int = 0) -> "FaultConfig":
+        """The canonical multi-host chaos mix: the single-host classes at
+        slightly lower rates plus host-slow events (per-host degradation
+        the health layer must flag). Host kills are left to explicit
+        ``HostEvent`` schedules (serve ``--host-kill``, loadgen overload
+        traces): a seeded kill early in a short trace can leave no alive
+        host, which is another scenario than the goodput-gated chaos
+        run."""
+        return cls(seed=seed, dispatch_error_rate=0.1, corrupt_rate=0.1,
+                   loader_error_rate=0.2, straggler_rate=0.05,
+                   host_slow_rate=0.15, host_slow_extra_s=0.05)
 
 
 class FaultPlan:
@@ -67,6 +86,8 @@ class FaultPlan:
     * ``loader_fault(scene_id)`` / ``wrap_loader(loader)`` — one draw
       per loader invocation; the wrapper raises ``InjectedLoaderError``
       on a fault draw.
+    * ``draw_host_event(host_id)`` — one draw per tile placement on a
+      cluster host, from that host's own stream (host kill or slow-down).
 
     ``summary()`` reports per-site draw and injection counts.
     """
@@ -76,9 +97,10 @@ class FaultPlan:
         self._dispatch_rng = np.random.RandomState(cfg.seed)
         self._corrupt_rng = np.random.RandomState(cfg.seed + 1)
         self._loader_rng = np.random.RandomState(cfg.seed + 2)
-        self.draws = {"dispatch": 0, "corrupt": 0, "loader": 0}
+        self._host_rngs: dict = {}     # host id -> its own event stream
+        self.draws = {"dispatch": 0, "corrupt": 0, "loader": 0, "host": 0}
         self.injected = {"dispatch_error": 0, "straggle": 0, "corrupt": 0,
-                         "loader_error": 0}
+                         "loader_error": 0, "host_kill": 0, "host_slow": 0}
 
     @property
     def total_injected(self) -> int:
@@ -100,6 +122,30 @@ class FaultPlan:
                 return None
             self.injected["straggle"] += 1
             return {"kind": "straggle", "extra_s": c.straggler_extra_s}
+        return None
+
+    def draw_host_event(self, host_id: int) -> Optional[dict]:
+        """Draw the fate of ONE tile placement on host ``host_id``, from
+        that host's own seeded stream (seed + 1000 + host id): ``None``
+        (healthy), ``{"kind": "host_kill"}`` (the host dies now: the
+        cluster re-queues its in-flight tiles to other hosts) or
+        ``{"kind": "host_slow", "extra_s": ...}`` (this dispatch pays
+        extra latency, for the per-host EWMA and heartbeat layer to
+        notice). Per-host streams keep a host's fault schedule independent
+        of how the scheduler interleaved the other hosts' work."""
+        self.draws["host"] += 1
+        rng = self._host_rngs.get(host_id)
+        if rng is None:
+            rng = self._host_rngs[host_id] = np.random.RandomState(
+                self.cfg.seed + 1000 + int(host_id))
+        u = float(rng.random_sample())
+        c = self.cfg
+        if u < c.host_kill_rate:
+            self.injected["host_kill"] += 1
+            return {"kind": "host_kill"}
+        if u < c.host_kill_rate + c.host_slow_rate:
+            self.injected["host_slow"] += 1
+            return {"kind": "host_slow", "extra_s": c.host_slow_extra_s}
         return None
 
     def corrupt_tile(self, rgb: np.ndarray) -> Optional[np.ndarray]:

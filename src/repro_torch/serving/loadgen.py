@@ -19,6 +19,13 @@ and scene-cache counters (dispatch savings against the per-request
 baseline, cache hit rate) and the robustness block
 (``RenderEngine.robustness``). Latency percentiles cover delivered
 requests only.
+
+Multi-host mode: ``run_trace(..., host_events=[...])`` arms ``HostEvent``
+schedules (kills and slow-downs at trace-time offsets or dispatch counts) on
+a ``ClusterEngine`` before driving it; ``overload_host_events`` builds the
+canonical mid-trace kill + early slow-down mix. A cluster's report gains a
+``cluster`` block (per-host state, dispatches and goodput proxy, cross-host
+redispatches, quarantine counts).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.serving.cluster import HostEvent
 from repro_torch.serving.engine import (RenderEngine, RenderRequest,
                                         RenderResult)
 
@@ -61,6 +69,35 @@ def poisson_trace(n_requests: int, scene_ids: Sequence[str],
             priority=int(priorities[int(rng.randint(len(priorities)))]),
             deadline_s=None if dl is None else float(dl))))
     return items
+
+
+def overload_host_events(n_hosts: int, trace_wall_s: float,
+                         *, kill_frac: float = 0.4,
+                         slow_frac: float = 0.15,
+                         slow_extra_s: float = 0.05,
+                         seed: int = 0) -> List[HostEvent]:
+    """The canonical multi-host overload schedule for a trace expected to
+    span ``trace_wall_s``: one host turns SLOW early (``slow_frac`` of the
+    trace; the health layer should flag it suspect) and a DIFFERENT host
+    is killed mid-trace (``kill_frac``; its in-flight tiles must fail
+    over). The host choice is seeded; with one host only the slow event
+    remains (killing the only host rejects the tail, another scenario)."""
+    if n_hosts < 1:
+        raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
+    rng = np.random.RandomState(seed)
+    victim = int(rng.randint(n_hosts))
+    slow = victim
+    if n_hosts > 1:
+        # (the reference draws randint(0) here for one host, and raises)
+        slow = int(rng.randint(n_hosts - 1))
+        slow = slow if slow < victim else slow + 1    # not the victim
+    events = [HostEvent("slow", slow,
+                        at_s=slow_frac * trace_wall_s,
+                        extra_s=slow_extra_s)]
+    if n_hosts > 1:
+        events.append(HostEvent("kill", victim,
+                                at_s=kill_frac * trace_wall_s))
+    return events
 
 
 def _percentiles_ms(latencies_s: Sequence[float]) -> dict:
@@ -98,6 +135,8 @@ def _report(engine: RenderEngine, latencies_s: List[float],
         "dispatch_savings": st["dispatch_baseline"] - st["dispatches"],
         "cache": engine.cache.stats(),
     }
+    if hasattr(engine, "cluster_stats"):
+        out["cluster"] = engine.cluster_stats()
     if engine.tracer.enabled:
         out["observability"] = engine.tracer.summary()
     return out
@@ -158,8 +197,17 @@ def run_closed_loop(engine: RenderEngine, trace: List[TraceItem],
 
 def run_trace(engine: RenderEngine, trace: List[TraceItem], *,
               mode: str = "open", concurrency: int = 4,
-              clock=time.perf_counter, sleep=time.sleep) -> dict:
-    """Drive one trace in ``mode`` ``"open"`` or ``"closed"``."""
+              clock=time.perf_counter, sleep=time.sleep,
+              host_events: Optional[List[HostEvent]] = None) -> dict:
+    """Drive one trace in ``mode`` ``"open"`` or ``"closed"``.
+    ``host_events`` arms kill / slow / drain / rejoin schedules on a
+    cluster engine; a single-host engine refuses them (it has no hosts to
+    kill)."""
+    if host_events:
+        if not hasattr(engine, "schedule_host_events"):
+            raise ValueError("host_events requires a ClusterEngine "
+                             "(single-host engines have no hosts to kill)")
+        engine.schedule_host_events(list(host_events))
     if mode == "open":
         return run_open_loop(engine, trace, clock=clock, sleep=sleep)
     if mode == "closed":

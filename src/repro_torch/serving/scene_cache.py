@@ -93,9 +93,11 @@ class SceneCache:
     ``get`` after the backoff retries the loader, and a success clears
     the failure state."""
 
-    #: Wired by the owning engine (an instance attribute then); a bare
-    #: SceneCache records nothing.
+    #: Wired by the owning engine (instance attributes then): ``tracer``
+    #: records the cache.* residency events, ``trace_host`` tags them with
+    #: the owning cluster host. A bare SceneCache records nothing.
     tracer = NULL_TRACER
+    trace_host = None
 
     def __init__(self, loader: Callable[[str], PackedPlcore],
                  capacity_mb: float = 256.0, *, fail_backoff: int = 4,
@@ -162,8 +164,8 @@ class SceneCache:
             raise KeyError(f"scene {scene_id!r} is not resident — "
                            "load it before attaching aux")
         tr = self.tracer
-        sp = tr.begin("cache.aux_build", cat="cache",
-                      scene=scene_id) if tr.enabled else None
+        sp = tr.begin("cache.aux_build", cat="cache", scene=scene_id,
+                      host=self.trace_host) if tr.enabled else None
         aux = builder(ent[0])
         self._aux[scene_id] = aux
         tr.end(sp, ok=True, bytes=int(aux.nbytes))
@@ -182,7 +184,8 @@ class SceneCache:
             by_cell[int(cell)] = by_cell.get(int(cell), 0) + 1
         if self.tracer.enabled:
             self.tracer.event("cache.pin", cat="cache", scene=scene_id,
-                              cell=cell, refs=self._pins[scene_id])
+                              host=self.trace_host, cell=cell,
+                              refs=self._pins[scene_id])
 
     def unpin(self, scene_id: str, cell: Optional[int] = None) -> None:
         n = self._pins.get(scene_id, 0) - 1
@@ -202,7 +205,8 @@ class SceneCache:
                     self._cell_pins.pop(scene_id, None)
         if self.tracer.enabled:
             self.tracer.event("cache.unpin", cat="cache", scene=scene_id,
-                              cell=cell, refs=max(0, n))
+                              host=self.trace_host, cell=cell,
+                              refs=max(0, n))
 
     def pinned(self, scene_id: str) -> bool:
         return scene_id in self._pins
@@ -223,7 +227,7 @@ class SceneCache:
         self.evictions += 1
         if self.tracer.enabled:
             self.tracer.event("cache.evict", cat="cache", scene=scene_id,
-                              reason="discard")
+                              host=self.trace_host, reason="discard")
         return True
 
     def _evict_over_capacity(self, keep: str) -> None:
@@ -241,7 +245,12 @@ class SceneCache:
             self.evictions += 1
             if self.tracer.enabled:
                 self.tracer.event("cache.evict", cat="cache", scene=victim,
-                                  reason="capacity")
+                                  host=self.trace_host, reason="capacity")
+
+    def failing_scenes(self) -> list:
+        """Scenes in load-failure state (at least one consecutive real
+        loader failure, the backoff window possibly still open)."""
+        return list(self._failed)
 
     def get(self, scene_id: str) -> PackedPlcore:
         """Fetch a scene, loading (and possibly evicting) on a miss.
@@ -254,7 +263,8 @@ class SceneCache:
             self.hits += 1
             self._entries.move_to_end(scene_id)
             if tr.enabled:
-                tr.event("cache.hit", cat="cache", scene=scene_id)
+                tr.event("cache.hit", cat="cache", scene=scene_id,
+                         host=self.trace_host)
             return ent[0]
         fail = self._failed.get(scene_id)
         if fail is not None and fail[1] > 0:
@@ -262,14 +272,15 @@ class SceneCache:
             self.fail_fasts += 1
             if tr.enabled:
                 tr.event("cache.load_backoff", cat="cache", scene=scene_id,
-                         failures=fail[0], credits_left=fail[1])
+                         host=self.trace_host, failures=fail[0],
+                         credits_left=fail[1])
             raise SceneLoadError(
                 f"scene {scene_id!r} is in load-failure backoff "
                 f"({fail[0]} consecutive failures; retry in {fail[1] + 1} "
                 f"more attempts)", fail_fast=True)
         self.misses += 1
-        sp = tr.begin("cache.load", cat="cache",
-                      scene=scene_id) if tr.enabled else None
+        sp = tr.begin("cache.load", cat="cache", scene=scene_id,
+                      host=self.trace_host) if tr.enabled else None
         try:
             pp = self._loader(scene_id)
             nbytes = plcore_nbytes(pp)

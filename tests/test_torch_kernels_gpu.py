@@ -6,7 +6,10 @@ dead rows; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits 
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's. Then NeRF training
 on the card: one QAT train step at the full width against the same step
-on the CPU, and the training entry points' default device.
+on the CPU, and the training entry points' default device. Then the
+multi-host cluster on one card: a host killed with tiles in flight, over
+the card itself and over 4 + 4 cells of it, every image bit-identical to a
+clean single-host engine's.
 
 Imports neither JAX nor the reference package, so it runs on a machine
 with a card and no JAX (``--noconftest`` skips the suite's JAX-based
@@ -621,3 +624,64 @@ def test_percell_dispatch_on_one_card_with_eight_cells():
         streams.add(rsh.cell_stream(mesh, cell))
     assert len(streams) == 8 and None not in streams
     assert np.array_equal(pp.render_tile(o, d).cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sharded", [False, True])
+def test_cluster_host_kill_on_card_matches_single_host(sharded):
+    """Two hosts on one card, K2 (tiny widths at 8 trunk layers), depth 3:
+    the host holding tiles in flight is killed (its slots abandoned without
+    a wait), the tiles re-queued and re-rendered on the other host; every
+    request ends ok and equals a clean single-host engine bit for bit.
+    Sharded: each host over 4 of 8 cells of cuda:0, routed and per-cell,
+    so the abandoned tiles ran on cell streams."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs.nerf_icarus import tiny
+    from repro_torch.core.pipeline import PackedPlcore
+    from repro_torch.runtime import sharding as rsh
+    from repro_torch.serving import (ClusterEngine, RenderEngine,
+                                     RenderRequest, SceneCache,
+                                     split_devices)
+    cfg = dataclasses.replace(tiny(), trunk_layers=8, skip_at=(4,))
+    sets = {f"scene{i}": torch_init(plcore.plcore_decls(cfg),
+                                    torch.Generator().manual_seed(i))
+            for i in range(3)}
+
+    def loader(mesh):
+        return lambda sid: PackedPlcore(cfg, sets[sid], use_kernel=True,
+                                        fuse_two_pass=True, shard_mesh=mesh)
+
+    reqs = [RenderRequest(f"scene{i % 3}", hw=32, theta=30.0 * i)
+            for i in range(6)]
+    clean = RenderEngine(SceneCache(loader(None)), tile_rays=256)
+    clean_ids = [clean.submit(r) for r in reqs]
+    clean.drain()
+    kw = {}
+    meshes = [None, None]
+    if sharded:
+        meshes = [rsh.plcore_mesh(devices=g)
+                  for g in split_devices(2, ["cuda:0"] * 8)]
+        kw = dict(route_by_shard=True, percell_dispatch=True)
+    eng = ClusterEngine([SceneCache(loader(m)) for m in meshes],
+                        meshes=meshes, tile_rays=256, pipeline_depth=3, **kw)
+    ids = [eng.submit(r) for r in reqs]
+    victim = None
+    for _ in range(200):
+        eng.step()
+        busy = [h for h in eng.pool if h.executor.in_flight >= 2]
+        if busy:
+            victim = busy[0]
+            break
+    assert victim is not None
+    eng._kill_host(victim)
+    eng.drain()
+    st = eng.stats
+    assert st["host_kills"] == 1 and st["heartbeat_timeouts"] == 0
+    assert st["requeued_tiles"] >= 2 and st["cross_host_redispatches"] >= 2
+    assert (st["tile_retries"], st["oracle_fallbacks"]) == (0, 0)
+    for rid, cid in zip(ids, clean_ids):
+        res = eng.take(rid)
+        assert res.status == "ok"
+        np.testing.assert_array_equal(res.image, clean.take(cid).image)

@@ -182,6 +182,25 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    host 1 killed at dispatch 6; images equal the replicated one-host
    engine's bit for bit, and the check's sharding gates.
 
+20. LM serving (``lm_phase``, last): (a) every arch of
+   ``configs.list_archs()`` at its ``smoke_config``: prefill of 2 x 17
+   tokens and 4 teacher-forced decode steps on the card against the port
+   on the CPU on the same weights (a CPU ``torch.Generator`` draw moved to
+   the card; TF32 and reduced-precision bf16 reductions off): prefill
+   logits within 1e-4, decode logits within 2e-3, one ``lm <arch>:`` line
+   each; the MoE dispatch at capacity factor 0.5: the card's keep mask
+   equals the CPU's. (c) qwen2-1.5b at full width and 2 layers: the bf16
+   config's prefill logits against float32 on the same weights, the gap at
+   most twice the reference's own (``LM_REF_BF16_GAP``, measured on the
+   CPU by ``tests/lm_precision_gap.py``). (b) qwen2-1.5b at full width and
+   depth through ``serve --mode lm --full`` at B 4 x S 64 and B 1 x S 2048
+   (kernel counters zeroed before and read after: the LM path reaches no
+   kernel, the reference's no Pallas call), then on one weight draw the
+   warm prefill ms and decode ms per step (CUDA events), the host's
+   enqueue ms per step, kernels and their device ms per decode step
+   (``torch.profiler``), tok/s, peak memory, and the bounds: the bf16
+   weights and KV bytes at 3.35 TB/s against the FLOPs at the bf16 peak.
+
 Every main-path run zeroes the launch counters just before and reads
 them just after; the instances the main path runs (tiny()'s K2 in f32 and
 RMCM and its K1, the full width's K2 in both) must each have launched.
@@ -211,6 +230,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs import get_config, list_archs, smoke_config  # noqa: E402
 from repro_torch.configs.nerf_icarus import CONFIG, tiny  # noqa: E402
 from repro_torch.core import (encoding, mlp, nerf_train, plcore,  # noqa: E402
                               rmcm, sampling, sdf, slf)
@@ -221,8 +241,12 @@ from repro_torch.data import rays  # noqa: E402
 from repro_torch.kernels import build, fused_plcore, ops, ref  # noqa: E402
 from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
+                                      make_prefill_step)
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serving import loadgen  # noqa: E402
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.models.params import init_params, param_count  # noqa: E402
 from repro_torch.optim.adam import (AdamConfig, adam_update,  # noqa: E402
                                     opt_state_decls, tree_leaves)
 from repro_torch.runtime import sharding  # noqa: E402
@@ -1791,15 +1815,18 @@ def k3_layer_rows(workload: str, x0: torch.Tensor, params: dict,
             ms, _ = cuda_ms(lambda: ops.rmcm_matmul(x, qp), 20)
             plain_ms, _ = cuda_ms(lambda: rmcm.rmcm_matmul_ref(x, qd), 20)
             lib_ms, _ = cuda_ms(lambda: torch.matmul(x, w_dense), 20)
-            b_ms, b_by = bound_ms(3 * 2.0 * M * K * N / peaks["bf16"],
-                                  k3_bytes(x, qp, got))
+            n_bytes = k3_bytes(x, qp, got)
+            b_ms, b_by = bound_ms(3 * 2.0 * M * K * N / peaks["bf16"], n_bytes)
+            f_ms, f_by = bound_ms(2.0 * M * K * N / peaks["fp32"], n_bytes)
             rows[f"{workload} {shape}"] = {
                 "shape_mkn": [M, K, N], "layers": [layer],
                 "route": k3.route(M), "launches": launches.get(shape, 0),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_fp32": f_ms, "bound_by_fp32": f_by}
             print(f"K3 {workload} {shape}: {ms:.4f} ms (bound {b_ms:.4f} ms "
-                  f"by {b_by}, {100 * b_ms / ms:.1f}% of it; plain "
+                  f"by {b_by}, {100 * b_ms / ms:.1f}% of it; fp32-core bound "
+                  f"{f_ms:.4f} ms by {f_by}; plain "
                   f"{plain_ms:.4f} ms; torch.matmul on the dequantized "
                   f"weight {lib_ms:.4f} ms)", flush=True)
         y = want + params[layer]["b"]
@@ -2307,6 +2334,271 @@ def cluster_phase() -> dict:
     return out
 
 
+# ----------------------------------------------------------- LM serving --
+# phase (a): every arch's smoke_config, the card against the CPU on the
+# same weights (a CPU torch.Generator draw moved to the card), TF32 off
+LM_BATCH, LM_PROMPT, LM_TEACHER_STEPS = 2, 17, 4
+LM_PREFILL_TOL, LM_DECODE_TOL = 1e-4, 2e-3
+# phase (b): qwen2-1.5b at full width and depth through serve --mode lm
+# --full, at serve's defaults and at one 2048-token prompt (two
+# attn_chunk chunks of 1024)
+LM_ARCH = "qwen2-1.5b"
+LM_SERVE_SHAPES = ((4, 64), (1, 2048))
+LM_DECODE_TOKENS = 16
+LM_PROFILE_STEPS = 4
+# phase (c): the bf16-vs-f32 gap of LM_ARCH's prefill logits at full
+# width and 2 layers, weights torch.Generator().manual_seed(0) on the CPU,
+# prompt 2 x 64 from np.random.default_rng(0): the reference's own gap,
+# jitted as its serve runs it, measured on the CPU by
+# tests/lm_precision_gap.py (0.0522 of logits; op by op 0.0508, the port on
+# the CPU 0.0497). The card's gap may be at most twice it.
+LM_GAP_LAYERS = 2
+LM_REF_BF16_GAP = 0.052239418029785156
+
+
+def lm_batch(cfg, batch: int, prompt: int, rng) -> dict:
+    """Tokens (prompt + LM_TEACHER_STEPS teacher-forced ones) from numpy,
+    the VLM's patches and the enc-dec frames 0.1 * normal."""
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt + LM_TEACHER_STEPS)).astype(np.int32))}
+    if cfg.family == "vlm":
+        out["patches"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (batch, cfg.vlm.n_patches, cfg.d_model))).astype(np.float32))
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (batch, cfg.encdec.enc_seq, cfg.d_model))).astype(np.float32))
+    return out
+
+
+def lm_teacher_forced(model, params, batch: dict, prompt: int) -> list:
+    """Prefill of the prompt, then LM_TEACHER_STEPS decode steps fed the
+    batch's next tokens: the logits of each, on the host."""
+    pre = {k: (v[:, :prompt] if k == "tokens" else v) for k, v in batch.items()}
+    cap = prompt + LM_TEACHER_STEPS + 1 + model.prefix_len()
+    cache, logits = model.prefill(params, pre, cap)
+    out = [logits]
+    for i in range(LM_TEACHER_STEPS):
+        tok = batch["tokens"][:, prompt + i:prompt + i + 1]
+        cache, logits = model.decode(params, cache, tok, prompt + i)
+        out.append(logits)
+    return [t.float().cpu() for t in out]
+
+
+def lm_smoke_phase() -> dict:
+    """(a) Every arch at its smoke_config: prefill and LM_TEACHER_STEPS
+    teacher-forced decode steps on the card against the port on the CPU,
+    same weights and tokens; prefill logits within LM_PREFILL_TOL, decode
+    logits within LM_DECODE_TOL. The MoE dispatch at capacity factor 0.5
+    (the reference test's tight config): the keep mask of a layer's
+    routing on the card equals the CPU's."""
+    rows = {}
+    for arch in list_archs():
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        params = init_params(model.param_decls(),
+                             torch.Generator().manual_seed(0), cfg.param_dtype)
+        batch = lm_batch(cfg, LM_BATCH, LM_PROMPT, np.random.default_rng(0))
+        cpu = lm_teacher_forced(model, params, batch, LM_PROMPT)
+        card = lm_teacher_forced(model, bridge.to_device(params, DEV),
+                                 bridge.to_device(batch, DEV), LM_PROMPT)
+        errs = [float((a - b).abs().max()) for a, b in zip(card, cpu)]
+        assert all(bool(torch.isfinite(t).all()) for t in card), arch
+        assert errs[0] <= LM_PREFILL_TOL, (arch, "prefill", errs)
+        assert max(errs[1:]) <= LM_DECODE_TOL, (arch, "decode", errs)
+        rows[arch] = {"family": cfg.family, "prefill_max_abs_err": errs[0],
+                      "decode_max_abs_err": errs[1:]}
+        print(f"lm {arch}: {json.dumps(rows[arch])}", flush=True)
+
+    cfg = smoke_config("moonshot-v1-16b-a3b")
+    tight = cfg.replace(moe=dataclasses.replace(
+        cfg.moe, n_shared_experts=0, first_k_dense=0, capacity_factor=0.5))
+    params = init_params(build_model(tight).param_decls(),
+                         torch.Generator().manual_seed(0))
+    lp = {k: v[0] for k, v in params["layers"].items()
+          if not isinstance(v, dict)}
+    lp["experts"] = {k: v[0] for k, v in params["layers"]["experts"].items()}
+    x = torch.randn((2, 32, tight.d_model), generator=torch.Generator().manual_seed(1))
+    got = []
+    for dev in ("cpu", DEV):
+        lpd, xd = bridge.to_device(lp, dev), x.to(dev)
+        probs = torch.softmax(xd.reshape(-1, tight.d_model).float()
+                              @ lpd["router"].float(), dim=-1)
+        keep = moe.route(tight, probs)["keep"].cpu()
+        y, aux = moe.moe_apply(tight, lpd, xd)
+        got.append((keep, y.cpu(), float(aux)))
+    (k_cpu, y_cpu, a_cpu), (k_card, y_card, a_card) = got
+    assert torch.equal(k_cpu, k_card), "MoE keep mask differs on the card"
+    assert not bool(k_cpu.all()), "capacity 0.5 dropped nothing"
+    moe_row = {"capacity_factor": 0.5, "kept": int(k_card.sum()),
+               "pairs": k_card.numel(),
+               "y_max_abs_err": float((y_card - y_cpu).abs().max()),
+               "aux_abs_err": abs(a_card - a_cpu)}
+    assert moe_row["y_max_abs_err"] <= LM_PREFILL_TOL, moe_row
+    print(f"lm moe dispatch: {json.dumps(moe_row)}", flush=True)
+    return {"archs": rows, "moe_dispatch": moe_row}
+
+
+def lm_bounds(cfg, model, batch: int, prompt: int, peaks: dict) -> dict:
+    """Least times of one prefill of ``batch`` x ``prompt`` tokens and of
+    one decode step at the end of ``LM_DECODE_TOKENS``: the bf16 weights
+    read once (every layer, the tied embedding for the logits) and the KV
+    cache read and written, at HBM_BYTES_PER_S; the products (2 FLOP per
+    weight per token, the logits of the last position only, attention over
+    the causal pairs only) at the bf16 tensor-core peak."""
+    layer_w = param_count(model.param_decls()["layers"])
+    embed_w = cfg.vocab_size * cfg.d_model
+    L, H, K, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    w_bytes = 2 * (layer_w + embed_w)
+    kv_row = 2 * L * K * hd * 2           # k and v of one position, bf16
+    pairs = prompt * (prompt + 1) // 2
+    pre_flop = 2.0 * batch * (prompt * layer_w + embed_w) \
+        + 4.0 * batch * L * H * hd * pairs
+    pre_bytes = w_bytes + batch * prompt * kv_row
+    ctx = prompt + LM_DECODE_TOKENS
+    dec_flop = 2.0 * batch * (layer_w + embed_w) + 4.0 * batch * L * H * hd * ctx
+    dec_bytes = w_bytes + batch * ctx * kv_row
+    out = {"weight_bytes_bf16": w_bytes}
+    for name, flop, nb in (("prefill", pre_flop, pre_bytes),
+                           ("decode_step", dec_flop, dec_bytes)):
+        ms_b, ms_f = 1e3 * nb / HBM_BYTES_PER_S, 1e3 * flop / peaks["bf16"]
+        out[name] = {"flop": flop, "bytes": nb, "bytes_ms": ms_b,
+                     "flop_ms": ms_f, "bound_ms": max(ms_b, ms_f),
+                     "bound_by": "bytes" if ms_b >= ms_f else "operations"}
+    return out
+
+
+def lm_measure(model, params, batch: dict, cap: int, prompt: int) -> dict:
+    """Warm prefill ms (CUDA events, 3 calls after one), then
+    LM_DECODE_TOKENS greedy decode steps: device ms per step (CUDA events
+    over the steps) beside the host's ms to enqueue them (no sync inside),
+    and LM_PROFILE_STEPS more steps under torch.profiler: kernels per step
+    and their summed device time ("not measured" without device events)."""
+    prefill = make_prefill_step(model)
+    decode = make_decode_step(model)
+    prefill_ms, (cache, logits) = cuda_ms(lambda: prefill(params, batch, cap), 3)
+    tok = serve.next_token(logits)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE_TOKENS):
+        cache, logits = decode(params, cache, tok, prompt + i)
+        tok = serve.next_token(logits)
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    out = {"prefill_ms": prefill_ms,
+           "decode_ms_per_step": start.elapsed_time(end) / LM_DECODE_TOKENS,
+           "host_enqueue_ms_per_step": 1e3 * host_s / LM_DECODE_TOKENS}
+
+    from torch.profiler import ProfilerActivity, profile
+    cache, logits = prefill(params, batch, cap)
+    tok = serve.next_token(logits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILE_STEPS):
+            cache, logits = decode(params, cache, tok, prompt + i)
+            tok = serve.next_token(logits)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if spans:
+        kernel_us = sum(t for t, _ in spans)
+        gemm_us = sum(t for t, n in spans if "gemm" in n.lower())
+        out.update({"kernels_per_decode_step": len(spans) / LM_PROFILE_STEPS,
+                    "kernel_ms_per_decode_step":
+                        kernel_us / 1e3 / LM_PROFILE_STEPS,
+                    "gemm_share_of_kernel_time": gemm_us / kernel_us})
+    else:
+        out["kernel_ms_per_decode_step"] = "not measured"
+    return out
+
+
+def lm_serve_phase(peaks: dict) -> dict:
+    """(b) LM_ARCH at full width and depth: ``serve --mode lm --full`` at
+    each of LM_SERVE_SHAPES (kernel counters zeroed before and read after:
+    the LM path reaches no kernel, as the reference's reaches no Pallas
+    call), then the warm numbers of ``lm_measure`` on one weight draw,
+    peak memory, tok/s and the bounds of ``lm_bounds``."""
+    rows = {}
+    for b, s in LM_SERVE_SHAPES:
+        argv = ["--mode", "lm", "--full", "--arch", LM_ARCH, "--batch", str(b),
+                "--prompt-len", str(s), "--decode-tokens", str(LM_DECODE_TOKENS)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        out = serve.main(argv)
+        launches = read_launches()
+        assert len(out["sample_tokens"]) == min(8, LM_DECODE_TOKENS + 1), out
+        assert all(0 <= t < get_config(LM_ARCH).vocab_size
+                   for t in out["sample_tokens"]), out
+        rows[f"b{b}_s{s}"] = {"serve": out,
+                              "serve_peak_mem_bytes":
+                                  torch.cuda.max_memory_allocated(),
+                              "kernel_launches": {
+                                  k: launches[k] for k in
+                                  ("fused_plcore_call", "two_pass_plcore_call",
+                                   "rmcm_matmul")}}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve.build_parser().parse_args(
+        ["--mode", "lm", "--full", "--arch", LM_ARCH])
+    lm = serve.lm_session(args)
+    cfg, model, params = lm["cfg"], lm["model"], lm["params"]
+    for b, s in LM_SERVE_SHAPES:
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (b, s), device=DEV, dtype=torch.int32,
+            generator=torch.Generator(DEV).manual_seed(1))}
+        cap = s + LM_DECODE_TOKENS + 1
+        torch.cuda.reset_peak_memory_stats()
+        row = rows[f"b{b}_s{s}"]
+        row.update(lm_measure(model, params, batch, cap, s))
+        row["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        row["decode_tok_per_s"] = 1e3 * b / row["decode_ms_per_step"]
+        row["prefill_tok_per_s"] = 1e3 * b * s / row["prefill_ms"]
+        row["bounds"] = lm_bounds(cfg, model, b, s, peaks)
+        row["card"] = smi("name,power.limit")
+        print(f"lm {LM_ARCH} full b{b} s{s}: {json.dumps(row)}", flush=True)
+    return {"arch": LM_ARCH, "params": cfg.param_count(),
+            "layers": cfg.n_layers, "shapes": rows}
+
+
+def lm_precision_phase() -> dict:
+    """(c) LM_ARCH at full width and LM_GAP_LAYERS layers on the card: the
+    bf16 config's prefill logits against the same weights in float32, the
+    gap (largest |bf16 - f32|) at most twice the reference's own
+    (LM_REF_BF16_GAP, tests/lm_precision_gap.py's weights and prompt)."""
+    cfg = get_config(LM_ARCH).replace(n_layers=LM_GAP_LAYERS)
+    params = bridge.to_device(init_params(
+        build_model(cfg).param_decls(), torch.Generator().manual_seed(0)), DEV)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to(DEV)
+    logits = {}
+    for dt in ("bfloat16", "float32"):
+        model = build_model(cfg.replace(dtype=dt))
+        _, out = model.prefill(model.serving_params(params), {"tokens": tokens})
+        logits[dt] = out.float()
+    gap = float((logits["bfloat16"] - logits["float32"]).abs().max())
+    row = {"arch": LM_ARCH, "n_layers": LM_GAP_LAYERS, "gap": gap,
+           "reference_gap_cpu": LM_REF_BF16_GAP,
+           "gate": 2 * LM_REF_BF16_GAP}
+    assert bool(torch.isfinite(logits["bfloat16"]).all()), row
+    assert gap <= 2 * LM_REF_BF16_GAP, row
+    print(f"lm precision: {json.dumps(row)}", flush=True)
+    return row
+
+
+def lm_phase(peaks: dict) -> dict:
+    """The LM serving path: phases (a), (c), then (b)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {"smoke": lm_smoke_phase(), "precision": lm_precision_phase(),
+            "serve": lm_serve_phase(peaks)}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2347,6 +2639,7 @@ def main() -> None:
     adaptive = adaptive_engine_phase()
     fig8_tiny = fig8_tiny_phase()
     trained = train_phase(cfg, peaks)
+    lm = lm_phase(peaks)
 
     k2 = "two_pass_plcore_call"
     # every main-path run: counters zeroed just before, read just after
@@ -2451,7 +2744,7 @@ def main() -> None:
                               if k not in ("k3_layers", "launches")},
                       "tiny_serve": tiny_serve, "adaptive_view": view,
                       "train": trained["summary"], "fig8": trained["fig8"],
-                      "fig8_tiny": fig8_tiny,
+                      "fig8_tiny": fig8_tiny, "lm": lm,
                       "main_path_instances": instances}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,14 @@ imports neither the reference package nor its framework.
 ``mlp_from_numpy`` and ``peu_from_numpy`` carry a generic coordinate MLP
 (its params, its RMCM quant tree, packed for K3 on request) and a PEU's
 frequency matrix across, so that both packages evaluate the same SDF or
-SLF network.
+SLF network. ``lm_params_from_numpy`` carries an LM's parameter tree (the
+reference's ``init_params`` layout, stacked layer axes and all).
+
+bfloat16 crosses as its 16-bit pattern: numpy has no bf16, and
+``np.asarray`` of a JAX bf16 array is an ``ml_dtypes`` array (dtype name
+``bfloat16``), which a checkpoint stores as 2-byte voids (``|V2``). Both
+become ``torch.bfloat16`` tensors; a bf16 tensor comes back as ``|V2``
+voids holding the same bits. ``ml_dtypes`` is not imported.
 """
 from __future__ import annotations
 
@@ -20,13 +27,36 @@ import torch
 from repro_torch.core.encoding import PEU
 
 
+def is_bf16_array(a: np.ndarray) -> bool:
+    """An ``ml_dtypes`` bfloat16 array, or 2-byte voids (a bf16 leaf as
+    ``np.load`` returns it)."""
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                          and a.dtype.itemsize == 2)
+
+
+def array_to_tensor(a) -> torch.Tensor:
+    """A host copy of ``a`` as a tensor; bf16 patterns become bfloat16."""
+    a = np.array(a, copy=True, order="C")
+    if is_bf16_array(a):
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; a bfloat16 tensor as ``|V2`` voids."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view("V2")
+    return t.numpy()
+
+
 def to_torch(tree, device=None):
     """Nested dict of array-likes -> nested dict of tensors (same keys)."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if tree is None or isinstance(tree, (int, float)):
         return tree
-    t = torch.from_numpy(np.array(tree, copy=True, order="C"))
+    t = array_to_tensor(tree)
     return t if device is None else t.to(device)
 
 
@@ -35,7 +65,7 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return tensor_to_array(tree)
     return tree
 
 
@@ -57,6 +87,15 @@ def to_device(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+def lm_params_from_numpy(tree, device=None):
+    """An LM's parameter tree as the reference's ``init_params`` gives it
+    (nested dicts of numpy arrays, layer stacks on the leading axis, as
+    ``np.asarray`` of each leaf) -> the port's tree of tensors on
+    ``device``: the same keys, shapes, dtypes and bits. The port's models
+    read this layout as it is."""
+    return to_torch(tree, device)
 
 
 def mlp_from_numpy(params, quant=None, device=None, pack: bool = False):

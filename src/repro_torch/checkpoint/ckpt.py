@@ -19,6 +19,11 @@ wrote, bit for bit:
 * **restore** puts the tensors on ``device``; a ``template`` (a nested
   dict shaped like the state) validates keys and shapes and fixes the
   tree's structure.
+* **bfloat16 leaves** are written as the reference writes them: the npz
+  entry holds the 16-bit patterns under the array descr ``<V2`` (what
+  numpy records for an ``ml_dtypes`` bf16 array) and the manifest says
+  ``"bfloat16"``; ``np.load`` returns such an entry as ``|V2`` voids, which
+  restore turns back into ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -26,13 +31,15 @@ import json
 import os
 import shutil
 import threading
+import zipfile
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.bridge import resolve_device
+from repro_torch.bridge import (array_to_tensor, is_bf16_array,
+                                resolve_device, tensor_to_array)
 
 _SEP = "/"
 
@@ -61,10 +68,31 @@ def _unflatten(flat: dict) -> dict:
 
 
 def _host_copy(leaf) -> np.ndarray:
-    """A host array that later in-place updates of ``leaf`` cannot reach."""
+    """A host array that later in-place updates of ``leaf`` cannot reach
+    (a bf16 tensor as 2-byte voids holding its bits)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        return tensor_to_array(leaf)
     return np.array(leaf, copy=True)
+
+
+def _dtype_name(a: np.ndarray) -> str:
+    return "bfloat16" if is_bf16_array(a) else str(a.dtype)
+
+
+def _savez(path: Path, arrays: dict) -> None:
+    """``np.savez`` (stored zip, one ``<key>.npy`` per array), with each
+    bf16 array's header saying ``<V2`` as the reference's does."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if is_bf16_array(a):
+                    np.lib.format.write_array_header_1_0(
+                        f, {"descr": "<V2", "fortran_order": False,
+                            "shape": a.shape})
+                    f.write(np.ascontiguousarray(a).tobytes())
+                else:
+                    np.lib.format.write_array(f, a, allow_pickle=False)
 
 
 class Checkpointer:
@@ -111,12 +139,12 @@ class Checkpointer:
             shards[i % self.n_shards][k] = flat[k]
         for i, shard in enumerate(shards):
             if shard:
-                np.savez(tmp / f"shard_{i}.npz", **shard)
+                _savez(tmp / f"shard_{i}.npz", shard)
         manifest = {
             "step": step,
             "keys": keys,
             "shapes": {k: list(flat[k].shape) for k in keys},
-            "dtypes": {k: str(flat[k].dtype) for k in keys},
+            "dtypes": {k: _dtype_name(flat[k]) for k in keys},
             "n_shards": self.n_shards,
             "metadata": metadata,
         }
@@ -193,7 +221,11 @@ class Checkpointer:
                     raise ValueError(f"{k}: checkpoint shape "
                                      f"{flat[k].shape}, template {shape}")
             flat = {k: flat[k] for k in want}
-        tree = _unflatten({k: torch.from_numpy(np.array(v, order="C")
-                                               ).to(dev)
+        dtypes = manifest["dtypes"]
+        for k, v in flat.items():
+            if is_bf16_array(v) != (dtypes[k] == "bfloat16"):
+                raise ValueError(f"{k}: entry dtype {v.dtype}, manifest "
+                                 f"{dtypes[k]}")
+        tree = _unflatten({k: array_to_tensor(v).to(dev)
                            for k, v in flat.items()})
         return tree, manifest["metadata"]

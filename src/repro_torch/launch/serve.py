@@ -55,6 +55,18 @@ validator's verdict and, on the card, the device busy share from the
 tiles' ``tile.kernel`` spans in the report; ``--metrics-out PATH`` writes
 the engine's and the process-wide registries as Prometheus text.
 
+``--mode lm`` serves a batch of prompts on an LM arch (``--arch``, one
+of ``configs.list_archs()``; its ``smoke_config`` unless ``--full``):
+weights drawn from a ``torch.Generator`` seeded ``--seed`` on the device
+and cast once to the config's dtype (``serving_params``), ``--batch``
+prompts of ``--prompt-len`` random tokens (a generator seeded 1; the VLM's
+patches and the enc-dec frames are ones), one prefill into a cache sized
+for ``--decode-tokens`` more, then greedy decode. Prints the reference's
+keys (``arch``, ``batch``, ``prompt_len``, ``prefill_s``,
+``decode_tokens``, ``decode_tok_per_s``, ``sample_tokens``); both times
+end in a device synchronize. The tokens come from a torch generator, so
+``sample_tokens`` cannot equal the reference's.
+
 Flags: ``--kernel`` routes each pass through the fused kernel (K1,
 two dispatches per render); ``--fuse-two-pass`` (with ``--kernel``) runs the
 whole coarse -> importance -> fine chain as ONE kernel launch (K2);
@@ -86,6 +98,9 @@ weights packed per call), and refuses ``--ert`` and ``--fuse-two-pass``.
         --fuse-two-pass --adaptive-sampling --scene-bias -0.1 --scenes 3 \\
         --requests 12 --hw-mix 64,128 --loop closed --pipeline-depth 2 \\
         --tile-rays 4096 --check
+    python -m repro_torch.launch.serve --mode lm --arch qwen2-1.5b --full
+    python -m repro_torch.launch.serve --mode lm --arch mamba2-2.7b \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -100,13 +115,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge import resolve_device
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.configs.nerf_icarus import CONFIG as NERF_FULL, tiny as nerf_tiny
 from repro_torch.core import rmcm
 from repro_torch.core.pipeline import PackedPlcore
 from repro_torch.core.plcore import plcore_decls, render_image_tiled
 from repro_torch.data import rays as R
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import init_params
 from repro_torch.obs import (SpanTracer, device_busy, global_registry,
                              prometheus_text, validate_chrome_trace,
@@ -783,9 +802,70 @@ def serve_engine(args) -> dict:
     return report
 
 
+def lm_session(args) -> dict:
+    """What ``serve --mode lm`` serves: the config, the model, its weights
+    on the device cast once (``serving_params``), the prompt batch and the
+    cache capacity (prompt, the decode tokens and one more, plus the VLM's
+    patch prefix: the reference's)."""
+    dev = resolve_device(args.device, "serve --mode lm")
+    cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
+    model = build_model(cfg)
+    params = model.serving_params(init_params(
+        model.param_decls(), torch.Generator(dev).manual_seed(args.seed),
+        cfg.param_dtype))
+    B, S = args.batch, args.prompt_len
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), generator=torch.Generator(dev).manual_seed(1),
+        device=dev, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.ones((B, cfg.vlm.n_patches, cfg.d_model),
+                                      device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.ones((B, cfg.encdec.enc_seq, cfg.d_model),
+                                     device=dev)
+    return {"cfg": cfg, "model": model, "params": params, "batch": batch,
+            "capacity": S + args.decode_tokens + 1 + model.prefix_len(),
+            "device": dev}
+
+
+def next_token(logits):
+    """Greedy pick of the last position: (B, 1) int32."""
+    return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+
+
+def serve_lm(args) -> dict:
+    lm = lm_session(args)
+    dev, params, cap = lm["device"], lm["params"], lm["capacity"]
+    prefill = make_prefill_step(lm["model"])
+    decode = make_decode_step(lm["model"])
+    B, S = args.batch, args.prompt_len
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, lm["batch"], cap)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tok = next_token(logits)
+    toks = [tok]
+    t0 = time.perf_counter()
+    for i in range(args.decode_tokens):
+        cache, logits = decode(params, cache, tok, S + i)
+        tok = next_token(logits)
+        toks.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    out = {"arch": args.arch, "batch": B, "prompt_len": S,
+           "prefill_s": t_prefill, "decode_tokens": args.decode_tokens,
+           "decode_tok_per_s": args.decode_tokens * B / max(t_decode, 1e-9),
+           "sample_tokens": torch.cat(toks, 1)[0, :8].tolist()}
+    print(json.dumps(out, indent=2))
+    return out
+
+
 def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=["nerf", "engine"], default="nerf")
+    ap.add_argument("--mode", choices=["nerf", "engine", "lm"], default="nerf")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scene", default="blobs", choices=sorted(R.SCENES))
@@ -915,12 +995,18 @@ def build_parser():
                          "the cell's own stream, depth slots per cell")
     ap.add_argument("--check", action="store_true",
                     help="gate the engine run (see check_engine)")
+    # lm
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=list_archs())
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--decode-tokens", type=int, default=16)
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    return serve_engine(args) if args.mode == "engine" else serve_nerf(args)
+    return {"nerf": serve_nerf, "engine": serve_engine,
+            "lm": serve_lm}[args.mode](args)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ LATEST fallback, missing keys), and ``serve --ckpt``.
 """
 import functools
 import json
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -199,3 +200,76 @@ def test_restore_needs_a_card_by_default(tmp_path):
     c.save(1, {"w": torch.ones(2)})
     with pytest.raises(RuntimeError, match="CUDA"):
         c.restore()
+
+
+def _bf16_state():
+    """A JAX bf16 leaf (a 3D stack, as an LM's layers), an f32 one and an
+    int32 step."""
+    w = jax.random.normal(jax.random.PRNGKey(3), (2, 5, 3)).astype(jnp.bfloat16)
+    return {"layers": {"w": w}, "norm": jnp.linspace(-1, 1, 7),
+            "step": jnp.asarray(4, jnp.int32)}
+
+
+def _npz_members(d, step):
+    out = {}
+    for f in sorted((d / f"step_{step:08d}").glob("shard_*.npz")):
+        with zipfile.ZipFile(f) as z:
+            out.update({n: z.read(n) for n in z.namelist()})
+    return out
+
+
+def test_bf16_leaf_from_reference_restores_bit_for_bit(tmp_path):
+    """The reference writes a bf16 leaf (|V2 entry, manifest "bfloat16");
+    the port restores it as torch.bfloat16 with the same bits, and the
+    same tree writes back byte for byte what the reference wrote."""
+    state = _bf16_state()
+    JaxCheckpointer(str(tmp_path / "ref"), async_save=False).save(2, state)
+    got, _ = Checkpointer(str(tmp_path / "ref")).restore(device="cpu")
+    w = got["layers"]["w"]
+    assert w.dtype == torch.bfloat16 and tuple(w.shape) == (2, 5, 3)
+    np.testing.assert_array_equal(
+        w.view(torch.int16).numpy(),
+        np.asarray(state["layers"]["w"]).view(np.int16))
+    assert got["norm"].dtype == torch.float32
+    Checkpointer(str(tmp_path / "port"), async_save=False).save(2, got)
+    assert _npz_members(tmp_path / "port", 2) == _npz_members(tmp_path / "ref", 2)
+    man = [json.loads((tmp_path / d / "step_00000002" / "manifest.json"
+                       ).read_text()) for d in ("ref", "port")]
+    assert man[0] == man[1]
+    assert man[1]["dtypes"]["layers/w"] == "bfloat16"
+
+
+@pytest.mark.parametrize("async_save", [False, True])
+def test_bf16_leaf_from_port_restores_in_reference(tmp_path, async_save):
+    """The port writes a torch.bfloat16 leaf; the reference restores the
+    same |V2 bytes under the same manifest dtype."""
+    w = torch.randn((4, 6), generator=torch.Generator().manual_seed(5)
+                    ).to(torch.bfloat16)
+    c = Checkpointer(str(tmp_path), async_save=async_save)
+    c.save(1, {"w": w, "b": torch.ones(3)})
+    c.wait()
+    got, _ = JaxCheckpointer(str(tmp_path)).restore()
+    assert got["w"].dtype == np.dtype("V2")
+    np.testing.assert_array_equal(got["w"].view(np.int16),
+                                  w.view(torch.int16).numpy())
+    man = json.loads((tmp_path / "step_00000001" / "manifest.json").read_text())
+    assert man["dtypes"] == {"b": "float32", "w": "bfloat16"}
+    back, _ = Checkpointer(str(tmp_path)).restore(device="cpu")
+    assert torch.equal(back["w"].view(torch.int16), w.view(torch.int16))
+
+
+def test_bridge_round_trips_a_jax_bf16_array():
+    """``np.asarray`` of a JAX bf16 array (an ml_dtypes array) -> a
+    torch.bfloat16 tensor with its bits -> |V2 voids with the same bytes,
+    which the bridge reads again."""
+    a = np.asarray(_bf16_state()["layers"]["w"])
+    t = bridge.to_torch({"w": a})["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+    back = bridge.to_numpy({"w": t})["w"]
+    assert back.dtype == np.dtype("V2") and back.tobytes() == a.tobytes()
+    np.testing.assert_array_equal(
+        np.asarray(jnp.asarray(back.view(a.dtype)), np.float32),
+        np.asarray(a, np.float32))
+    assert torch.equal(bridge.to_torch(back).view(torch.int16),
+                       t.view(torch.int16))

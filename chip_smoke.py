@@ -200,6 +200,29 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    enqueue ms per step, kernels and their device ms per decode step
    (``torch.profiler``), tok/s, peak memory, and the bounds: the bf16
    weights and KV bytes at 3.35 TB/s against the FLOPs at the bf16 peak.
+21. LM training (``lm_train_phase``, after step 20): (a) every arch's
+   smoke config, one train step's loss and gradients on the card against
+   the port on the CPU on the same weights and driver batch (2 x 32): loss
+   within rtol 1e-5, every gradient leaf within 1e-3 of the whole
+   gradient's largest |g| (the worst leaf named), then the whole step
+   (AdamW in the arch's moment type) on the card, one ``lm train <arch>:``
+   line each. (c) ``train.run`` on the card for qwen2-1.5b's smoke config:
+   restart 12 against 8 + 4 within rtol 1e-4; ``--grad-accum 2``,
+   ``--qat``, ``--compress`` (a group of one) and kimi-k2's smoke config
+   (int8 moments) at the reference tests' flags from one step-0
+   checkpoint on the card and on the CPU, every loss finite and equal at
+   rtol 1e-4, and each for 100 steps with the mean of its last 5 losses
+   below its first 5 (``lm train driver:``). (b) qwen2-1.5b at full width
+   and depth (remat on, bf16 compute, f32 masters and AdamW): 5 steps at
+   B 4 x S 512 (finite, the fifth loss below the first) and 3 at S 4096
+   (``SHAPES["train_4k"]`` with its batch of 256 cut to 1), each with the
+   warm ms per step (CUDA events) and the host's enqueue ms, one profiled
+   step (kernels, device ms, its share by kernel kind, the top kernels),
+   one step timed in its halves (loss and gradients, AdamW), peak memory
+   and the bound (``lm_train_bounds``); kernel counters zeroed before and
+   read after (no launch: the path reaches no kernel); then remat off
+   against on at B 4 x S 512: loss and gradients (the largest difference)
+   and each one's peak memory above the resident state, remat's lower.
 
 Every main-path run zeroes the launch counters just before and reads
 them just after; the instances the main path runs (tiny()'s K2 in f32 and
@@ -240,9 +263,12 @@ from repro_torch.core.plcore import plcore_decls  # noqa: E402
 from repro_torch.data import rays  # noqa: E402
 from repro_torch.kernels import build, fused_plcore, ops, ref  # noqa: E402
 from repro_torch.kernels import rmcm_matmul as k3  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
-                                      make_prefill_step)
+from repro_torch.data.tokens import (TokenStreamConfig,  # noqa: E402
+                                     synthetic_batch)
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.steps import (loss_and_grads,  # noqa: E402
+                                      make_decode_step, make_prefill_step,
+                                      make_train_step)
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from repro_torch.serving import loadgen  # noqa: E402
@@ -2599,6 +2625,362 @@ def lm_phase(peaks: dict) -> dict:
             "serve": lm_serve_phase(peaks)}
 
 
+# LM training (lm_train_phase). (a) every arch's smoke config: one step on
+# the card against the port on the CPU, same weights and batch; the
+# gradient bound is PR 16's card-against-CPU bound of the NeRF step
+LM_TRAIN_LOSS_RTOL, LM_TRAIN_GRAD_TOL = 1e-5, 1e-3
+# (b) LM_ARCH at full width and depth (remat on, f32 AdamW): 5 steps at
+# B 4 x S 512, then SHAPES["train_4k"]'s sequence with its global batch of
+# 256 cut to 1 for one card
+LM_TRAIN_SHAPES = ((4, 512, 5), (1, 4096, 3))
+LM_TRAIN_OPT_BYTES = 28    # per param: read p, g, m, v; write p, m, v (f32)
+# (c) the driver: the reference tests' flags (tests/test_train_driver.py);
+# a 6-step run's last loss against its first is batch noise at this size
+# (the reference falls on 7 of seeds 0-9, the port on 6), so learning is
+# held over LM_TRAIN_LEARN_STEPS steps: the mean of the last 5 losses
+# below the mean of the first 5 (on the CPU, seeds 0-7 of each of the four
+# runs, the gap is 0.17 to 0.44 nats)
+LM_TRAIN_DRIVER = (("grad_accum", {"steps": 6, "grad_accum": 2}),
+                   ("qat", {"steps": 6, "qat": True}),
+                   ("compress", {"steps": 6, "compress": True}),
+                   ("kimi_int8", {"steps": 4, "arch": "kimi-k2-1t-a32b"}))
+LM_TRAIN_LEARN_STEPS = 100
+LM_TRAIN_DRIVER_RTOL = 1e-4
+
+
+def lm_train_batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
+    """The driver's batch of ``step``: the token stream's tokens and
+    labels and the stub modality inputs, on the CPU."""
+    out = synthetic_batch(TokenStreamConfig(cfg.vocab_size), step, batch, seq)
+    out.update(train.extra_inputs(cfg, batch))
+    return out
+
+
+def grad_gap(want: dict, got: dict) -> tuple:
+    """(worst leaf, its largest |got - want| over the largest |g| of the
+    whole of ``want``) of two gradient trees, compared on the host."""
+    w = dict(zip(_leaf_names(want), tree_leaves(want)))
+    g = dict(zip(_leaf_names(got), tree_leaves(got)))
+    gmax = max(float(v.abs().max()) for v in w.values())
+    gaps = {k: float((g[k].float().cpu() - w[k].float().cpu()).abs().max())
+            / gmax for k in w}
+    worst = max(gaps, key=gaps.get)
+    return worst, gaps[worst]
+
+
+def _leaf_names(tree, path: str = "") -> list:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}" if path else k)]
+    return [path]
+
+
+def lm_train_smoke_phase() -> dict:
+    """(a) Every arch's smoke config: the loss and gradients of one train
+    step on the card against the port on the CPU (weights from
+    ``torch.Generator().manual_seed(0)``, the driver's batch of 2 x 32),
+    then the whole step (AdamW in the arch's moment type) on the card."""
+    rows = {}
+    card = smi("name,power.limit")
+    for arch in list_archs():
+        cfg = smoke_config(arch)
+        model = build_model(cfg)
+        params = init_params(model.param_decls(),
+                             torch.Generator().manual_seed(0), cfg.param_dtype)
+        batch = lm_train_batch(cfg, 2, 32)
+        cpu_loss, cpu_g = loss_and_grads(model.loss, params, batch)
+        cparams = bridge.to_device(params, DEV)
+        cbatch = bridge.to_device(batch, DEV)
+        loss, grads = loss_and_grads(model.loss, cparams, cbatch)
+        worst, gap = grad_gap(cpu_g, grads)
+        opt_cfg = AdamConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                             moment_dtype=cfg.moment_dtype)
+        opt = bridge.to_device(init_params(
+            opt_state_decls(model.param_decls(), opt_cfg),
+            torch.Generator().manual_seed(0), "float32"), DEV)
+        _, opt, met = make_train_step(model, opt_cfg)(cparams, opt, cbatch)
+        row = {"family": cfg.family, "moments": cfg.moment_dtype,
+               "loss_card": float(loss), "loss_cpu": float(cpu_loss),
+               "loss_rel_err": abs(float(loss) - float(cpu_loss))
+               / abs(float(cpu_loss)),
+               "worst_grad_leaf": worst, "worst_grad_gap_of_max_g": gap,
+               "step_loss": float(met["loss"]),
+               "step_grad_norm": float(met["grad_norm"]),
+               "step": int(opt["step"]), "card": card}
+        assert row["loss_rel_err"] <= LM_TRAIN_LOSS_RTOL, (arch, row)
+        assert gap <= LM_TRAIN_GRAD_TOL, (arch, row)
+        assert math.isfinite(row["step_loss"]) and row["step"] == 1, row
+        rows[arch] = row
+        print(f"lm train {arch}: {json.dumps(row)}", flush=True)
+    return rows
+
+
+def lm_train_bounds(cfg, model, batch: int, seq: int, peaks: dict) -> dict:
+    """Least time of one train step: the products of forward (2 FLOP per
+    weight per token), backward (4) and the remat recompute of the layers'
+    forward (2 per layer weight), i.e. 6 N T + 2 N_layers T, and attention
+    over the causal pairs (QK^T and PV, 4 FLOP per pair per head dim,
+    forward, backward twice, recompute) at the bf16 tensor-core peak; plus
+    AdamW's LM_TRAIN_OPT_BYTES per param at HBM_BYTES_PER_S (the two run
+    one after the other)."""
+    decls = model.param_decls()
+    n, n_layers = param_count(decls), param_count(decls["layers"])
+    tokens = batch * seq
+    pairs = seq * (seq + 1) // 2
+    dense = 6.0 * n * tokens + 2.0 * n_layers * tokens
+    attn = 4 * 4.0 * batch * cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs
+    flop_ms = 1e3 * (dense + attn) / peaks["bf16"]
+    opt_bytes = LM_TRAIN_OPT_BYTES * n
+    opt_ms = 1e3 * opt_bytes / HBM_BYTES_PER_S
+    return {"params": n, "tokens": tokens, "flop_dense": dense,
+            "flop_attention": attn, "flop_ms_bf16_peak": flop_ms,
+            "optimizer_bytes": opt_bytes, "optimizer_ms_hbm": opt_ms,
+            "bound_ms": flop_ms + opt_ms}
+
+
+def _kernel_kind(name: str) -> str:
+    """A device kernel's kind by its name: cuBLAS's and CUTLASS's
+    matrix products, PyTorch's elementwise and reduction kernels, or
+    other (copies, index and sort kernels, ...)."""
+    n = name.lower()
+    if any(s in n for s in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "gemm"
+    if "elementwise" in n:
+        return "elementwise"
+    if "reduce" in n:
+        return "reduce"
+    return "other"
+
+
+def lm_train_profile(step, state: dict, batch) -> dict:
+    """One more step of ``state`` (``{"params", "opt"}``, updated in place)
+    under torch.profiler: kernels, their summed device ms, its share by
+    kernel kind and the five kernels that take the most ("not measured"
+    without device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return {"kernel_ms_per_step": "not measured"}
+    us = sum(t for t, _ in spans)
+    kinds, names = {}, {}
+    for t, n in spans:
+        kinds[_kernel_kind(n)] = kinds.get(_kernel_kind(n), 0) + t
+        names[n[:90]] = names.get(n[:90], 0) + t
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    return {"kernels_per_step": len(spans), "kernel_ms_per_step": us / 1e3,
+            "gemm_share_of_kernel_time": kinds.get("gemm", 0) / us,
+            "kernel_share_by_kind": {k: v / us for k, v in kinds.items()},
+            "top_kernels_ms": {n: t / 1e3 for n, t in top}}
+
+
+def lm_train_split(model, opt_cfg, state: dict, batch) -> dict:
+    """One more step of ``state`` in its two halves, each timed with CUDA
+    events: the loss and gradients (forward, remat recompute, backward),
+    then AdamW."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    _, grads = loss_and_grads(model.loss, state["params"], batch)
+    ev[1].record()
+    state["params"], state["opt"], _ = adam_update(
+        opt_cfg, state["params"], grads, state["opt"])
+    ev[2].record()
+    ev[2].synchronize()
+    return {"loss_and_grads_ms": ev[0].elapsed_time(ev[1]),
+            "adamw_ms": ev[1].elapsed_time(ev[2])}
+
+
+def lm_train_steps(step, state: dict, cfg, batch: int, seq: int,
+                   n_steps: int):
+    """``n_steps`` steps of ``state`` (``{"params", "opt"}``, updated in
+    place, so that no caller holds an old state) on the driver's batches
+    (step i's batch for step i): each step's loss, its device ms (CUDA
+    events) and the host's ms to enqueue it (the step has no host sync
+    inside); peak memory. Returns (the last batch, the row)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, dev_ms, host_ms = [], [], []
+    for i in range(n_steps):
+        b = bridge.to_device(lm_train_batch(cfg, batch, seq, i), DEV)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        state["params"], state["opt"], met = step(state["params"],
+                                                  state["opt"], b)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(met["loss"]))
+    warm = slice(1, None)                     # the first step warms cuBLAS
+    return b, {
+        "losses": losses, "ms_per_step_first": dev_ms[0],
+        "ms_per_step_warm": float(np.mean(dev_ms[warm])),
+        "ms_per_step_warm_all": dev_ms[warm],
+        "host_enqueue_ms_per_step_warm": float(np.mean(host_ms[warm])),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def lm_train_full_phase(peaks: dict) -> dict:
+    """(b) LM_ARCH at full width and depth (remat on, bf16 compute, f32
+    masters and AdamW moments), weights from ``torch.Generator(cuda)
+    .manual_seed(0)``: LM_TRAIN_SHAPES' steps (counters zeroed before the
+    first and read after the last: the path reaches no kernel), a
+    profiled step and a step timed in its halves (``lm_train_split``); then
+    at B 4 x S 512 the loss and gradients with remat off against remat on,
+    each with its peak memory above the state resident before its call."""
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    decls = model.param_decls()
+    # the schedule spans every step run: each shape's, its profiled one
+    # and its split one
+    opt_cfg = AdamConfig(lr=1e-3, warmup_steps=1,
+                         total_steps=sum(n + 2 for _, _, n in LM_TRAIN_SHAPES))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(DEV).manual_seed(0)
+    state = {"params": init_params(decls, gen, cfg.param_dtype),
+             "opt": init_params(opt_state_decls(decls, opt_cfg), gen,
+                                "float32")}
+    step = make_train_step(model, opt_cfg)
+    card = smi("name,power.limit")
+    rows = {}
+    zero_launches()
+    for b, s, n in LM_TRAIN_SHAPES:
+        batch, row = lm_train_steps(step, state, cfg, b, s, n)
+        assert all(math.isfinite(x) for x in row["losses"]), row
+        if (b, s) == LM_TRAIN_SHAPES[0][:2]:
+            assert row["losses"][-1] < row["losses"][0], row
+        row.update(lm_train_profile(step, state, batch))
+        row.update(lm_train_split(model, opt_cfg, state, batch))
+        row["bounds"] = lm_train_bounds(cfg, model, b, s, peaks)
+        row["card"] = card
+        rows[f"b{b}_s{s}"] = row
+        print(f"lm train {LM_ARCH} full b{b} s{s}: {json.dumps(row)}",
+              flush=True)
+    launches = read_launches()
+    kernels = {k: launches[k] for k in ("fused_plcore_call",
+                                        "two_pass_plcore_call", "rmcm_matmul")}
+    assert not any(kernels.values()), kernels
+
+    # (c) remat off against on, on the first shape's last batch
+    b, s, n = LM_TRAIN_SHAPES[0]
+    batch = bridge.to_device(lm_train_batch(cfg, b, s, n - 1), DEV)
+    got, peak, base = {}, {}, {}
+    for remat in (True, False):
+        m = build_model(cfg.replace(remat=remat))
+        torch.cuda.synchronize()
+        base[remat] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got[remat] = loss_and_grads(m.loss, state["params"], batch)
+        torch.cuda.synchronize()
+        peak[remat] = torch.cuda.max_memory_allocated() - base[remat]
+    worst, gap = grad_gap(got[True][1], got[False][1])
+    remat_row = {"loss_remat_on": float(got[True][0]),
+                 "loss_remat_off": float(got[False][0]),
+                 "loss_abs_diff": abs(float(got[True][0])
+                                      - float(got[False][0])),
+                 "worst_grad_leaf": worst, "worst_grad_gap_of_max_g": gap,
+                 "peak_above_state_bytes_remat_on": peak[True],
+                 "peak_above_state_bytes_remat_off": peak[False],
+                 "resident_state_bytes": base[True], "card": card}
+    assert peak[True] < peak[False], remat_row
+    assert math.isfinite(remat_row["loss_remat_off"]), remat_row
+    print(f"lm train {LM_ARCH} full remat: {json.dumps(remat_row)}",
+          flush=True)
+    return {"arch": LM_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "remat": cfg.remat, "shapes": rows, "remat_off_vs_on": remat_row,
+            "kernel_launches": kernels}
+
+
+def lm_train_start(directory: str, arch: str) -> None:
+    """A step-0 checkpoint of ``arch``'s smoke config drawn on the CPU
+    (``torch.Generator().manual_seed(0)``, zero moments), so that the
+    driver on the card and on the CPU start from the same weights."""
+    cfg = smoke_config(arch)
+    decls = build_model(cfg).param_decls()
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(decls, gen, cfg.param_dtype)
+    opt = init_params(opt_state_decls(
+        decls, AdamConfig(moment_dtype=cfg.moment_dtype)), gen, "float32")
+    ck = Checkpointer(directory)
+    ck.save(0, {"params": params, "opt": opt},
+            {"train_step": 0, "arch": arch, "losses_tail": []})
+    ck.wait()
+
+
+def lm_train_driver_phase() -> dict:
+    """(c) ``train.run`` on the card for LM_ARCH's smoke config: restart 12
+    against 8 + 4 at rtol 1e-4; LM_TRAIN_DRIVER's runs from one step-0
+    checkpoint on the card and on the CPU (finite; first and last loss
+    equal at rtol LM_TRAIN_DRIVER_RTOL); each again on the card for
+    LM_TRAIN_LEARN_STEPS steps, the mean of its last 5 losses below the
+    mean of its first 5."""
+    import tempfile
+
+    def args(device="cuda", **kw):
+        argv = ["--arch", LM_ARCH, "--smoke", "--steps", "8", "--batch", "4",
+                "--seq", "32", "--log-every", "1000", "--device", device]
+        for k, v in kw.items():
+            argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
+        return train.build_parser().parse_args(argv)
+
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        full = train.run(args(steps=12, ckpt_dir=d1, ckpt_every=100))
+        train.run(args(steps=12, stop_after=8, ckpt_dir=d2, ckpt_every=8))
+        resumed = train.run(args(steps=12, ckpt_dir=d2, ckpt_every=100))
+    rows = {"restart": {"full_final": full["final_loss"],
+                        "resumed_final": resumed["final_loss"],
+                        "resumed_steps": resumed["steps"]}}
+    assert resumed["steps"] == 4, rows
+    assert math.isclose(full["final_loss"], resumed["final_loss"],
+                        rel_tol=1e-4), rows
+    for name, kw in LM_TRAIN_DRIVER:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as d:
+                lm_train_start(d, kw.get("arch", LM_ARCH))
+                out[dev] = train.run(args(device=dev, ckpt_dir=d,
+                                          ckpt_every=1000, **kw))
+        card, cpu = out["cuda"], out["cpu"]
+        learn = train.run(args(**{**kw, "steps": LM_TRAIN_LEARN_STEPS}))
+        ls = learn["losses"]
+        row = {"losses": card["losses"], "cpu_losses": cpu["losses"],
+               "falls_in_%d_steps" % kw["steps"]:
+                   card["final_loss"] < card["loss_first"],
+               "learn_steps": LM_TRAIN_LEARN_STEPS,
+               "learn_mean_first5": float(np.mean(ls[:5])),
+               "learn_mean_last5": float(np.mean(ls[-5:])),
+               "learn_ms_per_step": 1e3 * learn["wall_s"] / LM_TRAIN_LEARN_STEPS}
+        assert all(math.isfinite(x) for x in card["losses"] + ls), (name, row)
+        assert len(card["losses"]) == kw["steps"], (name, row)
+        for a, c in zip(card["losses"], cpu["losses"]):
+            assert math.isclose(a, c, rel_tol=LM_TRAIN_DRIVER_RTOL), (name, row)
+        assert row["learn_mean_last5"] < row["learn_mean_first5"], (name, row)
+        rows[name] = row
+    rows["card"] = smi("name,power.limit")
+    print(f"lm train driver: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def lm_train_phase(peaks: dict) -> dict:
+    """The LM training path: (a), the driver (c), then full width (b)."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return {"smoke": lm_train_smoke_phase(),
+            "driver": lm_train_driver_phase(),
+            "full": lm_train_full_phase(peaks)}
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2640,6 +3022,7 @@ def main() -> None:
     fig8_tiny = fig8_tiny_phase()
     trained = train_phase(cfg, peaks)
     lm = lm_phase(peaks)
+    lm_train = lm_train_phase(peaks)
 
     k2 = "two_pass_plcore_call"
     # every main-path run: counters zeroed just before, read just after
@@ -2744,7 +3127,7 @@ def main() -> None:
                               if k not in ("k3_layers", "launches")},
                       "tiny_serve": tiny_serve, "adaptive_view": view,
                       "train": trained["summary"], "fig8": trained["fig8"],
-                      "fig8_tiny": fig8_tiny, "lm": lm,
+                      "fig8_tiny": fig8_tiny, "lm": lm, "lm_train": lm_train,
                       "main_path_instances": instances}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ imports neither the reference package nor its framework.
 (its params, its RMCM quant tree, packed for K3 on request) and a PEU's
 frequency matrix across, so that both packages evaluate the same SDF or
 SLF network. ``lm_params_from_numpy`` carries an LM's parameter tree (the
-reference's ``init_params`` layout, stacked layer axes and all).
+reference's ``init_params`` layout, stacked layer axes and all),
+``lm_opt_state_from_numpy`` its AdamW state.
 
 bfloat16 crosses as its 16-bit pattern: numpy has no bf16, and
 ``np.asarray`` of a JAX bf16 array is an ``ml_dtypes`` array (dtype name
@@ -95,6 +96,17 @@ def lm_params_from_numpy(tree, device=None):
     ``np.asarray`` of each leaf) -> the port's tree of tensors on
     ``device``: the same keys, shapes, dtypes and bits. The port's models
     read this layout as it is."""
+    return to_torch(tree, device)
+
+
+def lm_opt_state_from_numpy(tree, device=None):
+    """The reference's AdamW state of an LM (``opt_state_decls`` as
+    ``init_params`` gives it, or as a train step returns it, each leaf as
+    ``np.asarray``) -> the port's: ``m`` and ``v`` shaped like the params
+    (f32 leaves, or ``{"q": int8, "scale": f32}`` with int8 moments), the
+    int32 ``step`` scalar, and with the compressed step the f32 ``err``
+    residuals; the same keys, dtypes and bits, so that both states take
+    the same step."""
     return to_torch(tree, device)
 
 

@@ -17,7 +17,8 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import (attention, cast_tree, clamped_start,
                                        ffn_apply, softmax_xent)
 from repro_torch.models.params import Decl
-from repro_torch.models.transformer import DenseLM, _pad_cache_seq, maybe_scan
+from repro_torch.models.transformer import (DenseLM, _maybe_remat,
+                                            _pad_cache_seq, maybe_scan)
 
 MAX_DEC_POS = 32768  # sized to the largest assigned decode shape
 
@@ -79,6 +80,7 @@ class EncDecLM(DenseLM):
             h = blocks.norm_apply(cfg, lp["ffn_norm"], x)
             return x + ffn_apply(h, lp["ffn"], cfg.ffn_kind), None
 
+        body = _maybe_remat(body, cfg)
         x, _ = maybe_scan(body, x, cast_tree(params["enc_layers"], cfg.dtype),
                           collect=False)
         return blocks.norm_apply(cfg, params["enc_final_norm"], x)
@@ -115,6 +117,7 @@ class EncDecLM(DenseLM):
                 ys = tuple(t.to(torch.bfloat16) for t in (k, v, ck, cv))
             return x, ys
 
+        body = _maybe_remat(body, cfg)
         x, ys = maybe_scan(body, x, cast_tree(params["layers"], cfg.dtype),
                            collect=collect_kv)
         return blocks.norm_apply(cfg, params["final_norm"], x), ys

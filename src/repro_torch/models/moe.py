@@ -25,7 +25,8 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import (cast_tree, ffn_apply, gelu_tanh, silu,
                                        softmax_xent)
 from repro_torch.models.params import Decl
-from repro_torch.models.transformer import DenseLM, maybe_scan, tree_index
+from repro_torch.models.transformer import (DenseLM, _maybe_remat, maybe_scan,
+                                            tree_unbind)
 
 
 def expert_ffn_decls(cfg: ArchConfig, L: int) -> dict:
@@ -166,8 +167,8 @@ class MoELM(DenseLM):
         kvs = []
         if cfg.moe.first_k_dense:
             dl = cast_tree(params["dense_layers"], cfg.dtype)
-            for i in range(cfg.moe.first_k_dense):
-                x, ys = self._layer_fwd(x, tree_index(dl, i), pos, collect_kv)
+            for lp in tree_unbind(dl):
+                x, ys = self._layer_fwd(x, lp, pos, collect_kv)
                 kvs.append(ys)
 
         lp_all = cast_tree(params["layers"], cfg.dtype)
@@ -175,6 +176,7 @@ class MoELM(DenseLM):
         def body(carry, lp):
             return self._moe_layer_fwd(carry, lp, pos, collect_kv)
 
+        body = _maybe_remat(body, cfg)
         aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
         (x, aux), kv = maybe_scan(body, (x, aux0), lp_all, collect=collect_kv)
         if collect_kv and kvs:

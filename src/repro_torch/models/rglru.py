@@ -20,7 +20,7 @@ from repro_torch.models.layers import (cast_tree, ffn_apply, gelu_tanh, sigmoid,
                                        softplus)
 from repro_torch.models.params import Decl
 from repro_torch.models.ssm import _causal_conv, _conv_step
-from repro_torch.models.transformer import DenseLM, maybe_scan
+from repro_torch.models.transformer import DenseLM, _maybe_remat, maybe_scan
 
 _C = 8.0  # RG-LRU temperature
 
@@ -205,6 +205,7 @@ class RecurrentLM(DenseLM):
             stack = lambda ps: tuple(torch.stack(t) for t in zip(*ps))
             return x, (stack(recs), stack(attns))
 
+        body = _maybe_remat(body, cfg)
         x, ys = maybe_scan(body, x, cast_tree(params["groups"], cfg.dtype),
                            collect=collect_kv)
 

@@ -6,8 +6,10 @@ Every model has the reference's API as plain functions on tensors over a
 nested dict of parameters: ``param_decls`` / ``cache_decls`` / ``loss`` /
 ``prefill(params, batch, capacity)`` / ``decode(params, cache, token,
 pos)``. Layer stacks are a loop over the stacked layer axis (the
-reference's ``lax.scan``). ``decode`` writes the cache in place and returns
-it (the reference's serving step donates it); ``pos`` is a Python int.
+reference's ``lax.scan``), each stacked leaf unbound once per call, with
+optional per-layer activation checkpointing (``_maybe_remat``). ``decode``
+writes the cache in place and returns it (the reference's serving step
+donates it); ``pos`` is a Python int.
 
 The reference casts the layer parameters to ``cfg.dtype`` inside every
 call; so does the port (a no-op on a leaf already of that type), and
@@ -15,23 +17,33 @@ call; so does the port (a no-op on a leaf already of that type), and
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
 from repro_torch.models.layers import cast_tree, ffn_apply, softmax_xent
 
 
-def tree_index(tree, i: int):
-    """Slice ``i`` of every leaf's leading (layer) axis."""
+def tree_unbind(tree) -> list:
+    """The per-layer trees of a tree of stacked leaves: every leaf unbound
+    along its leading (layer) axis once. Indexing one layer at a time
+    (``leaf[i]``) would cost, in backward, one zero tensor the size of the
+    whole stack per layer; the views of one ``unbind`` stack their
+    gradients once."""
     if isinstance(tree, dict):
-        return {k: tree_index(v, i) for k, v in tree.items()}
+        keys = list(tree)
+        cols = [tree_unbind(tree[k]) for k in keys]
+        return [dict(zip(keys, row)) for row in zip(*cols)]
     if isinstance(tree, tuple):
-        return tuple(tree_index(v, i) for v in tree)
-    return tree[i]
+        return [tuple(row) for row in zip(*(tree_unbind(v) for v in tree))]
+    return list(torch.unbind(tree, 0))
 
 
 def tree_stack(trees: list):
@@ -42,18 +54,49 @@ def tree_stack(trees: list):
     return torch.stack(trees)
 
 
-def _first_leaf(tree):
-    while isinstance(tree, (dict, tuple)):
-        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
-    return tree
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_requires_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_requires_grad(v) for v in tree)
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of the matrix products,
+    recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` under per-call activation checkpointing when ``cfg.remat``
+    (the reference's ``jax.checkpoint``). ``cfg.remat_policy`` "nothing"
+    keeps only the inputs and recomputes the body in backward; "dots" also
+    keeps the matrix products' outputs. A call that records no gradient
+    runs ``fn`` as it is: checkpointing changes what backward keeps, never
+    the values."""
+    if not cfg.remat:
+        return fn
+    context_fn = (partial(create_selective_checkpoint_contexts, _dots_saveable)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+
+    def remat(*args):
+        if not (torch.is_grad_enabled() and _requires_grad(args)):
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return remat
 
 
 def maybe_scan(body, carry, xs, collect: bool = True):
     """The reference's scan over stacked layer params, as a loop over the
     leading axis: ``body(carry, xs[i]) -> (carry, y)``; the ys stacked."""
     ys = []
-    for i in range(_first_leaf(xs).shape[0]):
-        carry, y = body(carry, tree_index(xs, i))
+    for x in tree_unbind(xs):
+        carry, y = body(carry, x)
         ys.append(y)
     if not collect or all(y is None for y in ys):
         return carry, None
@@ -124,6 +167,7 @@ class DenseLM:
         def body(carry, lp):
             return self._layer_fwd(carry, lp, pos, collect_kv)
 
+        body = _maybe_remat(body, cfg)
         x, kv = maybe_scan(body, x, lp_all, collect=collect_kv)
         x = blocks.norm_apply(cfg, params["final_norm"], x)
         return x, kv

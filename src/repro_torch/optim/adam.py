@@ -150,13 +150,16 @@ def tree_flatten_up_to(structure, tree) -> list:
 
 def tree_unflatten(structure, leaves) -> dict:
     """Inverse of ``tree_flatten_up_to`` for ``structure``'s shape."""
-    it = iter(leaves)
+    return _build(structure, iter(leaves))
 
-    def build(s):
-        if isinstance(s, dict):
-            return {k: build(s[k]) for k in sorted(s)}
-        return next(it)
-    return build(structure)
+
+def _build(structure, it):
+    # a module-level recursion: a recursive closure would form a reference
+    # cycle holding ``leaves`` (a whole gradient or parameter set) until
+    # the cyclic garbage collector runs
+    if isinstance(structure, dict):
+        return {k: _build(structure[k], it) for k in sorted(structure)}
+    return next(it)
 
 
 def global_norm(tree) -> torch.Tensor:

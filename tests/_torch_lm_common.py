@@ -6,7 +6,8 @@ check of one arch.
 
 Tolerances (f32 smoke configs): ``loss`` at rtol 1e-5, prefill logits of
 the last position at 1e-4, the prefill cache within one bf16 ulp (f32
-state leaves at 1e-5), teacher-forced decode logits at 2e-3.
+state leaves at 1e-5), teacher-forced decode logits at 2e-3; gradients
+(``grad_gap``) within 1e-4 of the whole gradient's largest |g|.
 """
 import jax
 import jax.numpy as jnp
@@ -166,3 +167,41 @@ def check_bf16_op_by_op(arch: str, B: int = 2, S: int = 17, steps: int = 2):
                                  jnp.asarray(S + i, jnp.int32))
             tc, tlog = m.decode(sp, tc, torch.from_numpy(tok), S + i)
             close(jlog, tlog, CONSISTENCY_TOL)
+
+
+GRAD_TOL = 1e-4             # of the whole gradient's largest |g|
+
+
+def leaves_with_path(tree, path=()):
+    """[("a/b", leaf)] of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_with_path(tree[k], path + (k,))]
+    return [("/".join(path), tree)]
+
+
+def as_np(x) -> np.ndarray:
+    """A reference array or a port tensor as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def grad_gap(ref, port):
+    """(worst leaf, its largest |ref - port| over the whole reference
+    gradient's largest |g|) of two gradient trees."""
+    ref, port = dict(leaves_with_path(ref)), dict(leaves_with_path(port))
+    assert sorted(ref) == sorted(port)
+    gmax = max(float(np.abs(as_np(g)).max()) for g in ref.values())
+    gaps = {k: float(np.abs(as_np(ref[k]) - as_np(port[k])).max()) / gmax
+            for k in ref}
+    worst = max(gaps, key=gaps.get)
+    return worst, gaps[worst]
+
+
+def torch_batch(b: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def jax_batch(b: dict) -> dict:
+    return {k: jnp.asarray(v) for k, v in b.items()}

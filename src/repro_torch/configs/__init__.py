@@ -32,6 +32,13 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(_MODULES[name]).CONFIG
 
 
+def get_nerf_config(variant: str = "full"):
+    """The paper's NeRF config: "full" (``NerfConfig()``), else ``tiny()``."""
+    from repro_torch.configs import nerf_icarus
+
+    return nerf_icarus.CONFIG if variant == "full" else nerf_icarus.tiny()
+
+
 # ---- reduced configs for per-arch smoke tests (same family, tiny dims) ----
 def smoke_config(name: str) -> ArchConfig:
     cfg = get_config(name)

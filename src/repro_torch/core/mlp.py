@@ -27,7 +27,8 @@ from repro_torch.models.params import Decl
 
 
 def _linear(din: int, dout: int) -> dict:
-    return {"w": Decl((din, dout)), "b": Decl((dout,), init="zeros")}
+    return {"w": Decl((din, dout), (None, None)),
+            "b": Decl((dout,), (None,), init="zeros")}
 
 
 def nerf_mlp_decls(cfg: NerfConfig) -> dict:

@@ -10,6 +10,12 @@ positions and directions in, pixel colors out. Three routes:
 * ``use_kernel=False`` — plain tensor code (direct sin/cos encoding,
   ``/ norm`` directions, the log-space VRU), the port's in-package oracle.
 
+Multi-core scaling (paper §4.1: "the information of different clusters of
+rays are fed to different PLCores") is the ray batch sharded over the
+mesh's data axes with the weights replicated: ``make_render_step`` builds
+that step on a ``DeviceMesh``, each rank rendering its own rays.
+``PlcoreModel`` is the adapter that puts nerf-icarus in the dry run's grid.
+
 Images: ``render_image`` renders a whole image in one render call
 (``pipeline.render_image_single``); ``render_image_tiled`` is the seed's
 per-tile host loop, one render call (and, with ``use_kernel``, two K1
@@ -173,3 +179,77 @@ def render_image(cfg: NerfConfig, params, rays_o, rays_d, *, quant=None,
     return pipeline.render_image_single(
         cfg, params, rays_o, rays_d, quant=quant, use_kernel=use_kernel,
         rays_per_batch=rays_per_batch, ert_eps=ert_eps)
+
+
+# ------------------------------------------------- multi-core dispatch ------
+def ray_parallel(fn, mesh, rules):
+    """``fn(params, batch) -> rgb`` on one rank's rays, made a step on
+    ``mesh``: every (R, 3) batch leaf sharded over ``rules.batch_axes``
+    (a plain tensor is laid out so; a DTensor is redistributed), the
+    params replicated, and the result a ray-sharded DTensor. Rays are
+    independent, so each rank's program is ``fn`` on its own rays, with
+    no collective."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.runtime.sharding import placements
+
+    ray_pl = placements(rules.batch_spec(mesh, 2), mesh)
+
+    def shard(x):
+        if isinstance(x, DTensor):
+            return x.redistribute(mesh, ray_pl).to_local()
+        return distribute_tensor(x, mesh, ray_pl).to_local()
+
+    def local_params(p):
+        if isinstance(p, dict):
+            return {k: local_params(v) for k, v in p.items()}
+        return p.to_local() if isinstance(p, DTensor) else p
+
+    def step(params, batch):
+        rgb = fn(local_params(params), {k: shard(v) for k, v in batch.items()})
+        n = next(iter(batch.values())).shape[0]
+        return DTensor.from_local(rgb, mesh, ray_pl, run_check=False,
+                                  shape=(n,) + tuple(rgb.shape[1:]),
+                                  stride=rgb.stride())
+
+    return step
+
+
+def make_render_step(cfg: NerfConfig, mesh, rules, *, use_kernel=False):
+    """``step(params, rays_o, rays_d) -> rgb``: rays sharded over the data
+    axes and weights replicated, one PLCore per mesh cell, the paper's
+    scaling model. ``use_kernel=True`` is the reference's kernel route,
+    the two-dispatch chain: two K1 launches per call on the card."""
+    def render(params, batch):
+        return render_rays(cfg, params, batch["rays_o"], batch["rays_d"],
+                           use_kernel=use_kernel)["rgb"]
+
+    sharded = ray_parallel(render, mesh, rules)
+
+    def step(params, rays_o, rays_d):
+        return sharded(params, {"rays_o": rays_o, "rays_d": rays_d})
+
+    return step
+
+
+# ------------------------------------------------------------- dry-run API --
+class PlcoreModel:
+    """Adapter so nerf-icarus joins the dry-run/roofline grid alongside the
+    LM architectures."""
+
+    def __init__(self, cfg: NerfConfig):
+        self.cfg = cfg
+
+    def param_decls(self):
+        return plcore_decls(self.cfg)
+
+    def render_step(self, params, batch):
+        out = render_rays(self.cfg, params, batch["rays_o"], batch["rays_d"])
+        return out["rgb"]
+
+    def input_specs(self, n_rays: int) -> dict:
+        return {k: torch.empty((n_rays, 3), dtype=torch.float32, device="meta")
+                for k in ("rays_o", "rays_d")}
+
+    def input_logical(self) -> dict:
+        return {"rays_o": ("batch", None), "rays_d": ("batch", None)}

@@ -8,6 +8,10 @@ sigma|feat head, and the closed-form VRU ``T = exp(cumsum(x))`` with
 kernel wrappers take them for CPU tensors, and ``chip_smoke.py`` holds the
 CUDA kernels against them on the card.
 
+* ``fused_render_ref`` — the composed-core oracle of K1: the core
+  modules' PEU (``nerf_encoding``), NeRF MLP and VRU recurrence
+  (``volume.render_scan``) on the unpacked params, the reference's own
+  oracle for its kernel.
 * ``fused_plcore_ref`` — K1: one sample set per ray. A dead ray of the
   optional ``alive`` mask outputs zeros (the kernel skips it per ray).
 * ``two_pass_ref`` — K2: coarse pass over the pinned ``t_row``, the
@@ -26,8 +30,28 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
-from repro_torch.core import rmcm, sampling
-from repro_torch.core.encoding import nerf_encoding_double_angle
+from repro_torch.core import rmcm, sampling, volume
+from repro_torch.core.encoding import (nerf_encoding,
+                                       nerf_encoding_double_angle)
+from repro_torch.core.mlp import nerf_mlp_apply
+
+
+def fused_render_ref(cfg: NerfConfig, params: dict, rays_o, rays_d, t,
+                     deltas, quant: Optional[dict] = None):
+    """(rays_o/rays_d (R,3), t/deltas (R,N)) -> (rgb (R,3), aux).
+
+    The math the fused PLCore kernel implements, from the core modules:
+    encode positions (and directions) from the ray parametrization, run
+    the NeRF MLP on every sample, volume-render with the eq. (5)
+    recurrence. aux: {"weights", "acc"}.
+    """
+    pts = rays_o[..., None, :] + t[..., None] * rays_d[..., None, :]
+    pe_pos = nerf_encoding(pts, cfg.pos_freqs)
+    dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    pe_dir = nerf_encoding(dirs, cfg.dir_freqs)[..., None, :]   # (R,1,de)
+    sigma, rgb = nerf_mlp_apply(cfg, params, pe_pos, pe_dir, quant=quant)
+    out, aux = volume.render_scan(sigma, rgb, deltas)
+    return out, {"weights": aux["weights"], "acc": aux["acc"]}
 
 
 def _dq(mag, sgn_bits, scale, rows):

@@ -26,6 +26,10 @@ def _lead(L: int) -> tuple:
     return (L,) if L else ()
 
 
+def _ll(L: int) -> tuple:
+    return ("layers",) if L else ()
+
+
 def proj_in(x, w):
     """einsum("bsd,dhk->bshk"): x (B,S,d) times w (d,H,k)."""
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
@@ -39,20 +43,20 @@ def proj_out(o, w):
 # ------------------------------------------------------------ attention ----
 def attn_decls(cfg: ArchConfig, L: int, cross: bool = False) -> dict:
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    lead = _lead(L)
+    lead, ll = _lead(L), _ll(L)
     out = {
-        "wq": Decl(lead + (d, H, hd)),
-        "wk": Decl(lead + (d, K, hd)),
-        "wv": Decl(lead + (d, K, hd)),
-        "wo": Decl(lead + (H, hd, d)),
+        "wq": Decl(lead + (d, H, hd), ll + ("embed", "qheads", "headdim")),
+        "wk": Decl(lead + (d, K, hd), ll + ("embed", "kvheads", "headdim")),
+        "wv": Decl(lead + (d, K, hd), ll + ("embed", "kvheads", "headdim")),
+        "wo": Decl(lead + (H, hd, d), ll + ("qheads", "headdim", "embed")),
     }
     if cfg.qkv_bias and not cross:
-        out["bq"] = Decl(lead + (H, hd), init="zeros")
-        out["bk"] = Decl(lead + (K, hd), init="zeros")
-        out["bv"] = Decl(lead + (K, hd), init="zeros")
+        out["bq"] = Decl(lead + (H, hd), ll + ("qheads", "headdim"), init="zeros")
+        out["bk"] = Decl(lead + (K, hd), ll + ("kvheads", "headdim"), init="zeros")
+        out["bv"] = Decl(lead + (K, hd), ll + ("kvheads", "headdim"), init="zeros")
     if cfg.qk_norm and not cross:
-        out["q_norm"] = Decl(lead + (hd,), init="zeros")
-        out["k_norm"] = Decl(lead + (hd,), init="zeros")
+        out["q_norm"] = Decl(lead + (hd,), ll + ("headdim",), init="zeros")
+        out["k_norm"] = Decl(lead + (hd,), ll + ("headdim",), init="zeros")
     return out
 
 
@@ -118,27 +122,29 @@ def attn_decode(cfg: ArchConfig, p: dict, x, cache_k, cache_v, pos: int, *,
 def ffn_decls(cfg: ArchConfig, L: int, d_ff: Optional[int] = None) -> dict:
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
-    lead = _lead(L)
-    out = {"w1": Decl(lead + (d, ff)), "w2": Decl(lead + (ff, d))}
+    lead, ll = _lead(L), _ll(L)
+    out = {"w1": Decl(lead + (d, ff), ll + ("embed", "ffn")),
+           "w2": Decl(lead + (ff, d), ll + ("ffn", "embed"))}
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        out["w3"] = Decl(lead + (d, ff))
+        out["w3"] = Decl(lead + (d, ff), ll + ("embed", "ffn"))
     return out
 
 
 def kv_cache_decls(cfg: ArchConfig, L: int, batch: int, capacity: int,
                    dtype: str = "bfloat16") -> dict:
     shape = (L, batch, capacity, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": Decl(shape, init="zeros", dtype=dtype),
-            "v": Decl(shape, init="zeros", dtype=dtype)}
+    logical = ("layers", "batch", "seq", "kvheads", "headdim_tp")
+    return {"k": Decl(shape, logical, init="zeros", dtype=dtype),
+            "v": Decl(shape, logical, init="zeros", dtype=dtype)}
 
 
 # -------------------------------------------------------------- norm -------
 def norm_decls(cfg: ArchConfig, L: int) -> dict:
-    lead = _lead(L)
+    lead, ll = _lead(L), _ll(L) + ("embed",)
     if cfg.norm_kind == "layer":
-        return {"w": Decl(lead + (cfg.d_model,), init="ones"),
-                "b": Decl(lead + (cfg.d_model,), init="zeros")}
-    return {"w": Decl(lead + (cfg.d_model,), init="zeros")}
+        return {"w": Decl(lead + (cfg.d_model,), ll, init="ones"),
+                "b": Decl(lead + (cfg.d_model,), ll, init="zeros")}
+    return {"w": Decl(lead + (cfg.d_model,), ll, init="zeros")}
 
 
 def norm_apply(cfg: ArchConfig, p: dict, x):
@@ -149,9 +155,10 @@ def norm_apply(cfg: ArchConfig, p: dict, x):
 
 # ------------------------------------------------------------- embed -------
 def embed_decls(cfg: ArchConfig) -> dict:
-    out = {"embed": Decl((cfg.vocab_size, cfg.d_model), init="embed")}
+    out = {"embed": Decl((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                         init="embed")}
     if not cfg.tie_embeddings:
-        out["unembed"] = Decl((cfg.d_model, cfg.vocab_size))
+        out["unembed"] = Decl((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     out["final_norm"] = norm_decls(cfg, 0)
     return out
 

@@ -17,8 +17,9 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import (attention, cast_tree, clamped_start,
                                        ffn_apply, softmax_xent)
 from repro_torch.models.params import Decl
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.models.transformer import (DenseLM, _maybe_remat,
-                                            _pad_cache_seq, maybe_scan)
+                                            _pad_cache_seq, maybe_scan, spec)
 
 MAX_DEC_POS = 32768  # sized to the largest assigned decode shape
 
@@ -51,8 +52,8 @@ class EncDecLM(DenseLM):
         }
         return {
             **blocks.embed_decls(cfg),
-            "enc_pos": Decl((e.enc_seq, d), init="small"),
-            "dec_pos": Decl((MAX_DEC_POS, d), init="small"),
+            "enc_pos": Decl((e.enc_seq, d), (None, "embed"), init="small"),
+            "dec_pos": Decl((MAX_DEC_POS, d), (None, "embed"), init="small"),
             "enc_final_norm": blocks.norm_decls(cfg, 0),
             "enc_layers": enc_layer,
             "layers": dec_layer,
@@ -164,3 +165,21 @@ class EncDecLM(DenseLM):
                           collect=False)
         x = blocks.norm_apply(cfg, params["final_norm"], x)
         return cache, blocks.logits_out(cfg, params, x)
+
+    # ------------------------------------------------------- input specs ---
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        frames = spec((B, cfg.encdec.enc_seq, cfg.d_model), torch.float32)
+        if shape.kind == "train":
+            return {"tokens": spec((B, S)), "labels": spec((B, S)),
+                    "frames": frames}
+        if shape.kind == "prefill":
+            return {"tokens": spec((B, S)), "frames": frames}
+        return {"token": spec((B, 1)), "pos": spec(())}
+
+    def input_logical(self, shape: ShapeSpec) -> dict:
+        out = super().input_logical(shape)
+        if shape.kind in ("train", "prefill"):
+            out["frames"] = ("batch", None, None)
+        return out

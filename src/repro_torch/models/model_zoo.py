@@ -2,6 +2,7 @@
 with the common API used by the launcher and the tests:
 
     param_decls() / cache_decls(batch, capacity)   -> Decl trees
+    input_specs(shape) / input_logical(shape)      -> meta inputs, their axes
     serving_params(params)                         -> params cast once
     loss(params, batch)                            -> scalar
     prefill(params, batch, capacity)               -> (cache, last_logits)

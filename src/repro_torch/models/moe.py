@@ -33,9 +33,11 @@ def expert_ffn_decls(cfg: ArchConfig, L: int) -> dict:
     m = cfg.moe
     d, ff, E = cfg.d_model, m.d_ff_expert, m.n_experts
     lead = (L,) if L else ()
-    out = {"w1": Decl(lead + (E, d, ff)), "w2": Decl(lead + (E, ff, d))}
+    ll = ("layers",) if L else ()
+    out = {"w1": Decl(lead + (E, d, ff), ll + ("experts", "embed", "ffn")),
+           "w2": Decl(lead + (E, ff, d), ll + ("experts", "ffn", "embed"))}
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        out["w3"] = Decl(lead + (E, d, ff))
+        out["w3"] = Decl(lead + (E, d, ff), ll + ("experts", "embed", "ffn"))
     return out
 
 
@@ -127,7 +129,8 @@ class MoELM(DenseLM):
             "attn_norm": blocks.norm_decls(cfg, L),
             "attn": blocks.attn_decls(cfg, L),
             "ffn_norm": blocks.norm_decls(cfg, L),
-            "router": Decl(((L,) if L else ()) + (cfg.d_model, m.n_experts)),
+            "router": Decl(((L,) if L else ()) + (cfg.d_model, m.n_experts),
+                           (("layers",) if L else ()) + ("embed", "experts")),
             "experts": expert_ffn_decls(cfg, L),
         }
         if m.n_shared_experts:

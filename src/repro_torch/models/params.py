@@ -1,8 +1,10 @@
 """Parameter declarations and their initialization.
 
 A model declares its parameters once as a nested dict of ``Decl`` (shape +
-initializer); ``init_params`` turns that tree into tensors drawn from an
-explicit ``torch.Generator``. The draws cannot match the reference's
+logical axis names + initializer). From that one tree come the tensors
+(``init_params``, drawn from an explicit ``torch.Generator``), their
+storage-free stand-ins (``abstract_params``, the dry run's) and their
+layouts on a mesh (``repro_torch.runtime.sharding.pspecs``). The draws cannot match the reference's
 ``jax.random`` stream, so parity tests load the reference's weights through
 ``repro_torch.bridge`` instead of initializing on both sides.
 """
@@ -18,9 +20,17 @@ import torch
 @dataclass(frozen=True)
 class Decl:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # logical axis name per dim (None = never sharded)
     init: str = "normal"                 # normal | zeros | ones | embed | small
     scale: float = 1.0                   # fan-in style scale applied to "normal"
     dtype: Optional[str] = None          # override param_dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+
+
+def is_decl(x) -> bool:
+    return isinstance(x, Decl)
 
 
 def _init_one(d: Decl, gen: torch.Generator, param_dtype: str):
@@ -51,6 +61,15 @@ def init_params(decls, gen: torch.Generator, param_dtype: str = "float32"):
     if isinstance(decls, Decl):
         return _init_one(decls, gen, param_dtype)
     return {k: init_params(decls[k], gen, param_dtype) for k in sorted(decls)}
+
+
+def abstract_params(decls, param_dtype: str = "float32"):
+    """Decl tree -> tree of ``meta`` tensors: the shapes and dtypes of
+    ``init_params``'s leaves, with no storage."""
+    if isinstance(decls, Decl):
+        return torch.empty(decls.shape, device="meta",
+                           dtype=getattr(torch, decls.dtype or param_dtype))
+    return {k: abstract_params(v, param_dtype) for k, v in decls.items()}
 
 
 def param_bytes(decls, param_dtype: str = "float32") -> int:

@@ -75,17 +75,18 @@ class RecurrentLM(DenseLM):
         d, w = cfg.d_model, self.w
         cw = cfg.hybrid.conv_width
         lead = (L,) if L else ()
+        ll = ("layers",) if L else ()
         return {
             "norm": blocks.norm_decls(cfg, L),
-            "w_gate": Decl(lead + (d, w)),
-            "w_x": Decl(lead + (d, w)),
-            "w_out": Decl(lead + (w, d)),
-            "conv": Decl(lead + (cw, w), init="small"),
-            "lam": Decl(lead + (w,), init="small"),
-            "wa": Decl(lead + (w,), init="small"),
-            "ba": Decl(lead + (w,), init="zeros"),
-            "wi": Decl(lead + (w,), init="small"),
-            "bi": Decl(lead + (w,), init="zeros"),
+            "w_gate": Decl(lead + (d, w), ll + ("embed", "lru")),
+            "w_x": Decl(lead + (d, w), ll + ("embed", "lru")),
+            "w_out": Decl(lead + (w, d), ll + ("lru", "embed")),
+            "conv": Decl(lead + (cw, w), ll + (None, "lru"), init="small"),
+            "lam": Decl(lead + (w,), ll + ("lru",), init="small"),
+            "wa": Decl(lead + (w,), ll + ("lru",), init="small"),
+            "ba": Decl(lead + (w,), ll + ("lru",), init="zeros"),
+            "wi": Decl(lead + (w,), ll + ("lru",), init="small"),
+            "bi": Decl(lead + (w,), ll + ("lru",), init="zeros"),
         }
 
     def _attn_decls(self, L: int) -> dict:
@@ -118,12 +119,15 @@ class RecurrentLM(DenseLM):
         W = cfg.hybrid.window   # ring buffer: always window-sized
         cw = cfg.hybrid.conv_width
         kv = (self.n_attn, batch, W, cfg.n_kv_heads, cfg.head_dim)
+        kv_logical = ("layers", "batch", "seq", "kvheads", "headdim_tp")
         return {
-            "k": Decl(kv, init="zeros", dtype="bfloat16"),
-            "v": Decl(kv, init="zeros", dtype="bfloat16"),
-            "h": Decl((self.n_rec, batch, self.w), init="zeros", dtype="float32"),
-            "conv": Decl((self.n_rec, batch, cw - 1, self.w), init="zeros",
-                         dtype="float32"),
+            "k": Decl(kv, kv_logical, init="zeros", dtype="bfloat16"),
+            "v": Decl(kv, kv_logical, init="zeros", dtype="bfloat16"),
+            "h": Decl((self.n_rec, batch, self.w), ("layers", "batch", "lru"),
+                      init="zeros", dtype="float32"),
+            "conv": Decl((self.n_rec, batch, cw - 1, self.w),
+                         ("layers", "batch", None, "lru"),
+                         init="zeros", dtype="float32"),
         }
 
     # ----------------------------------------------------------- blocks ----

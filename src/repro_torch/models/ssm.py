@@ -51,19 +51,22 @@ class MambaLM(DenseLM):
         L, d, di, nh, gn = cfg.n_layers, cfg.d_model, self.di, self.nh, self.gn
         return {
             "norm": blocks.norm_decls(cfg, L),
-            "wz": Decl((L, d, di)),
-            "wx": Decl((L, d, di)),
-            "wB": Decl((L, d, gn)),
-            "wC": Decl((L, d, gn)),
-            "wdt": Decl((L, d, nh)),
-            "dt_bias": Decl((L, nh), init="zeros"),
-            "A_log": Decl((L, nh), init="small"),
-            "D": Decl((L, nh), init="ones"),
-            "conv_x": Decl((L, s.conv_width, di), init="small"),
-            "conv_B": Decl((L, s.conv_width, gn), init="small"),
-            "conv_C": Decl((L, s.conv_width, gn), init="small"),
-            "gate_norm": Decl((L, di), init="zeros"),
-            "wo": Decl((L, di, d)),
+            "wz": Decl((L, d, di), ("layers", "embed", "ssm_inner")),
+            "wx": Decl((L, d, di), ("layers", "embed", "ssm_inner")),
+            "wB": Decl((L, d, gn), ("layers", "embed", None)),
+            "wC": Decl((L, d, gn), ("layers", "embed", None)),
+            "wdt": Decl((L, d, nh), ("layers", "embed", "ssm_heads")),
+            "dt_bias": Decl((L, nh), ("layers", "ssm_heads"), init="zeros"),
+            "A_log": Decl((L, nh), ("layers", "ssm_heads"), init="small"),
+            "D": Decl((L, nh), ("layers", "ssm_heads"), init="ones"),
+            "conv_x": Decl((L, s.conv_width, di), ("layers", None, "ssm_inner"),
+                           init="small"),
+            "conv_B": Decl((L, s.conv_width, gn), ("layers", None, None),
+                           init="small"),
+            "conv_C": Decl((L, s.conv_width, gn), ("layers", None, None),
+                           init="small"),
+            "gate_norm": Decl((L, di), ("layers", "ssm_inner"), init="zeros"),
+            "wo": Decl((L, di, d), ("layers", "ssm_inner", "embed")),
         }
 
     def cache_decls(self, batch: int, capacity: int) -> dict:
@@ -72,12 +75,16 @@ class MambaLM(DenseLM):
         L, cw = cfg.n_layers, s.conv_width
         return {
             "H": Decl((L, batch, self.nh, s.head_dim, s.d_state),
+                      ("layers", "batch", "ssm_heads", None, "state"),
                       init="zeros", dtype="float32"),
-            "conv_x": Decl((L, batch, cw - 1, self.di), init="zeros",
+            "conv_x": Decl((L, batch, cw - 1, self.di),
+                           ("layers", "batch", None, "ssm_inner"),
+                           init="zeros", dtype="float32"),
+            "conv_B": Decl((L, batch, cw - 1, self.gn),
+                           ("layers", "batch", None, None), init="zeros",
                            dtype="float32"),
-            "conv_B": Decl((L, batch, cw - 1, self.gn), init="zeros",
-                           dtype="float32"),
-            "conv_C": Decl((L, batch, cw - 1, self.gn), init="zeros",
+            "conv_C": Decl((L, batch, cw - 1, self.gn),
+                           ("layers", "batch", None, None), init="zeros",
                            dtype="float32"),
         }
 

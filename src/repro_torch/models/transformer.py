@@ -26,7 +26,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.models import blocks
 from repro_torch.models.layers import cast_tree, ffn_apply, softmax_xent
 
@@ -101,6 +101,11 @@ def maybe_scan(body, carry, xs, collect: bool = True):
     if not collect or all(y is None for y in ys):
         return carry, None
     return carry, tree_stack(ys)
+
+
+def spec(shape, dtype=torch.int32) -> torch.Tensor:
+    """A storage-free (``meta``) stand-in for an input of ``shape``."""
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def _pad_cache_seq(cache, capacity: int, axis: int):
@@ -230,6 +235,27 @@ class DenseLM:
         x = blocks.norm_apply(cfg, params["final_norm"], x)
         return cache, blocks.logits_out(cfg, params, x)
 
+    # ------------------------------------------------------- input specs ---
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """The step's inputs as ``meta`` tensors of the reference's shapes
+        and dtypes (decode's ``pos`` is a () int32, the reference's traced
+        scalar; the port's ``decode`` takes it as a Python int)."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return {"tokens": spec((B, S)), "labels": spec((B, S))}
+        if shape.kind == "prefill":
+            return {"tokens": spec((B, S))}
+        # decode: one new token against a cache of S
+        return {"token": spec((B, 1)), "pos": spec(())}
+
+    def input_logical(self, shape: ShapeSpec) -> dict:
+        """Logical axes for input arrays (resolved by runtime.sharding)."""
+        if shape.kind == "train":
+            return {"tokens": ("batch", None), "labels": ("batch", None)}
+        if shape.kind == "prefill":
+            return {"tokens": ("batch", None)}
+        return {"token": ("batch", None), "pos": ()}
+
 
 class VLM(DenseLM):
     """paligemma: [patch embeddings | text] with a prefix-LM mask.
@@ -248,3 +274,24 @@ class VLM(DenseLM):
         x = torch.cat([patches, tok], dim=1)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         return x, pos, cfg.vlm.n_patches
+
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """Text length is seq_len - n_patches, so the attended sequence is
+        exactly the assigned shape."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        P = cfg.vlm.n_patches
+        T = S - P
+        patches = spec((B, P, cfg.d_model), torch.float32)
+        if shape.kind == "train":
+            return {"tokens": spec((B, T)), "labels": spec((B, T)),
+                    "patches": patches}
+        if shape.kind == "prefill":
+            return {"tokens": spec((B, T)), "patches": patches}
+        return {"token": spec((B, 1)), "pos": spec(())}
+
+    def input_logical(self, shape: ShapeSpec) -> dict:
+        out = super().input_logical(shape)
+        if shape.kind in ("train", "prefill"):
+            out["patches"] = ("batch", None, None)
+        return out

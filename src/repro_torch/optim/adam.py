@@ -66,9 +66,10 @@ def _dequant_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _moment_decl(d: Decl, moment_dtype: str):
     """Decl(s) for one moment tensor of one param Decl."""
     if moment_dtype == "int8":
-        return {"q": Decl(d.shape, init="zeros", dtype="int8"),
-                "scale": Decl(d.shape[:-1], init="zeros", dtype="float32")}
-    return Decl(d.shape, init="zeros", dtype="float32")
+        return {"q": Decl(d.shape, d.logical, init="zeros", dtype="int8"),
+                "scale": Decl(d.shape[:-1], d.logical[:-1], init="zeros",
+                              dtype="float32")}
+    return Decl(d.shape, d.logical, init="zeros", dtype="float32")
 
 
 def _map_decls(fn, decls):
@@ -83,7 +84,7 @@ def opt_state_decls(param_decls, cfg: AdamConfig) -> dict:
         return _map_decls(lambda d: _moment_decl(d, cfg.moment_dtype),
                           param_decls)
     return {"m": moments(), "v": moments(),
-            "step": Decl((), init="zeros", dtype="int32")}
+            "step": Decl((), (), init="zeros", dtype="int32")}
 
 
 def _read_moment(mo, cfg: AdamConfig, square: bool) -> torch.Tensor:

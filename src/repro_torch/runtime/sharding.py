@@ -1,5 +1,20 @@
-"""Layer-sharded PLCore weight residency over a list of cells.
+"""Sharding: logical-axis rules for the LM models, and layer-sharded PLCore
+weight residency over a list of cells.
 
+**Logical axes -> mesh axes.** The mesh is ("data", "model") for one pod and
+("pod", "data", "model") for two (``launch.mesh``). Every ``Decl`` names a
+logical axis per dimension; ``Rules`` maps them to mesh axes, dropping an
+axis (replicating) where it does not divide the dimension: this is how GQA
+KV heads (2/8/16) degrade on a 16-wide model axis. A spec is a tuple of
+per-dimension parts, each None (replicated), one mesh-axis name, or a tuple
+of names: the parts of the reference's ``PartitionSpec``. ``Rules`` reads
+only axis sizes (``mesh_axes``), so one object serves a ``DeviceMesh``, a
+``{name: size}`` dict and any mesh whose ``shape`` is such a mapping.
+``shardings`` turns specs into DTensor placements on a ``DeviceMesh``.
+``constrain_logical`` redistributes a DTensor by logical axis names; it is
+a no-op on a plain tensor or without an installed activation context.
+
+**PLCore weights** (layer-sharded residency over a list of cells).
 ICARUS keeps whole-model weights resident per PLCore; replicated over many
 devices that residency is the binding constraint (weight bytes, not
 FLOPs). The packed trunk stacks (``kernels.ops.stack_plcore_weights`` lays
@@ -12,7 +27,7 @@ its own contiguous run of layers. A render re-materializes the full stacks
 never change, so a sharded render gives the replicated render's pixels bit
 for bit.
 
-The port has no device mesh. A cell list takes its place: an ordered tuple
+This section takes no device mesh. A cell list takes its place: an ordered tuple
 of ``torch.device``s, one per cell (``plcore_mesh``). It may name one
 device several times (``[cuda:0] * 8``, or ``cpu`` cells in the tests):
 each name is then a logical cell on that device, with its own CUDA stream
@@ -37,12 +52,235 @@ cell.
 from __future__ import annotations
 
 import zlib
-from typing import Optional, Sequence
+from collections.abc import Mapping
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.models.params import Decl, is_decl
 from repro_torch.obs.metrics import global_registry
+
+# ---------------------------------------------------- logical -> mesh axes --
+# Default logical->mesh rules. Order inside the tuple = priority; all axes
+# that divide the dim evenly are used together (e.g. ("data","model")).
+DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),  # activations / caches: data parallel
+    "seq": (),
+    "embed": ("fsdp",),        # FSDP: shard d_model of weights over data axis
+    "qheads": ("model",),      # tensor parallel over attention heads
+    "kvheads": ("model",),     # sharded only when kv_heads % model == 0
+    "headdim": (),
+    "ffn": ("model",),         # Megatron-style FFN split
+    "vocab": ("model",),       # embedding/logits vocab split
+    "experts": ("model",),     # expert parallelism
+    "ssm_inner": ("model",),   # mamba2 d_inner / heads split
+    "ssm_heads": ("model",),
+    "state": (),
+    "lru": ("model",),         # RG-LRU width split
+    "layers": (),              # scan axis, never sharded
+    "window": (),
+}
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh``, of a mesh whose ``shape`` is
+    such a mapping, or of the mapping itself."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    shape = getattr(mesh, "shape", mesh)
+    if isinstance(shape, Mapping):
+        return dict(shape)
+    raise TypeError(f"no named axes on {type(mesh).__name__}: pass a "
+                    "DeviceMesh with mesh_dim_names or a {name: size} dict")
+
+
+def _prod(axes, sizes: Dict[str, int]) -> int:
+    return int(np.prod([sizes[a] for a in axes]))
+
+
+@dataclass(frozen=True)
+class Rules:
+    table: Dict[str, Tuple[str, ...]] = field(default_factory=lambda: dict(DEFAULT_RULES))
+    fsdp: bool = True                   # resolve "fsdp" pseudo-axis -> data axis
+    fsdp_axes: Tuple[str, ...] = ("data",)
+    dp_axes: Tuple[str, ...] = ("pod", "data")   # batch axes (filtered by mesh)
+
+    def updated(self, **table_updates) -> "Rules":
+        t = dict(self.table)
+        t.update(table_updates)
+        return replace(self, table=t)
+
+    def resolve(self, logical: Optional[str], mesh, dim: int):
+        """Mesh axes for one logical dim, dropping non-dividing axes."""
+        if logical is None:
+            return None
+        sizes = mesh_axes(mesh)
+        axes = []
+        for a in self.table.get(logical, ()):  # unknown logical -> replicated
+            if a == "fsdp":
+                if not self.fsdp:
+                    continue
+                cand = [x for x in self.fsdp_axes if x in sizes]
+            else:
+                cand = [a] if a in sizes else []
+            for c in cand:
+                if c not in axes and dim % _prod(axes + [c], sizes) == 0:
+                    axes.append(c)
+        if not axes:
+            return None
+        return tuple(axes) if len(axes) > 1 else axes[0]
+
+    def spec_for(self, decl: Decl, mesh) -> tuple:
+        used = set()
+        parts = []
+        for dim, logical in zip(decl.shape, decl.logical):
+            r = self.resolve(logical, mesh, dim)
+            # a mesh axis may appear at most once per spec
+            if r is not None:
+                rr = r if isinstance(r, tuple) else (r,)
+                rr = tuple(a for a in rr if a not in used)
+                used.update(rr)
+                r = rr if len(rr) > 1 else (rr[0] if rr else None)
+            parts.append(r)
+        return tuple(parts)
+
+    def batch_axes(self, mesh):
+        sizes = mesh_axes(mesh)
+        axes = tuple(a for a in self.dp_axes if a in sizes)
+        return axes if axes else None
+
+    def batch_spec(self, mesh, ndim: int, batch_dim: int = 0) -> tuple:
+        parts = [None] * ndim
+        axes = self.batch_axes(mesh)
+        # a one-axis part is the name itself, as a PartitionSpec holds it
+        parts[batch_dim] = axes[0] if axes and len(axes) == 1 else axes
+        return tuple(parts)
+
+
+def _map_decls(fn, decls):
+    if is_decl(decls):
+        return fn(decls)
+    return {k: _map_decls(fn, v) for k, v in decls.items()}
+
+
+def pspecs(decls, mesh, rules: Rules):
+    """Spec tree matching a Decl tree."""
+    return _map_decls(lambda d: rules.spec_for(d, mesh), decls)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """DTensor placements of a spec on a ``DeviceMesh``: Shard(d) on every
+    mesh axis that dimension d's part names, Replicate() elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in mesh.mesh_dim_names]
+    for d, part in enumerate(spec):
+        for a in ((part,) if isinstance(part, str) else (part or ())):
+            out[mesh.mesh_dim_names.index(a)] = Shard(d)
+    return out
+
+
+def shardings(decls, mesh, rules: Rules):
+    """Placement-list tree matching a Decl tree, on a ``DeviceMesh``."""
+    return _map_decls(lambda d: placements(rules.spec_for(d, mesh), mesh),
+                      decls)
+
+
+def constrain(x, mesh, spec: tuple):
+    """``x`` redistributed to ``spec`` on ``mesh``; a plain tensor (off
+    mesh) is returned as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ------------------------------------------------- activation constraints --
+# Launch-time context: when set, model code can pin activation shardings by
+# logical axis name (vocab-sharded logits, joint-mesh attention resharding).
+# Model code never imports mesh objects; it calls ``constrain_logical``,
+# which is a no-op unless the launcher installed a context.
+_ACT_CTX: dict = {"mesh": None, "rules": None}
+
+ACT_RULES: Dict[str, Tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "batch_joint": ("pod", "data", "model"),  # attention batch resharding
+    "vocab": ("model",),
+    "seq": (),
+}
+
+
+def set_activation_context(mesh, rules: Optional[Rules] = None):
+    """Install (or clear, with None) the activation-sharding context."""
+    _ACT_CTX["mesh"] = mesh
+    _ACT_CTX["rules"] = rules or (Rules() if mesh is not None else None)
+
+
+def activation_context_mesh():
+    return _ACT_CTX["mesh"]
+
+
+def logical_spec(shape, logical: Tuple[Optional[str], ...], mesh,
+                 rules: Rules) -> tuple:
+    """The spec ``constrain_logical`` resolves for an activation of
+    ``shape``: ``ACT_RULES`` first, then the rules' table; non-dividing
+    axes degrade to replicated."""
+    sizes = mesh_axes(mesh)
+    used = set()
+    parts = []
+    for dim, name in zip(shape, logical):
+        if name is None:
+            parts.append(None)
+            continue
+        axes = []
+        for a in ACT_RULES.get(name, rules.table.get(name, ())):
+            if a in sizes and a not in used and \
+                    dim % _prod(axes + [a], sizes) == 0:
+                axes.append(a)
+        used.update(axes)
+        parts.append(tuple(axes) if len(axes) > 1 else (axes[0] if axes else None))
+    return tuple(parts)
+
+
+def constrain_logical(x, logical: Tuple[Optional[str], ...]):
+    """``x`` redistributed by logical axis names on the installed context's
+    mesh; a no-op without a context or on a plain tensor."""
+    mesh = _ACT_CTX["mesh"]
+    if mesh is None:
+        return x
+    return constrain(x, mesh, logical_spec(x.shape, logical, mesh,
+                                           _ACT_CTX["rules"]))
+
+
+def attn_batch_split_ok(global_batch: int) -> bool:
+    """The explicit batch-split attention needs the per-data-shard batch
+    to divide the model axis."""
+    mesh = _ACT_CTX["mesh"]
+    sizes = mesh_axes(mesh) if mesh is not None else {}
+    if "model" not in sizes:
+        return False
+    rules = _ACT_CTX["rules"]
+    dp = _prod([a for a in rules.dp_axes if a in sizes], sizes)
+    local = global_batch // dp
+    return local % sizes["model"] == 0
+
+
+def attn_needs_batch_reshard(n_heads: int) -> bool:
+    """True when TP cannot split the heads on the installed mesh (the
+    qwen2-1.5b 12-head / whisper 20-head / paligemma 8-head cases): then
+    resharding the batch over the joint mesh recovers the lost parallelism."""
+    mesh = _ACT_CTX["mesh"]
+    sizes = mesh_axes(mesh) if mesh is not None else {}
+    if sizes.get("model", 1) <= 1:
+        return False
+    return n_heads % sizes["model"] != 0
+
+
+# ------------------------------------------------ PLCore weight sharding --
 
 #: the axis the trunk stacks shard over: the cell list's only one
 PLCORE_SHARD_AXES = ("data",)

@@ -12,7 +12,7 @@ import torch
 
 EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
 PORT_EXAMPLES = ("torch_quickstart.py", "torch_nerf_serve.py",
-                 "torch_slf_render.py")
+                 "torch_slf_render.py", "torch_lm_train_e2e.py")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,3 +56,21 @@ def test_example_runs_on_cpu(monkeypatch, tmp_path, capsys, name, argv,
     out = capsys.readouterr().out.strip().splitlines()
     assert last in out[-1], out[-5:]
     assert any(tmp_path.joinpath("runs").rglob("*.ppm")) == images
+
+
+def test_lm_train_e2e_resumes_on_cpu(monkeypatch, tmp_path, capsys):
+    """The e2e LM example at --tiny with 40 steps: phase 2 restores phase
+    1's last checkpoint (step 24, 60% of 40) from the port's own
+    directory, and the final loss is finite. The unigram-entropy gate is
+    held at full size on the card."""
+    import math
+
+    _run(monkeypatch, tmp_path, "torch_lm_train_e2e.py",
+         ["--tiny", "--steps", "40"])
+    out = capsys.readouterr().out
+    ckpt = tmp_path / "runs" / "lm_e2e_ckpt_torch"
+    assert ckpt.is_dir() and not (tmp_path / "runs" / "lm_e2e_ckpt").exists()
+    assert "[train] restored step=24 from runs/lm_e2e_ckpt_torch" in out
+    final = [ln for ln in out.splitlines() if ln.startswith("[e2e] final loss")]
+    assert final and math.isfinite(float(final[0].split()[3]))
+

@@ -59,7 +59,8 @@ def test_configs_match_reference(arch):
 
 def test_embed_init_std():
     """The "embed" initializer draws at std d_model ** -0.5."""
-    w = params.init_params({"e": params.Decl((4096, 64), init="embed")},
+    w = params.init_params({"e": params.Decl((4096, 64), (None, None),
+                                                init="embed")},
                            torch.Generator().manual_seed(0))["e"]
     assert abs(float(w.std()) - 64 ** -0.5) < 2e-3
 

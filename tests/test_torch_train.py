@@ -158,7 +158,8 @@ def test_adam_update_matches_reference(moment_dtype, clip, weight_decay,
     jo = jax_init(ja.opt_state_decls(jdecls, jcfg), jax.random.PRNGKey(0),
                   "float32")
     tp = bridge.to_torch(params)
-    to = init_params(ta.opt_state_decls(_decls(Decl), tcfg),
+    to = init_params(ta.opt_state_decls(
+        _decls(lambda s: Decl(s, (None,) * len(s))), tcfg),
                      torch.Generator().manual_seed(0))
     _assert_trees(jo, to, exact=True)
     for _ in range(n_steps):
@@ -219,7 +220,7 @@ def test_stochastic_rounding_unbiased_and_seeded():
     # through adam_update: bf16 params stay bf16 and move
     cfg = ta.AdamConfig(lr=1e-3, warmup_steps=1, stochastic_round=True)
     p = {"w": torch.ones(64, 8, dtype=torch.bfloat16)}
-    o = init_params(ta.opt_state_decls({"w": Decl((64, 8))}, cfg),
+    o = init_params(ta.opt_state_decls({"w": Decl((64, 8), (None, None))}, cfg),
                     torch.Generator())
     p1, _, _ = ta.adam_update(cfg, p, {"w": torch.ones(64, 8)}, o,
                               generator=torch.Generator().manual_seed(1))

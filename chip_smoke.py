@@ -237,13 +237,36 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    at its t moved by one ulp (the far-cap sample's sign is not determined
    at f32 precision there) and counted; the reference holds 1e-5 in
    interpret mode.
-24. The dry run (``dryrun_phase``, after step 21): ``dryrun.lower_cell``
-   for qwen2-1.5b at train_4k, prefill_32k and decode_32k on 16 x 16 and
+24. The dry run (``dryrun_phase``, first after the build): ``dryrun.lower_cell``
+   for qwen2-1.5b at train_4k, prefill_32k and decode_32k on 16 x 16,
+   moonshot-v1-16b-a3b at train_4k, both train_4k cells also with
+   ``optimized=True`` (``--opt``: the models' mesh paths), and
    nerf-icarus render_800 on 16 x 16 and 2 x 16 x 16, one ``dryrun:``
    line each (dominant term, the three roofline terms modelled for a
    cluster of H100s, wall seconds); the card's allocated memory and the
    process group state unchanged; ``launch.mesh.PEAK_FLOPS_BF16`` within
    1% of this card's bf16 peak.
+26. The models' mesh paths (``mesh_paths_phase``, right after step 24, before the
+   phases whose leftovers hold card memory) on ranks
+   that share this card: ``python chip_smoke.py --mesh-rank WHICH DIR``
+   processes of a torchrun-style launch. NCCL is tried once on two ranks
+   (it refuses two ranks on one device; the cause is printed); the ranks
+   run gloo with CUDA tensors, every functional collective staged in the
+   rank harness through c10d's synchronous call (the functional
+   all-gather segfaults on the card machine's torch). (a) moonshot at
+   full width and 4 layers on (1, 4): forward and backward through the
+   expert-parallel path against the dense path on rank 0 (the same
+   weights and batch), in f32 at the CPU tests' tolerances (loss 1e-3,
+   every gradient leaf 1e-3 of the largest |g|, the first MoE layer's y
+   1e-4) and in bf16 (loss within 1e-2 relative; ms per step of both
+   paths, peak memory per rank). (b) ``train --model-axis 8 --backend
+   gloo`` on 8 ranks, qwen2-1.5b at full width and 6 layers, B 8 x S
+   512, three steps, the batch split taken on every rank, losses within
+   1e-2 relative of ``--model-axis 1`` on the same seed and batches. (c)
+   ``make_dp_compressed_train_step`` at n = 2 on this card against the
+   same two ranks on the CPU: three steps' losses at rtol 1e-5, every
+   residual after the first step equal within 1e-6 or a rounding tie.
+   Times are those of ranks sharing one card, not scale-out times.
 25. ``examples/torch_lm_train_e2e.py`` at its ~100M config
    (``lm_e2e_phase``, last) in its own process, ``--steps 1000``: a
    restart from step 600, the final loss below the stream's unigram
@@ -3115,18 +3138,24 @@ def lm_train_phase(peaks: dict) -> dict:
             "full": lm_train_full_phase(peaks)}
 
 
-DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
-                ("qwen2-1.5b", "prefill_32k", False),
-                ("qwen2-1.5b", "decode_32k", False),
-                ("nerf-icarus", "render_800", False),
-                ("nerf-icarus", "render_800", True))
+# (arch, shape, two pods, --opt): the --opt cells beside their baselines
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False, False),
+                ("qwen2-1.5b", "train_4k", False, True),
+                ("qwen2-1.5b", "prefill_32k", False, False),
+                ("qwen2-1.5b", "decode_32k", False, False),
+                ("moonshot-v1-16b-a3b", "train_4k", False, False),
+                ("moonshot-v1-16b-a3b", "train_4k", False, True),
+                ("nerf-icarus", "render_800", False, False),
+                ("nerf-icarus", "render_800", True, False))
 
 
 def dryrun_phase(peaks: dict) -> dict:
     """``dryrun.lower_cell`` for qwen2-1.5b at train_4k, prefill_32k and
-    decode_32k on 16 x 16 and nerf-icarus render_800 on 16 x 16 and 2 x
-    16 x 16 (no probes): each cell's dominant term, its three roofline
-    terms (modelled for a cluster of H100s) and its wall time. The phase
+    decode_32k on 16 x 16, moonshot-v1-16b-a3b at train_4k, the two
+    train_4k cells also ``--opt`` (the models' mesh paths), and
+    nerf-icarus render_800 on 16 x 16 and 2 x 16 x 16 (no probes): each
+    cell's dominant term, its three roofline terms (modelled for a cluster
+    of H100s) and its wall time. The phase
     takes no card memory and leaves the process group state as it found
     it; the roofline's bf16 peak is within 1% of this card's."""
     from repro_torch.launch import dryrun
@@ -3139,11 +3168,12 @@ def dryrun_phase(peaks: dict) -> dict:
     pg0 = dist.is_initialized()
     rows = []
     t_all = time.perf_counter()
-    for arch, shape, mp in DRYRUN_CELLS:
+    for arch, shape, mp, opt in DRYRUN_CELLS:
         t0 = time.perf_counter()
         r = dryrun.lower_cell(arch, shape, multi_pod=mp, verbose=False,
-                              probes=False)
-        row = {"arch": arch, "shape": shape,
+                              probes=False, optimized=opt)
+        assert r["optimized"] == opt
+        row = {"arch": arch, "shape": shape, "optimized": opt,
                "mesh": "2x16x16" if mp else "16x16",
                "dominant": r["dominant"], **r["roofline"],
                "useful_flops_ratio": r["useful_flops_ratio"],
@@ -3159,6 +3189,552 @@ def dryrun_phase(peaks: dict) -> dict:
     print(f"dryrun phase: wall {out['wall_s']:.1f} s, bf16 peak ratio "
           f"{ratio:.5f}, card memory unchanged", flush=True)
     return out
+
+
+# ------------------------------------------------------------ mesh paths --
+# ranks of one launch share this card: NCCL refuses two ranks on one
+# device, so the phase tries it once, prints why, and runs gloo (collectives
+# of CUDA tensors through the host)
+MESH_BACKEND = "gloo"
+MESH_ARCH_EP = "moonshot-v1-16b-a3b"
+MESH_EP_LAYERS = 4           # the depth cut: the dense layer and 3 MoE layers
+MESH_EP_RANKS = 4            # (data 1, model 4): 16 experts per rank
+MESH_EP_BATCH = (4, 512)
+MESH_SPLIT_RANKS = 8         # (data 1, model 8): 12 heads, batch split taken
+MESH_SPLIT_BATCH = (8, 512)
+# the depth cut of (b): at its 28 layers the 8 ranks' AdamW state beside
+# the logits torch 2.11's DTensor gathers over the vocab does not fit one
+# 80 GB card (out of memory at 77 GB in the first step); at 12 layers the
+# ranks peak at 7.93 GB each and ran out of memory in 2 of 4 runs; 6
+# layers leave ~9 GB free. No other model axis of at most 8 ranks leaves
+# 12 heads undivided and divides the batch of 8
+MESH_SPLIT_LAYERS = 6
+MESH_TRAIN_STEPS = 3
+MESH_TIMED = 3               # timed fwd+bwd steps after one warm-up
+# the CPU tests' tolerances (tests/test_torch_mesh_paths.py), held in f32
+MESH_LOSS_ATOL = 1e-3
+MESH_GRAD_OF_MAX = 1e-3
+MESH_Y_ATOL = 1e-4
+# bf16 runs of the same paths (reported; gated at this relative gap)
+MESH_BF16_RTOL = 1e-2
+MESH_RANK_TIMEOUT = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(n: int, which: str, out_dir: pathlib.Path,
+                timeout: int = MESH_RANK_TIMEOUT, check: bool = True) -> list:
+    """``python chip_smoke.py --mesh-rank WHICH OUT`` in ``n`` processes on
+    this card, a torchrun-style launch (RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT; no LOCAL_RANK: every rank takes cuda:0); their JSON
+    results in rank order. A rank that fails stops the others, and every
+    process is stopped before this returns."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    port = str(_free_port())
+    procs, logs = [], []
+    try:
+        for r in range(n):
+            env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+            env.update({"PYTHONPATH": str(ROOT / "src"),
+                        "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True",
+                        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+                        "WORLD_SIZE": str(n), "RANK": str(r)})
+            logs.append(open(out_dir / f"{which}_rank{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-X", "faulthandler", str(ROOT / "chip_smoke.py"),
+                 "--mesh-rank", which, str(out_dir)], env=env, cwd=ROOT,
+                stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        t_end = time.time() + timeout
+        first_failed = None
+        while any(pr.poll() is None for pr in procs):
+            failed = [r for r, pr in enumerate(procs) if pr.poll()]
+            if failed:
+                first_failed = failed[0]
+                break
+            if time.time() > t_end:
+                break
+            time.sleep(0.5)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+            pr.wait()
+    errs = []
+    for f in logs:
+        f.seek(0)
+        errs.append(f.read())
+        f.close()
+    if check:
+        bad = [r for r, pr in enumerate(procs) if pr.returncode]
+        if bad:
+            r = bad[0] if first_failed is None else first_failed
+            others = {q: errs[q].strip().splitlines()[-1:] for q in bad if q != r}
+            raise AssertionError(
+                f"{which} rank {r} failed first (rc {procs[r].returncode}; "
+                f"the others' last lines {others}): {errs[r][-6000:]}")
+    out = []
+    for r in range(n):
+        f = out_dir / f"{which}_rank{r}.json"
+        out.append(json.loads(f.read_text()) if f.exists() else
+                   {"error": errs[r][-2000:]})
+    return out
+
+
+def _count_calls(module, name: str, counts: dict) -> None:
+    fn = getattr(module, name)
+
+    def wrapped(*a, **k):
+        counts[name] = counts.get(name, 0) + 1
+        return fn(*a, **k)
+    setattr(module, name, wrapped)
+
+
+def _timed(fn, n: int) -> list:
+    """ms of ``n`` calls of ``fn``, each ended by a device synchronize and a
+    barrier of the ranks."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def _rank_nccl_probe(out_dir: str) -> None:
+    """Two ranks on this card over nccl: one all-reduce, or the cause."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    row = {}
+    try:
+        with make_host_mesh(1, backend="nccl"):
+            t = torch.ones(1, device=DEV)
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            row["ok"] = float(t) == dist.get_world_size()
+    except Exception as e:   # the cause is the result
+        row["refused"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+    path = pathlib.Path(out_dir) / f"nccl_probe_rank{os.environ['RANK']}.json"
+    path.write_text(json.dumps(row))
+
+
+def _rank_ep(out_dir: str) -> None:
+    """(a) MESH_ARCH_EP at full width, MESH_EP_LAYERS layers, on a (1, 4)
+    mesh: forward and backward through the EP path (DTensors laid out by
+    Rules, the activation context installed) against the dense path on
+    rank 0 (the same weights, drawn on this card from seed 0, and batch);
+    the first MoE layer's y on one hidden state; in f32 (held to the CPU
+    tests' tolerances) and bf16 (the config's dtype; timed)."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import spmd
+    from repro_torch.runtime.sharding import Rules, set_activation_context
+
+    calls: dict = {}
+    _count_calls(moe, "_moe_apply_ep", calls)
+    base = get_config(MESH_ARCH_EP).replace(n_layers=MESH_EP_LAYERS)
+    B, S = MESH_EP_BATCH
+    row = {"rows": {}}
+    with make_host_mesh(MESH_EP_RANKS, backend=MESH_BACKEND) as mesh:
+        rules = Rules()
+        lead = dist.get_rank() == 0
+        for label, cfg in (("f32", base.replace(dtype="float32")),
+                           ("bf16", base)):
+            model = build_model(cfg)
+            decls = model.param_decls()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = train.init_sharded(decls, torch.Generator(DEV).manual_seed(0),
+                                        cfg.param_dtype, mesh, rules)
+            batch = bridge.to_device(lm_train_batch(cfg, B, S), DEV)
+            db = train._mesh_batch(batch, mesh, rules)
+            h = torch.randn((B, S, cfg.d_model), generator=torch.Generator(
+                DEV).manual_seed(1), device=DEV).to(getattr(torch, cfg.dtype))
+            lp = {k: v[0] for k, v in params["layers"].items()
+                  if not isinstance(v, dict)}
+            lp.update({k: {kk: vv[0] for kk, vv in v.items()}
+                       for k, v in params["layers"].items()
+                       if isinstance(v, dict)})
+            cdt = getattr(torch, cfg.dtype)
+            lp = {k: ({kk: vv.to(cdt) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(cdt))
+                  for k, v in lp.items()}
+            step_loss = spmd.FsdpLoss(model, mesh, rules).loss
+            got = {}
+
+            def ep_step():
+                with spmd.sharded_program():
+                    got["loss"], got["grads"] = loss_and_grads(
+                        step_loss, params, db)
+
+            set_activation_context(mesh, rules)
+            try:
+                before = calls.get("_moe_apply_ep", 0)
+                ep_step()
+                r = {"ep_calls_per_step": calls.get("_moe_apply_ep", 0) - before}
+                r["ep_ms"] = _timed(ep_step, MESH_TIMED) if label == "bf16" else None
+                with spmd.sharded_program():
+                    hd = distribute_tensor(h, mesh, [Replicate(), Replicate()],
+                                           src_data_rank=None)
+                    y_ep = moe.moe_apply(cfg, spmd.fsdp_gathered(lp, mesh, rules),
+                                         hd)[0].full_tensor()
+                    loss_ep = float(got["loss"].full_tensor())
+            finally:
+                set_activation_context(None)
+            torch.cuda.synchronize()
+            r["peak_bytes_ep"] = torch.cuda.max_memory_allocated()
+            grads = got.pop("grads")
+            got.clear()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if lead:
+                # the dense path, mesh-free, on the same weights and batch
+                torch.cuda.reset_peak_memory_stats()
+                full = init_params(decls, torch.Generator(DEV).manual_seed(0),
+                                   cfg.param_dtype)
+                dense = {}
+
+                def dense_step():
+                    dense["loss"], dense["grads"] = loss_and_grads(
+                        model.loss, full, batch)
+                dense_step()
+                r["dense_ms"] = [1e3 * t for t in _host_timed(
+                    dense_step, MESH_TIMED)] if label == "bf16" else None
+                lp_full = {k: (v[0].to(cdt) if not isinstance(v, dict) else
+                               {kk: vv[0].to(cdt) for kk, vv in v.items()})
+                           for k, v in full["layers"].items()}
+                y_dense = moe._moe_apply_dense(cfg, lp_full, h)[0]
+                r["peak_bytes_dense"] = torch.cuda.max_memory_allocated()
+                r["loss_ep"], r["loss_dense"] = loss_ep, float(dense["loss"])
+                r["y_max_abs_diff"] = float((y_ep.float() - y_dense.float())
+                                            .abs().max())
+                dense_leaves = dict(zip(_leaf_names(full),
+                                        tree_leaves(dense["grads"])))
+                gmax = max(float(v.abs().max()) for v in dense_leaves.values())
+                del full["layers"], full["dense_layers"]
+                torch.cuda.empty_cache()
+            names = _leaf_names(grads)
+            gaps = {}
+            for name, g in zip(names, tree_leaves(grads)):
+                g = g.full_tensor() if isinstance(g, DTensor) else g
+                if lead:   # slice by slice: no full-size temporaries
+                    want = dense_leaves[name]
+                    d = max(float((a.float() - b.float()).abs().max())
+                            for a, b in zip(g.reshape(-1, g.shape[-1]).split(4096),
+                                            want.reshape(-1, g.shape[-1]).split(4096))) \
+                        if g.ndim else float((g - want).abs())
+                    gaps[name] = d
+                del g
+                torch.cuda.empty_cache()
+            if lead:
+                top = sorted(gaps, key=gaps.get, reverse=True)[:5]
+                r.update({"worst_grad_leaf": top[0],
+                          "worst_grad_gap_of_max_g": gaps[top[0]] / gmax,
+                          "next_worst_of_max_g": {k: gaps[k] / gmax
+                                                  for k in top[1:]},
+                          "max_abs_g": gmax})
+                del full, dense, dense_leaves
+            del params, grads, lp
+            row["rows"][label] = r
+            dist.barrier()
+    if lead:
+        _rank_dump_path(out_dir, "ep", 0, row)
+    else:
+        _rank_dump_path(out_dir, "ep", int(os.environ["RANK"]),
+                        {"rows": {k: {"peak_bytes_ep": v["peak_bytes_ep"]}
+                                  for k, v in row["rows"].items()}})
+
+
+def _rank_dump_path(out_dir: str, which: str, rank: int, row: dict) -> None:
+    (pathlib.Path(out_dir) / f"{which}_rank{rank}.json").write_text(
+        json.dumps(row))
+
+
+def _host_timed(fn, n: int) -> list:
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _split_argv(model_axis: int) -> list:
+    B, S = MESH_SPLIT_BATCH
+    argv = ["--arch", LM_ARCH, "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(B), "--seq", str(S), "--log-every", "1000",
+            "--model-axis", str(model_axis)]
+    return argv + (["--backend", MESH_BACKEND] if model_axis > 1 else [])
+
+
+def _split_config(arch: str):
+    return get_config(arch).replace(n_layers=MESH_SPLIT_LAYERS)
+
+
+def _rank_split(out_dir: str) -> None:
+    """(b) ``train --model-axis 8`` on LM_ARCH at full width,
+    MESH_SPLIT_LAYERS layers (the driver's config hook patched)."""
+    from repro_torch.models import blocks
+
+    calls: dict = {}
+    _count_calls(blocks, "_batch_split_attention", calls)
+    train.get_config = _split_config
+    torch.cuda.reset_peak_memory_stats()
+    out = train.run(train.build_parser().parse_args(
+        _split_argv(MESH_SPLIT_RANKS)))
+    torch.cuda.synchronize()
+    _rank_dump_path(out_dir, "split", int(os.environ["RANK"]), {
+        "losses": out["losses"], "step_s": out["step_s"],
+        "batch_split_calls": calls.get("_batch_split_attention", 0),
+        "peak_bytes": torch.cuda.max_memory_allocated()})
+
+
+def _rank_compress(out_dir: str) -> None:
+    """(c) ``make_dp_compressed_train_step`` at n = 2 for LM_ARCH's smoke
+    config: three steps on this card and on the CPU from one seed-0 draw,
+    each rank on its half of the driver's batches; losses and each rank's
+    residuals."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_dp_compressed_train_step
+    from repro_torch.runtime.compression import init_error_state
+
+    cfg = smoke_config(LM_ARCH)
+    model = build_model(cfg)
+    decls = model.param_decls()
+    opt_cfg = AdamConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    row = {}
+    with make_host_mesh(1, backend=MESH_BACKEND):
+        rank, n = dist.get_rank(), dist.get_world_size()
+        row["backend"] = dist.get_backend()
+        for dev in ("cuda", "cpu"):
+            gen = torch.Generator().manual_seed(0)
+            params = bridge.to_device(init_params(decls, gen, cfg.param_dtype),
+                                      dev)
+            opt = bridge.to_device(init_params(opt_state_decls(decls, opt_cfg),
+                                               gen, "float32"), dev)
+            opt["err"] = init_error_state(params, n)
+            step = make_dp_compressed_train_step(model, opt_cfg)
+            losses, errs = [], []
+            for i in range(MESH_TRAIN_STEPS):
+                b = lm_train_batch(cfg, 4, 32, i)
+                half = {k: v[rank * 2:(rank + 1) * 2] for k, v in b.items()}
+                params, opt, met = step(params, opt, bridge.to_device(half, dev))
+                losses.append(float(met["loss"]))
+                errs.append({k: v.float().cpu().numpy().tolist()
+                             for k, v in zip(_leaf_names(opt["err"]),
+                                             tree_leaves(opt["err"]))})
+            row[dev] = {"losses": losses, "err_step1": errs[0],
+                        "err_last": errs[-1]}
+    _rank_dump_path(out_dir, "compress", rank, row)
+
+
+# The ranks of this phase run gloo with CUDA tensors. On the card
+# machine's torch (2.11) the functional all-gather of a CUDA tensor on a
+# gloo group segfaults in its wait_tensor (c10d's own all_gather_into_tensor
+# of the same tensors works), and the EP comparison showed a gradient leaf
+# wrong by its own size with the functional collectives left asynchronous.
+# So the rank harness stages every functional collective DTensor and the
+# regions issue through c10d's synchronous call on the same CUDA tensors,
+# after a device synchronize (gloo copies through the host).
+STAGED_COLLECTIVES = ("_c10d_functional.{all_gather_into_tensor, "
+                      "reduce_scatter_tensor, all_reduce, all_to_all_single, "
+                      "broadcast}: c10d's synchronous call after a device "
+                      "synchronize")
+_STAGED_LIB = []
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT"}
+
+
+def stage_gloo_cuda_collectives() -> None:
+    from torch.distributed.distributed_c10d import _resolve_process_group as pg
+
+    def reduce(t, op, group, fn):
+        if op == "avg":         # gloo has no AVG: the sum over the group
+            fn(t, dist.ReduceOp.SUM, group)
+            return t.div_(dist.get_world_size(group))
+        fn(t, getattr(dist.ReduceOp, _REDUCE_OPS[op]), group)
+        return t
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        torch.cuda.synchronize()
+        out = inp.new_empty((inp.shape[0] * group_size,) + tuple(inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(), group=pg(group_name))
+        return out
+
+    def reduce_scatter_tensor(inp, reduce_op, group_size, group_name):
+        torch.cuda.synchronize()
+        inp = inp.contiguous()
+        out = inp.new_empty((inp.shape[0] // group_size,) + tuple(inp.shape[1:]))
+        return reduce(out, reduce_op, pg(group_name),
+                      lambda t, o, g: dist.reduce_scatter_tensor(t, inp, op=o,
+                                                                 group=g))
+
+    def all_reduce(inp, reduce_op, group_name):
+        torch.cuda.synchronize()
+        return reduce(inp.clone(), reduce_op, pg(group_name),
+                      lambda t, o, g: dist.all_reduce(t, op=o, group=g))
+
+    def all_to_all_single(inp, out_splits, in_splits, group_name):
+        torch.cuda.synchronize()
+        out = inp.new_empty((sum(out_splits),) + tuple(inp.shape[1:])) \
+            if out_splits else torch.empty_like(inp)
+        dist.all_to_all_single(out, inp.contiguous(), list(out_splits) or None,
+                               list(in_splits) or None, group=pg(group_name))
+        return out
+
+    def broadcast(inp, src, group_name):
+        torch.cuda.synchronize()
+        out = inp.clone()
+        dist.broadcast(out, src, group=pg(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for fn in (all_gather_into_tensor, reduce_scatter_tensor, all_reduce,
+               all_to_all_single, broadcast):
+        lib.impl(fn.__name__, fn, "CUDA")
+    _STAGED_LIB.append(lib)
+
+
+def mesh_rank_main(argv: list) -> None:
+    which, out_dir = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if which != "nccl_probe":
+        stage_gloo_cuda_collectives()
+    {"nccl_probe": _rank_nccl_probe, "ep": _rank_ep, "split": _rank_split,
+     "compress": _rank_compress}[which](out_dir)
+
+
+def _err_ties(a: list, b: list) -> tuple:
+    """(entries more than 1e-6 apart, of them the ones that are not a
+    rounding tie) of two residual vectors: a tie is a segment entry on .5
+    of its int8 step rounded to neighbouring codes, its residuals +s/2 and
+    -s/2 (they sum to 0), the CPU test's rule."""
+    a, b = np.asarray(a), np.asarray(b)
+    off = np.abs(a - b) > 1e-6
+    return int(off.sum()), int((np.abs(a[off] + b[off]) > 1e-6).sum())
+
+
+def mesh_paths_phase() -> dict:
+    """The models' mesh paths on ranks that share this card (times are not
+    scale-out times): the backend, (a) expert-parallel MoE against the
+    dense path at full width, (b) ``train --model-axis 8`` with the batch
+    split against ``--model-axis 1``, (c) the compressed step at n = 2."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = smi("name,power.limit")
+    parent = {"allocated": torch.cuda.memory_allocated(),
+              "reserved": torch.cuda.memory_reserved()}
+    work = ROOT / "build" / "mesh_paths"
+    shutil.rmtree(work, ignore_errors=True)
+    label = f"ranks share one card ({card}); not scale-out times"
+
+    probe = spawn_ranks(2, "nccl_probe", work, timeout=120, check=False)
+    nccl = probe[0].get("refused") or probe[1].get("refused") or \
+        ("ok" if all(p.get("ok") for p in probe) else probe)
+    print(f"mesh paths: backend {MESH_BACKEND} with CUDA tensors (nccl on "
+          f"one card: {nccl}); staged in the rank harness: "
+          f"{STAGED_COLLECTIVES}; this process's card bytes {parent}",
+          flush=True)
+
+    # (a)
+    t0 = time.perf_counter()
+    ep = spawn_ranks(MESH_EP_RANKS, "ep", work)
+    rows = ep[0]["rows"]
+    for lbl, r in rows.items():
+        r["peak_bytes_ep_per_rank"] = [e["rows"][lbl]["peak_bytes_ep"] for e in ep]
+        r.pop("peak_bytes_ep")
+    f32, bf16 = rows["f32"], rows["bf16"]
+    ep_row = {"arch": MESH_ARCH_EP, "cut": f"depth {MESH_EP_LAYERS} of "
+              f"{get_config(MESH_ARCH_EP).n_layers} (the dense layer and "
+              f"{MESH_EP_LAYERS - 1} MoE layers), full width",
+              "mesh": [1, MESH_EP_RANKS], "batch": list(MESH_EP_BATCH),
+              "f32": f32, "bf16": bf16, "label": label,
+              "wall_s": time.perf_counter() - t0}
+    print(f"mesh paths ep: {json.dumps(ep_row)}", flush=True)
+    assert f32["ep_calls_per_step"] >= MESH_EP_LAYERS - 1, f32
+    assert abs(f32["loss_ep"] - f32["loss_dense"]) < MESH_LOSS_ATOL, f32
+    assert f32["worst_grad_gap_of_max_g"] < MESH_GRAD_OF_MAX, f32
+    assert f32["y_max_abs_diff"] < MESH_Y_ATOL, f32
+    assert math.isfinite(bf16["loss_ep"]), bf16
+    assert abs(bf16["loss_ep"] - bf16["loss_dense"]) \
+        < MESH_BF16_RTOL * abs(bf16["loss_dense"]), bf16
+
+    # (b): --model-axis 1 here, then 8 ranks
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hook = train.get_config
+    train.get_config = _split_config
+    try:
+        one = train.run(train.build_parser().parse_args(_split_argv(1)))
+    finally:
+        train.get_config = hook
+    one_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = spawn_ranks(MESH_SPLIT_RANKS, "split", work)
+    losses = split[0]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    split_row = {"arch": LM_ARCH, "mesh": [1, MESH_SPLIT_RANKS],
+                 "cut": f"depth {MESH_SPLIT_LAYERS} of "
+                        f"{get_config(LM_ARCH).n_layers}, full width (8 "
+                        "ranks' state does not fit one card at full depth)",
+                 "batch": list(MESH_SPLIT_BATCH), "losses": losses,
+                 "losses_model_axis_1": one["losses"], "rel_gaps": gaps,
+                 "batch_split_calls": [r["batch_split_calls"] for r in split],
+                 "ms_per_step": [1e3 * t for t in split[0]["step_s"]],
+                 "ms_per_step_model_axis_1": [1e3 * t for t in one["step_s"]],
+                 "peak_bytes_per_rank": [r["peak_bytes"] for r in split],
+                 "peak_bytes_model_axis_1": one_peak, "label": label,
+                 "wall_s": time.perf_counter() - t0}
+    print(f"mesh paths split: {json.dumps(split_row)}", flush=True)
+    assert all(r["losses"] == losses for r in split), split
+    assert all(r["batch_split_calls"] > 0 for r in split), split_row
+    assert all(math.isfinite(x) for x in losses), split_row
+    assert max(gaps) < MESH_BF16_RTOL, split_row
+
+    # (c)
+    comp = spawn_ranks(2, "compress", work)
+    c_row = {"backend": comp[0]["backend"], "n": 2, "label": label}
+    for r, res in enumerate(comp):
+        card_l, cpu_l = res["cuda"]["losses"], res["cpu"]["losses"]
+        c_row[f"rank{r}_losses_card"] = card_l
+        c_row[f"rank{r}_losses_cpu"] = cpu_l
+        for a, b in zip(card_l, cpu_l):
+            assert math.isclose(a, b, rel_tol=1e-5), (r, card_l, cpu_l)
+        card_e, cpu_e = res["cuda"], res["cpu"]
+        first = [_err_ties(card_e["err_step1"][k], cpu_e["err_step1"][k])
+                 for k in card_e["err_step1"]]
+        last = [_err_ties(card_e["err_last"][k], cpu_e["err_last"][k])
+                for k in card_e["err_last"]]
+        c_row[f"rank{r}_err_entries"] = sum(len(v) for v in
+                                            card_e["err_step1"].values())
+        c_row[f"rank{r}_step1_ties"] = sum(a for a, _ in first)
+        c_row[f"rank{r}_step1_not_ties"] = sum(b for _, b in first)
+        # after step 1 a tie's other code feeds the next quantization:
+        # later residuals drift apart beyond ties (reported)
+        c_row[f"rank{r}_step{MESH_TRAIN_STEPS}_apart"] = sum(a for a, _ in last)
+        # after one step, every residual is equal or a rounding tie
+        assert c_row[f"rank{r}_step1_not_ties"] == 0, c_row
+    assert comp[0]["cuda"]["losses"] == comp[1]["cuda"]["losses"], c_row
+    print(f"mesh paths compress: {json.dumps(c_row)}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"backend": MESH_BACKEND, "nccl": nccl,
+            "staged": STAGED_COLLECTIVES, "ep": ep_row, "split": split_row,
+            "compress": c_row}
 
 
 # the e2e example's steps: at its default 300 the loss is still above the
@@ -3219,6 +3795,12 @@ def main() -> None:
     cfg = CONFIG
     params = init_params(plcore_decls(cfg), torch.Generator().manual_seed(0))
     peaks = peak_flops()
+    # the dry run takes no card memory; the mesh paths' ranks need the
+    # card's memory to themselves (8 ranks of qwen2-1.5b beside this
+    # process's leftovers of the later phases do not fit), so both run
+    # first
+    dry = dryrun_phase(peaks)
+    mesh_paths = mesh_paths_phase()
     rows = kernel_phase(cfg, params, peaks)
     width_rows = width_phase(peaks)
 
@@ -3245,7 +3827,6 @@ def main() -> None:
     trained = train_phase(cfg, peaks)
     lm = lm_phase(peaks)
     lm_train = lm_train_phase(peaks)
-    dry = dryrun_phase(peaks)
     lm_e2e = lm_e2e_phase()
 
     k2 = "two_pass_plcore_call"
@@ -3359,6 +3940,7 @@ def main() -> None:
                       "fig8_tiny": fig8_tiny, "lm": lm, "lm_train": lm_train,
                       "render_step": render_step["row"],
                       "k1_vs_fused_render_ref": k1_ref, "dryrun": dry,
+                      "mesh_paths": mesh_paths,
                       "lm_e2e": lm_e2e,
                       "main_path_instances": instances}))
     print(card)
@@ -3368,4 +3950,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2:])
+    else:
+        main()

@@ -105,7 +105,18 @@ def nerf_color_apply(cfg: NerfConfig, params: dict, feat, pe_dir,
     x = _matmul_split([feat, pe_dir], params["color0"],
                       (quant or {}).get("color0"))
     hc = torch.relu(x)
-    return torch.sigmoid(_matmul(hc, params["rgb"], None))   # SONB (exact)
+    return logistic(_matmul(hc, params["rgb"], None))        # SONB (exact)
+
+
+def logistic(x):
+    """The sigmoid as the reference computes it: ``torch.sigmoid`` in f32;
+    in a narrower compute dtype, 1 / (1 + exp(-x)) with each op rounded
+    to that dtype, the expansion XLA compiles ``jax.nn.sigmoid`` to (one
+    rounding at the end differs from it by an ulp in about a third of
+    the bf16 values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def nerf_mlp_apply(cfg: NerfConfig, params: dict, pe_pos, pe_dir,

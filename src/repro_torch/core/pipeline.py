@@ -535,11 +535,13 @@ def _host(x) -> np.ndarray:
 def trunk_rows(pp: PackedPlcore, pts, chunk: int = TRUNK_CHUNK) -> np.ndarray:
     """Coarse-trunk ``sigma|feat`` rows at host positions (M, 3) -> (M, 1+W)
     float32 on the host. The plain trunk (direct sin/cos encoding, RMCM
-    layers through the dequantized product of ``rmcm_matmul_ref``) on
-    ``pp``'s device, in blocks of ``chunk`` rows, the last one zero-padded,
-    so every row comes out of the same product shape."""
+    layers through the dequantized product of ``rmcm_matmul_ref``) in
+    ``cfg.compute_dtype`` on ``pp``'s device, in blocks of ``chunk`` rows,
+    the last one zero-padded, so every row comes out of the same product
+    shape."""
     cfg = pp.cfg
-    params_c = pp.params["coarse"]
+    cdt = getattr(torch, cfg.compute_dtype)
+    params_c = plcore.cast_params(pp.params["coarse"], cdt)
     quant_c = (pp.quant or {}).get("coarse")
     pts = _host(pts).reshape(-1, 3)
     M = pts.shape[0]
@@ -551,8 +553,9 @@ def trunk_rows(pp: PackedPlcore, pts, chunk: int = TRUNK_CHUNK) -> np.ndarray:
             blk[:n] = pts[s:s + n]
             x = torch.from_numpy(blk).to(pp.device)
             sigma, feat = nerf_trunk_apply(
-                cfg, params_c, nerf_encoding(x, cfg.pos_freqs), quant=quant_c)
-            rows = torch.cat([sigma[:, None], feat], dim=-1)
+                cfg, params_c, nerf_encoding(x, cfg.pos_freqs).to(cdt),
+                quant=quant_c)
+            rows = torch.cat([sigma[:, None], feat], dim=-1).float()
             out[s:s + n] = rows[:n].cpu().numpy()
     return out
 
@@ -563,9 +566,10 @@ def recon_rows(pp: PackedPlcore, rows: np.ndarray, inv: np.ndarray,
     on ``pp``'s device: ``rows`` (U, 1+W) the distinct memo rows, ``inv``
     (n, C) the row of each ray's coarse sample, ``d`` (n, 3) the rays'
     directions, ``t_row`` (C,) the coarse positions. The coarse colour
-    branch, ``render_parallel`` and the white background: the coarse-only
-    render with the trunk replaced by memo reads (for provably empty
-    frustums, where fine ~= coarse ~= the background)."""
+    branch (in ``cfg.compute_dtype``), ``render_parallel`` in f32 and the
+    white background: the coarse-only render with the trunk replaced by
+    memo reads (for provably empty frustums, where fine ~= coarse ~= the
+    background)."""
     cfg = pp.cfg
     with _exact_f32():
         g = pp._upload(rows)[pp._upload(inv, torch.int64)]   # (n, C, 1+W)
@@ -573,10 +577,13 @@ def recon_rows(pp: PackedPlcore, rows: np.ndarray, inv: np.ndarray,
         t = pp._upload(t_row).expand(d.shape[0], -1)
         deltas = sampling.deltas_from_t(t, far_cap=1e10)
         dirs = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        pe_dir = nerf_encoding(dirs, cfg.dir_freqs)[..., None, :]
-        rgb_s = nerf_color_apply(cfg, pp.params["coarse"], g[..., 1:], pe_dir,
+        cdt = getattr(torch, cfg.compute_dtype)
+        pe_dir = nerf_encoding(dirs, cfg.dir_freqs).to(cdt)[..., None, :]
+        rgb_s = nerf_color_apply(cfg, plcore.cast_params(pp.params["coarse"],
+                                                         cdt),
+                                 g[..., 1:].to(cdt), pe_dir,
                                  quant=(pp.quant or {}).get("coarse"))
-        rgb, aux = volume.render_parallel(g[..., 0], rgb_s, deltas)
+        rgb, aux = volume.render_parallel(g[..., 0], rgb_s.float(), deltas)
         return volume.white_background(rgb, aux["acc"])
 
 

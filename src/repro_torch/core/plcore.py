@@ -43,18 +43,34 @@ def _eval_pass(cfg: NerfConfig, params, quant, rays_o, rays_d, t,
                use_kernel: bool, packed: Optional[dict] = None, alive=None):
     """Encode -> MLP -> volume-render one sample set t: (R, N).
     ``packed``: pre-stacked kernel layout; ``alive``: optional (R,) mask
-    forwarded to the kernel."""
+    forwarded to the kernel. The plain route computes the encodings and
+    the MLP in ``cfg.compute_dtype``; the kernel route keeps its own
+    precision, as the reference's does."""
     deltas = sampling.deltas_from_t(t, far_cap=1e10)
     if use_kernel:
         from repro_torch.kernels import ops as kops
         return kops.fused_render(cfg, params, rays_o, rays_d, t, deltas,
                                  quant=quant, packed=packed, alive=alive)
+    cdt = getattr(torch, cfg.compute_dtype)
     pts = rays_o[..., None, :] + t[..., None] * rays_d[..., None, :]
-    pe_pos = nerf_encoding(pts, cfg.pos_freqs)
+    pe_pos = nerf_encoding(pts, cfg.pos_freqs).to(cdt)
     dirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    pe_dir = nerf_encoding(dirs, cfg.dir_freqs)[..., None, :]   # (R, 1, de)
-    sigma, rgb = nerf_mlp_apply(cfg, params, pe_pos, pe_dir, quant=quant)
-    return volume.render_parallel(sigma, rgb, deltas)
+    # per-ray (R, 1, de): the split color matmul broadcasts it lazily
+    pe_dir = nerf_encoding(dirs, cfg.dir_freqs).to(cdt)[..., None, :]
+    sigma, rgb = nerf_mlp_apply(cfg, cast_params(params, cdt), pe_pos, pe_dir,
+                                quant=quant)
+    # the VRU integrates in f32 whatever the MLP engine's dtype
+    return volume.render_parallel(sigma.float(), rgb.float(), deltas)
+
+
+def cast_params(params, dtype: torch.dtype):
+    """``params``' tensors in ``dtype`` (the same tree when it is f32): the
+    plain route's MLP engine runs in ``NerfConfig.compute_dtype``."""
+    if dtype == torch.float32 or params is None:
+        return params
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    return params.to(dtype)
 
 
 def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,

@@ -99,7 +99,7 @@ def unpack_signs(bits: torch.Tensor, rows: int) -> torch.Tensor:
 
 def rmcm_matmul_ref(x: torch.Tensor, q: dict) -> torch.Tensor:
     """Reference y = x @ dequantize(q). x: (..., K); q over (K, N)."""
-    return x @ dequantize(q, torch.float32)
+    return x @ dequantize(q, torch.float32).to(x.dtype)
 
 
 def quantize_tree(params, axis: int = -2):

@@ -3,6 +3,7 @@ production meshes, and take the roofline terms from the trace.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod both
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --opt --arch kimi-k2-1t-a32b --shape train_4k
 
 Per cell this:
   1. builds the params, optimizer state, cache and batch as DTensors laid
@@ -28,9 +29,20 @@ What is counted, per device (this process is rank 0 of the mesh):
     upper bound on what a fusing compiler would move.
   * Collectives: each collective DTensor issues, its local output bytes,
     wire bytes by the reference's ring factors.
-  * Ops DTensor has no sharding rule for run on replicated operands (each
-    sharded operand all-gathered, counted as such); their terms are listed
-    under ``counted_by["analytic"]``.
+  * Ops DTensor has no sharding rule for run as the ranks run them
+    (``runtime.spmd.ShardingFallback``, the mode the counter extends):
+    batch-only (``counted_by["relayout"]``) or on replicated operands,
+    each sharded operand gathered by DTensor's own collectives, counted as
+    such; their terms are listed under ``counted_by["analytic"]``.
+
+``--opt`` (``optimized=True``) installs the activation context around the
+traced step, as the reference's ``_compile_step`` does: the models take
+their mesh paths (expert-parallel MoE with its all-reduce over "model",
+batch-split attention with its all-gather, vocab-sharded logits), whose
+explicit collectives are functional collectives and counted like
+DTensor's. The nerf cells run their MLP engine in bf16 with the rays over
+every mesh axis. The file tags are the baseline's, so ``--opt`` writes to
+``runs/dryrun_torch_opt`` unless ``--out`` is given.
 
 The local shards are fake tensors on ``meta`` rather than fake ``cuda``
 tensors: a CPU-only build cannot run the fake all-to-all on a fake cuda
@@ -55,7 +67,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.launch.mesh import (HBM_BW, INTERNODE_BW, PEAK_FLOPS_BF16,
@@ -65,9 +76,12 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import is_decl, param_count
 from repro_torch.optim.adam import AdamConfig, opt_state_decls
-from repro_torch.runtime.sharding import Rules, mesh_axes, placements
+from repro_torch.runtime import spmd
+from repro_torch.runtime.sharding import (Rules, mesh_axes, placements,
+                                          set_activation_context)
 
 DEFAULT_OUT = "runs/dryrun_torch"
+OPT_OUT = "runs/dryrun_torch_opt"      # --opt cells (the file tags are equal)
 
 # ----------------------------------------------------------- HLO parsing ---
 _DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2,
@@ -233,57 +247,18 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-_REFUSALS = ("sharding strategy", "Sharding propagation failed",
-             "redistribute the tensor", "unevenly sharded")
-
-
-def _is_sharding_refusal(e: Exception) -> bool:
-    """DTensor's words for an op it has no rule for or a layout its rule
-    refuses, or an error raised inside DTensor's own redistribution."""
-    if isinstance(e, NotImplementedError) or \
-            any(r in str(e) for r in _REFUSALS):
-        return True
-    tb = e.__traceback__
-    while tb is not None:
-        if "torch/distributed/tensor/" in tb.tb_frame.f_code.co_filename:
-            return True
-        tb = tb.tb_next
-    return False
-
-
-def _why(e: Exception) -> str:
-    first = (str(e).splitlines() or [""])[0]
-    return f"{type(e).__name__}: {first[:160]}"
-
-
-def _batch_only(tree):
-    """Every DTensor of ``tree`` with Shard(0) kept and its other mesh dims
-    replicated (partial sums reduced, other shards gathered)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.utils._pytree import tree_map
-
-    def one(x):
-        if not isinstance(x, DTensor):
-            return x
-        want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                for p in x.placements]
-        if list(x.placements) == want:
-            return x
-        return x.redistribute(x.device_mesh, want)
-    return tree_map(one, tree)
-
-
-class LocalCounter(TorchDispatchMode):
+class LocalCounter(spmd.ShardingFallback):
     """Counts FLOPs, bytes, collectives and live bytes of the ops that run
     on the local shards of a DTensor program traced under ``fake_mode``.
 
-    A DTensor op is re-dispatched with this mode active and handed to
-    DTensor (``NotImplemented``): its redistributions and its local op
-    then dispatch through this mode at local shapes. An op DTensor cannot
-    run (no sharding rule, or a layout its rule refuses) runs here on
-    replicated operands instead, each sharded or partial operand gathered
-    (counted as an all-gather or all-reduce of its full size), and is
-    recorded in ``analytic``. Shape inference DTensor runs on its own fake
+    It is the ranks' own mode (``runtime.spmd.ShardingFallback``): a DTensor
+    op is handed to DTensor, its redistributions and local op come back
+    through ``local_op`` at local shapes and are counted there; an op
+    DTensor refuses runs batch-only or on replicated operands as it does
+    on the ranks, its gathers counted as the collectives they are, its
+    own terms recorded per op in ``analytic``. The models' explicit
+    collectives (the mesh paths') are functional collectives and are
+    counted like DTensor's. Shape inference DTensor runs on its own fake
     tensors is not counted."""
 
     def __init__(self, fake_mode):
@@ -293,12 +268,11 @@ class LocalCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.coll = {k: 0 for k in _WIRE_FACTOR}
         self.coll_counts = {k: 0 for k in _WIRE_FACTOR}
-        self.analytic: dict = {}
+        self.coll_log: list = []
+        self.flops_by_op: dict = {}
         self.live = 0
         self.peak_live = 0
         self._tracked: set = set()
-        self._to_dtensor = False
-        self.relayout: dict = {}
 
     # -- helpers --------------------------------------------------------
     def _foreign(self, ts) -> bool:
@@ -336,26 +310,26 @@ class LocalCounter(TorchDispatchMode):
         return 0.0
 
     def _snapshot(self):
-        return (self.flops, self.bytes, dict(self.coll), dict(self.coll_counts))
+        return (self.flops, self.bytes, dict(self.coll), dict(self.coll_counts),
+                len(self.coll_log), dict(self.flops_by_op))
 
     def _restore(self, saved):
         self.flops, self.bytes = saved[0], saved[1]
         self.coll, self.coll_counts = dict(saved[2]), dict(saved[3])
+        del self.coll_log[saved[4]:]
+        self.flops_by_op = dict(saved[5])
+
+    def _note_fallback(self, entry: dict, saved):
+        entry["flops"] = entry.get("flops", 0.0) + self.flops - saved[0]
+        entry["bytes"] = entry.get("bytes", 0.0) + self.bytes - saved[1]
 
     def _count_collective(self, kind: str, nbytes: int):
         self.coll[kind] += nbytes
         self.coll_counts[kind] += 1
+        self.coll_log.append((kind, nbytes))
 
-    # -- the mode ---------------------------------------------------------
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-
-        kwargs = kwargs or {}
-        if any(issubclass(t, DTensor) for t in types):
-            if self._to_dtensor:
-                self._to_dtensor = False
-                return NotImplemented
-            return self._dtensor_op(func, args, kwargs)
+    # -- the ops on local shards ------------------------------------------
+    def local_op(self, func, args, kwargs):
         ins = _tensors((args, kwargs))
         out = func(*args, **kwargs)
         outs = _tensors(out)
@@ -367,84 +341,16 @@ class LocalCounter(TorchDispatchMode):
             return out
         if func.is_view or not outs or _no_traffic(func):
             return out
-        self.flops += self._op_flops(func, args, kwargs, out, ins, outs)
+        f = self._op_flops(func, args, kwargs, out, ins, outs)
+        if f:
+            name = func.overloadpacket.__name__
+            self.flops_by_op[name] = self.flops_by_op.get(name, 0.0) + f
+        self.flops += f
         self.bytes += sum(_nbytes(t) for t in ins + outs)
         for t in outs:
             if not any(t is i for i in ins):
                 self._track(t)
         return out
-
-    def _dtensor_op(self, func, args, kwargs):
-        """DTensor's own dispatch of ``func``; where it refuses, again with
-        every operand laid out batch-only (Shard(0) kept, other mesh dims
-        gathered: a relayout DTensor's rule for the op may accept), and
-        where that is refused too, the replicated fallback."""
-        saved = self._snapshot()
-        why = None
-        for relayout in (False, True):
-            try:
-                with self:
-                    a, k = _batch_only((args, kwargs)) if relayout \
-                        else (args, kwargs)
-                    self._to_dtensor = True
-                    out = func(*a, **k)
-                if relayout:
-                    entry = self.relayout.setdefault(str(func), {
-                        "calls": 0, "why": _why(why)})
-                    entry["calls"] += 1
-                return out
-            except (NotImplementedError, RuntimeError, IndexError,
-                    AssertionError) as e:
-                if not _is_sharding_refusal(e):
-                    raise
-                self._restore(saved)
-                why = why or e
-            finally:
-                self._to_dtensor = False
-        return self._replicated_fallback(func, args, kwargs, why)
-
-    def _replicated_fallback(self, func, args, kwargs, why: Exception):
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-        from torch.utils._pytree import tree_map
-
-        mesh = None
-        gathered = 0
-
-        def full(x):
-            nonlocal mesh, gathered
-            if not isinstance(x, DTensor):
-                return x
-            mesh = x.device_mesh
-            if any(isinstance(p, Partial) for p in x.placements):
-                self._count_collective("all-reduce", _nbytes(x))
-            elif not all(isinstance(p, Replicate) for p in x.placements):
-                self._count_collective("all-gather", _nbytes(x))
-                gathered += _nbytes(x)
-            with self.fake_mode:
-                return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
-                                           device=x.to_local().device)
-
-        local_args, local_kwargs = tree_map(full, (args, kwargs))
-        f0, b0 = self.flops, self.bytes
-        with self:
-            out = func(*local_args, **local_kwargs)
-        entry = self.analytic.setdefault(str(func), {
-            "calls": 0, "flops": 0.0, "bytes": 0.0, "gathered_bytes": 0,
-            "why": _why(why)})
-        entry["calls"] += 1
-        entry["flops"] += self.flops - f0
-        entry["bytes"] += self.bytes - b0
-        entry["gathered_bytes"] += gathered
-
-        def wrap(x):
-            if isinstance(x, torch.Tensor) and not isinstance(x, DTensor):
-                return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                                          run_check=False)
-            return x
-        # an in-place op on a plain tensor returns that tensor unchanged
-        if isinstance(out, torch.Tensor) and any(out is a for a in local_args):
-            return args[[i for i, a in enumerate(local_args) if a is out][0]]
-        return tree_map(wrap, out)
 
     # -- results ----------------------------------------------------------
     def wire_bytes(self) -> int:
@@ -546,12 +452,11 @@ def _no_kernels():
 
 
 def _trace(fn, fake_mode):
-    """Run ``fn()`` under the counter; returns (counter, output, seconds)."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
+    """Run ``fn()`` under the counter, as the ranks run their programs
+    (``spmd.sharded_program``); returns (counter, output, seconds)."""
     counter = LocalCounter(fake_mode)
     t0 = time.time()
-    with implicit_replication(), counter:
+    with spmd.sharded_program(counter):
         out = fn()
     return counter, out, time.time() - t0
 
@@ -572,40 +477,6 @@ def _relaid(tree, like):
     return tree.redistribute(like.device_mesh, like.placements)
 
 
-def fsdp_gathered(tree, mesh, rules: Rules):
-    """``tree``'s DTensors with their shards over the FSDP axes gathered
-    (model-axis shards kept): the FSDP schedule, where a weight is
-    all-gathered over the data axis to be used and its gradient, a
-    partial sum over that axis, comes back reduce-scattered. Without it
-    DTensor's op-by-op choice gathers the batch instead and runs every
-    product on the whole batch."""
-    fsdp = set(rules.fsdp_axes) if rules.fsdp else set()
-    names = mesh.mesh_dim_names
-
-    def one(x):
-        from torch.distributed.tensor import Replicate, Shard
-
-        want = [Replicate() if names[i] in fsdp and isinstance(p, Shard)
-                else p for i, p in enumerate(x.placements)]
-        if want == list(x.placements):
-            return x
-        return x.redistribute(mesh, want)
-    if isinstance(tree, dict):
-        return {k: fsdp_gathered(v, mesh, rules) for k, v in tree.items()}
-    return one(tree)
-
-
-class _FsdpLoss:
-    """``model`` whose ``loss`` gathers the weights first (``fsdp_gathered``)."""
-
-    def __init__(self, model, mesh, rules):
-        self.model, self.mesh, self.rules = model, mesh, rules
-
-    def loss(self, params, batch):
-        return self.model.loss(fsdp_gathered(params, self.mesh, self.rules),
-                               batch)
-
-
 def _step_fn(cfg, shape, mesh, rules, fake_mode):
     """(thunk running the step with its outputs laid out as the
     reference's out_shardings, argument tree, state bytes, decls)."""
@@ -618,7 +489,7 @@ def _step_fn(cfg, shape, mesh, rules, fake_mode):
         opt_cfg = AdamConfig(moment_dtype=cfg.moment_dtype)
         o_decls = opt_state_decls(decls, opt_cfg)
         opt = abstract_sharded(o_decls, mesh, rules, "float32", fake_mode)
-        step = make_train_step(_FsdpLoss(model, mesh, rules), opt_cfg)
+        step = make_train_step(spmd.FsdpLoss(model, mesh, rules), opt_cfg)
         state_bytes = sharded_bytes(o_decls, mesh, rules, "float32")
 
         def train():
@@ -637,13 +508,13 @@ def _step_fn(cfg, shape, mesh, rules, fake_mode):
         return _relaid(c, {k: cache[k] for k in c}), _relaid(logits, logits_like)
     if shape.kind == "prefill":
         step = make_prefill_step(model)
-        return (lambda: out(*step(fsdp_gathered(params, mesh, rules), batch))), \
+        return (lambda: out(*step(spmd.fsdp_gathered(params, mesh, rules), batch))), \
             (params, batch), state_bytes, decls
     step = make_decode_step(model)
     # the reference traces pos; the port's decode takes a Python int: the
     # last slot of the cache (the op count does not depend on it)
     pos = shape.seq_len - 1
-    return (lambda: out(*step(fsdp_gathered(params, mesh, rules), cache,
+    return (lambda: out(*step(spmd.fsdp_gathered(params, mesh, rules), cache,
                               batch["token"], pos))), \
         (params, cache, batch["token"]), state_bytes, decls
 
@@ -687,19 +558,26 @@ def _counted_by(counter: LocalCounter, setup: str, trace: str) -> dict:
 
 
 def lower_nerf_cell(shape_name: str, *, multi_pod: bool,
-                    verbose: bool = True) -> dict:
+                    verbose: bool = True, optimized: bool = False) -> dict:
     """Dry-run the paper's own workload: a two-pass PLCore render step,
-    rays sharded over the data axes, weights replicated."""
+    weights replicated, rays sharded over the data axes; ``optimized``:
+    the MLP engine in bf16 (``compute_dtype``) and the rays sharded over
+    every mesh axis (ray clusters dispatched to every PLCore)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs.nerf_icarus import CONFIG as ncfg
     from repro_torch.core.plcore import PlcoreModel, ray_parallel
 
+    if optimized:
+        ncfg = dataclasses.replace(ncfg, compute_dtype="bfloat16")
     n_rays = NERF_SHAPES[shape_name]
-    rules = Rules()
     model = PlcoreModel(ncfg)
     decls = model.param_decls()
     with make_production_mesh(multi_pod=multi_pod) as mesh:
+        rules = Rules()
+        if optimized:
+            every = tuple(mesh.mesh_dim_names)
+            rules = Rules(dp_axes=every).updated(batch=every)
         fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
         t0 = time.time()
         repl = Rules(table={})            # every weight replicated
@@ -720,7 +598,7 @@ def lower_nerf_cell(shape_name: str, *, multi_pod: bool,
     n_evals = n_rays * (ncfg.n_coarse + ncfg.n_coarse + ncfg.n_fine)
     mf = 2.0 * p_per_net * n_evals
     result = {
-        "arch": "nerf-icarus", "shape": shape_name, "optimized": False,
+        "arch": "nerf-icarus", "shape": shape_name, "optimized": optimized,
         "mesh": axes, "chips": chips,
         "hlo_flops_per_device": flops,
         "hlo_bytes_per_device": bytes_acc,
@@ -741,9 +619,15 @@ def lower_nerf_cell(shape_name: str, *, multi_pod: bool,
     return result
 
 
-_OPT_REFUSAL = ("--opt turns on expert-parallel MoE and batch-split "
-                "attention, which the port's models do not have yet "
-                "(ROADMAP.md queue 1 item 4)")
+@contextlib.contextmanager
+def _activation_context(mesh, rules: Rules):
+    """The reference's ``_compile_step`` for ``optimized``: the activation
+    context installed around the trace (``mesh`` None: none), cleared after."""
+    set_activation_context(mesh, rules)
+    try:
+        yield
+    finally:
+        set_activation_context(None)
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -751,11 +635,13 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                probes: bool = True, optimized: bool = False,
                remat_policy: str | None = None,
                param_dtype: str | None = None) -> dict:
-    if optimized:
-        raise NotImplementedError(_OPT_REFUSAL)
+    """One (arch, shape) cell on the production mesh; ``optimized``: the
+    models' mesh paths on (expert-parallel MoE, batch-split attention,
+    vocab-sharded logits), the activation context installed around every
+    trace of the cell."""
     if arch == "nerf-icarus":
         return lower_nerf_cell(shape_name, multi_pod=multi_pod,
-                               verbose=verbose)
+                               verbose=verbose, optimized=optimized)
     cfg = get_config(arch)
     if remat_policy:
         cfg = cfg.replace(remat_policy=remat_policy)
@@ -767,7 +653,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                 "full-attention arch; long_500k requires sub-quadratic decode"}
     rules = rules or Rules()
 
-    with make_production_mesh(multi_pod=multi_pod) as mesh:
+    with make_production_mesh(multi_pod=multi_pod) as mesh, \
+            _activation_context(mesh if optimized else None, rules):
         counter, mem_d, t_setup, t_trace, state_bytes, decls = _run_cell(
             cfg, shape, mesh, rules)
         full = counter.triple()
@@ -838,13 +725,12 @@ def main(argv=None):
     ap.add_argument("--param-dtype", default=None,
                     choices=["float32", "bfloat16"])
     ap.add_argument("--opt", action="store_true",
-                    help="the activation-sharding optimizations (vocab-"
-                         "sharded logits, attention batch resharding); "
-                         "not in the port yet, raises")
-    ap.add_argument("--out", default=DEFAULT_OUT)
+                    help="the models' mesh paths (expert-parallel MoE, "
+                         "batch-split attention, vocab-sharded logits; the "
+                         "nerf cells in bf16 with rays over every axis)")
+    ap.add_argument("--out", default=None,
+                    help=f"default {DEFAULT_OUT}, {OPT_OUT} with --opt")
     args = ap.parse_args(argv)
-    if args.opt:
-        raise NotImplementedError(_OPT_REFUSAL)
 
     cells = []
     archs = list_archs() if (args.all or not args.arch) else [args.arch]
@@ -862,7 +748,7 @@ def main(argv=None):
         cells += [("nerf-icarus", s) for s in sorted(NERF_SHAPES)]
 
     pods = {"off": [False], "on": [True], "both": [False, True]}[args.multi_pod]
-    outdir = Path(args.out)
+    outdir = Path(args.out or (OPT_OUT if args.opt else DEFAULT_OUT))
     outdir.mkdir(parents=True, exist_ok=True)
     failures = []
     t_all = time.time()
@@ -873,7 +759,7 @@ def main(argv=None):
             try:
                 # probes (the linearity check) only on the single-pod pass
                 res = lower_cell(arch, shp, multi_pod=mp, verbose=False,
-                                 probes=not mp,
+                                 probes=not mp, optimized=args.opt,
                                  remat_policy=args.remat_policy,
                                  param_dtype=args.param_dtype)
                 (outdir / f"{tag}.json").write_text(json.dumps(res, indent=2))

@@ -9,14 +9,21 @@ production program on any machine. A process group is process-global, so
 both meshes are context managers that tear their group down on exit, and
 refuse to start while another default group exists.
 
-``make_host_mesh`` spans the cards this process sees: a one-rank ``nccl``
-group on the card, a one-rank ``gloo`` group when asked for the CPU.
+``make_host_mesh(model_axis)`` spans the ranks of the process group the
+launcher started: the processes of a ``torchrun``-style launch (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` in the environment), or
+one rank alone without them. It is a ("data", "model") DeviceMesh of
+shape (world // model_axis, model_axis), and refuses a world size the
+model axis does not divide. The backend is ``nccl`` on the card and
+``gloo`` for the CPU; ranks that share one card name ``gloo`` themselves
+(NCCL refuses two ranks on one device).
 
 Importing this module touches no device and starts no group.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch.distributed as dist
@@ -73,22 +80,42 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 
 @contextlib.contextmanager
-def make_host_mesh(model_axis: int = 1, device=None):
-    """``with make_host_mesh() as mesh``: a ("data", "model") DeviceMesh over
-    this process's card (``nccl``), or over the CPU (``gloo``) when
-    ``device`` is "cpu". One process drives one rank, so the mesh is
-    (1, 1)."""
-    if model_axis != 1:
-        raise NotImplementedError(
-            "make_host_mesh: a model axis above 1 needs the models' mesh "
-            "paths (ROADMAP.md queue 1 item 4) and more than one rank")
+def make_host_mesh(model_axis: int = 1, device=None, backend=None):
+    """``with make_host_mesh(model_axis) as mesh``: the ("data", "model")
+    DeviceMesh over the launcher's ranks (one rank without a launcher),
+    on the card unless ``device`` is "cpu"; ``backend`` overrides ``nccl``
+    (card) / ``gloo`` (CPU). The group is destroyed on exit."""
     dev = resolve_device(device, "make_host_mesh")
     from torch.distributed.device_mesh import init_device_mesh
 
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    with _group("make_host_mesh", backend, 1, dist.HashStore()):
-        yield init_device_mesh(dev.type, (1, 1),
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(
+            f"make_host_mesh: a model axis of {model_axis} does not divide "
+            f"the world size {world}; a mesh with a model axis needs a "
+            "launch of a multiple of that many ranks")
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if world == 1:
+        group = _group("make_host_mesh", backend, 1, dist.HashStore())
+    else:
+        group = _env_group(backend)
+    with group:
+        yield init_device_mesh(dev.type, (world // model_axis, model_axis),
                                mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def _env_group(backend: str):
+    """This process as rank ``RANK`` of the launcher's ``WORLD_SIZE``
+    (rendezvous at ``MASTER_ADDR:MASTER_PORT``), destroyed on exit."""
+    if dist.is_initialized():
+        raise RuntimeError("make_host_mesh: a default process group already "
+                           "exists in this process; destroy it first")
+    dist.init_process_group(backend, init_method="env://")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_chips(mesh) -> int:

@@ -5,13 +5,15 @@ VLM). Weights are declared at head granularity, as the reference declares
 them: wq is (L, d_model, n_heads, head_dim), so a parameter tree crosses
 between the packages leaf for leaf.
 
-Two reference paths exist only for a TPU mesh and are not here: the
-batch-split attention (``_batch_split_attention``) and the logits' layout
-constraint (``constrain_logical``); without a mesh both are no-ops in the
-reference too.
+Two paths run only under an installed activation context, as in the
+reference: the batch-split attention (``_batch_split_attention``, where
+the heads do not divide the model axis) and the logits' layout constraint
+(vocab-sharded over "model", ``constrain_logical``). Without a context
+both are no-ops.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -20,6 +22,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (apply_rope, attention, clamped_start,
                                        layer_norm, rms_norm)
 from repro_torch.models.params import Decl
+from repro_torch.runtime import spmd
+from repro_torch.runtime.sharding import (activation_context_mesh,
+                                          activation_context_rules,
+                                          attn_batch_split_ok,
+                                          attn_needs_batch_reshard,
+                                          constrain_logical, mesh_axes)
 
 
 def _lead(L: int) -> tuple:
@@ -75,13 +83,40 @@ def qkv_project(cfg: ArchConfig, p: dict, x, pos):
     return q, k, v
 
 
+def _batch_split_attention(fn, q, k, v):
+    """When the model axis cannot split the heads, attention would run
+    replicated over it. The residual stream is replicated over "model"
+    (sharded over the data axes only), so each model rank takes ITS 1/M
+    slice of its data shard's batch, runs the core attention on it, and
+    the outputs are all-gathered over "model" along the batch. Needs the
+    per-data-shard batch to divide the model axis (the caller guards)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, rules = activation_context_mesh(), activation_context_rules()
+    sizes = mesh_axes(mesh)
+    dp = {a: Shard(0) for a in rules.dp_axes if a in sizes}
+    pl = spmd.axis_placements(mesh, dp, Replicate())
+    grad = spmd.axis_placements(mesh, dp, Partial())
+    ql, kl, vl = (spmd.local_view(t, mesh, pl, grad) for t in (q, k, v))
+    per = ql.shape[0] // sizes["model"]
+    lo = mesh.get_local_rank("model") * per
+    o = fn(ql[lo:lo + per], kl[lo:lo + per], vl[lo:lo + per])
+    o = spmd.all_gather(o, mesh, "model", dim=0)
+    return spmd.from_local(o, mesh, pl, q)
+
+
 def attn_apply(cfg: ArchConfig, p: dict, x, *, pos, kind="causal", window=0,
                prefix_len=0):
     """Full-sequence self attention (train / prefill). Returns (out, k, v)."""
     q, k, v = qkv_project(cfg, p, x, pos)
-    o = attention(q, k, v, q_pos=pos, kind=kind, window=window,
-                  prefix_len=prefix_len, chunk=cfg.attn_chunk,
-                  softcap=cfg.logits_softcap)
+    core = partial(attention, q_pos=pos, kind=kind, window=window,
+                   prefix_len=prefix_len, chunk=cfg.attn_chunk,
+                   softcap=cfg.logits_softcap)
+    if attn_needs_batch_reshard(cfg.n_heads) and \
+            attn_batch_split_ok(q.shape[0]):
+        o = _batch_split_attention(core, q, k, v)
+    else:
+        o = core(q, k, v)
     return proj_out(o, p["wo"]), k, v
 
 
@@ -169,5 +204,9 @@ def embed_tokens(params, tokens, dtype):
 
 def logits_out(cfg: ArchConfig, params, x):
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).t()
-    return x @ params["unembed"].to(x.dtype)
+        out = x @ params["embed"].to(x.dtype).t()
+    else:
+        out = x @ params["unembed"].to(x.dtype)
+    # keep the (B, S, V) logits vocab-sharded over the model axis; a no-op
+    # without an installed activation context
+    return constrain_logical(out, ("batch", None, "vocab"))

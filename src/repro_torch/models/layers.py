@@ -130,14 +130,10 @@ def attention(q, k, v, *, q_pos, kv_pos=None, kv_valid=None, kind="causal",
     if kv_valid is None:
         kv_valid = torch.ones((Skv,), dtype=torch.bool, device=dev)
 
-    # pad KV length to a chunk multiple
+    # the last chunk is ragged: the reference pads KV to a chunk multiple
+    # (static shapes), whose masked slots add exact zeros to l and acc
+    # (and torch 2.11's DTensor mis-shards the pad on a 2-D mesh)
     nc = max(1, -(-Skv // chunk))
-    pad = nc * chunk - Skv
-    if pad:
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
-        kv_pos = F.pad(kv_pos, (0, pad))
-        kv_valid = F.pad(kv_valid, (0, pad))
 
     m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
@@ -188,9 +184,11 @@ def cast_tree(tree, dtype):
 def softmax_xent(logits, labels, valid=None):
     """Mean next-token cross entropy. logits (B,S,V) any float; labels (B,S)."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # the difference before the select: on vocab-sharded logits the gather
+    # is a masked partial sum whose mask has the gather's (B, S, 1) shape
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (lse - gold)[..., 0]
     if valid is None:
         return nll.mean()
     w = valid.float()

@@ -1,22 +1,32 @@
 """Token-choice top-k MoE (moonshot 64e/top-6, kimi-k2 384e/top-8).
 
-Dispatch is sort-based with static capacity, the reference's dense path
-(``_moe_apply_dense``): a stable sort of the (token, choice) pairs by
-expert, a capacity drop of each expert's overflow, a scatter into an
-(E, C, d) buffer with a drop slot at E*C, grouped expert products, and a
-weighted scatter-add back to the tokens. DeepSeek-V3-style extras used by
-both MoE archs: leading dense layer(s) and always-on shared expert(s).
+Dispatch is sort-based with static capacity: a stable sort of the (token,
+choice) pairs by expert, a capacity drop of each expert's overflow, a
+scatter into an (E, C, d) buffer with a drop slot at E*C, grouped expert
+products, and a weighted scatter-add back to the tokens.
+DeepSeek-V3-style extras used by both MoE archs: leading dense layer(s)
+and always-on shared expert(s).
 
-The reference's expert-parallel path (``_moe_apply_ep``) runs only on a
-mesh whose model axis divides the experts; without one the reference takes
-this dense path too. ``torch.topk`` does not promise the lower index on a
-tie (``lax.top_k`` does), so the top-k is a stable descending sort; the
-dispatch sort is stable as ``jnp.argsort`` is. The combine is
-``index_add_``, which on the card is atomic and unordered: its sums hold to
-a tolerance there, not to bits.
+Two paths, routed as the reference routes them (``moe_apply``): with an
+activation context whose model axis is above 1 and divides the experts,
+the expert-parallel path (``_moe_apply_ep``): the residual stream is
+replicated over "model", experts are sharded over it, each model rank
+dispatches its own experts' tokens locally (its data shard's tokens, the
+capacity from their count), and the partial outputs are summed over
+"model"; otherwise the dense path (``_moe_apply_dense``). The EP body is
+per-rank code with explicit collectives (``runtime.spmd``).
+
+``torch.topk`` does not promise the lower index on a tie (``lax.top_k``
+does), so the top-k is a stable descending sort; the dispatch sort is
+stable as ``jnp.argsort`` is. The combine is ``index_add_``, which on the
+card is atomic and unordered: its sums hold to a tolerance there, not to
+bits.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -27,6 +37,9 @@ from repro_torch.models.layers import (cast_tree, ffn_apply, gelu_tanh, silu,
 from repro_torch.models.params import Decl
 from repro_torch.models.transformer import (DenseLM, _maybe_remat, maybe_scan,
                                             tree_unbind)
+from repro_torch.runtime import spmd
+from repro_torch.runtime.sharding import (activation_context_mesh,
+                                          activation_context_rules, mesh_axes)
 
 
 def expert_ffn_decls(cfg: ArchConfig, L: int) -> dict:
@@ -47,76 +60,176 @@ def capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # >=8, rounded up to a multiple of 8
 
 
-def route(cfg: ArchConfig, probs):
-    """The dispatch plan of router probabilities ``probs`` (T, E): the
+def route(cfg: ArchConfig, probs, e_base: int = 0,
+          n_local: Optional[int] = None, capacity_rows: Optional[int] = None):
+    """The dispatch plan of router probabilities ``probs`` (T, E) for the
+    experts [e_base, e_base + n_local) (default: all of them) at
+    ``capacity_rows`` rows each (default: ``capacity(cfg, T)``): the
     normalized top-k gates, the expert ids, the stable sort ``order`` of
-    the T*k (token, choice) pairs by expert, the ``keep`` mask of pairs
-    within their expert's capacity (in sorted order) and each pair's
-    buffer row ``dest`` (E*C: the drop slot)."""
-    m = cfg.moe
+    the T*k (token, choice) pairs by local expert (pairs routed elsewhere
+    last), the ``keep`` mask of pairs within their expert's capacity (in
+    sorted order) and each pair's buffer row ``dest`` (n_local*C: the drop
+    slot)."""
     T, E = probs.shape
-    k = m.experts_per_token
-    C = capacity(cfg, T)
-    gate, expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert_ids = gate[:, :k], expert_ids[:, :k]           # (T, k)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    k = cfg.moe.experts_per_token
+    n = E if n_local is None else n_local
+    C = capacity(cfg, T) if capacity_rows is None else capacity_rows
+    dev = probs.device
+    gate, expert_ids = top_k(cfg, probs)                        # (T, k)
 
-    flat_e = expert_ids.reshape(-1)                             # (T*k,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, torch.arange(E, device=probs.device))
-    seg_pos = torch.arange(T * k, device=probs.device) - first[sorted_e]
-    keep = seg_pos < C
-    dest = torch.where(keep, sorted_e * C + seg_pos, E * C)
+    local_e = expert_ids.reshape(-1) - e_base                   # (T*k,)
+    sort_key = torch.where((local_e >= 0) & (local_e < n), local_e, n)
+    order = torch.argsort(sort_key, stable=True)
+    sorted_e = sort_key[order]
+    first = torch.searchsorted(sorted_e, torch.arange(n, device=dev))
+    seg_pos = torch.arange(T * k, device=dev) \
+        - first[torch.clamp(sorted_e, max=n - 1)]
+    keep = (sorted_e < n) & (seg_pos < C)
+    dest = torch.where(keep, sorted_e * C + seg_pos, n * C)
     return {"gate": gate, "expert_ids": expert_ids, "order": order,
             "keep": keep, "dest": dest, "capacity": C}
 
 
-def moe_apply(cfg: ArchConfig, p: dict, x):
-    """x: (B, S, d) -> (y, aux_loss). p: router + experts (+ shared)."""
-    m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
-    k = m.experts_per_token
-    E = m.n_experts
+def top_k(cfg: ArchConfig, probs):
+    """The normalized top-k gates and their expert ids, (T, k) each: a
+    stable descending sort, so a tie keeps the lower expert id."""
+    k = cfg.moe.experts_per_token
+    gate, expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_ids = gate[:, :k], expert_ids[:, :k]
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), expert_ids
 
-    xf = x.reshape(T, d)
-    router_logits = xf.float() @ p["router"].float()
-    probs = torch.softmax(router_logits, dim=-1)                # (T, E)
-    r = route(cfg, probs)
-    C, order, keep, dest = r["capacity"], r["order"], r["keep"], r["dest"]
+
+def _experts(cfg: ArchConfig, buf, w1, w2, w3):
+    """The grouped expert FFN: buf (E, C, d) -> (E, C, d)."""
+    if w3 is not None:
+        act = silu if cfg.ffn_kind == "swiglu" else gelu_tanh
+        h = act(torch.bmm(buf, w1)) * torch.bmm(buf, w3)
+    else:
+        h = gelu_tanh(torch.bmm(buf, w1))
+    return torch.bmm(h, w2)
+
+
+def _aux(cfg: ArchConfig, probs, expert_ids):
+    """The Switch load-balance loss E * sum_i f_i * p_i."""
+    E = cfg.moe.n_experts
+    me = probs.mean(0)                                          # (E,)
+    ce = F.one_hot(expert_ids[:, 0], E).float().mean(0)
+    return E * torch.sum(me * ce)
+
+
+def moe_apply(cfg: ArchConfig, p: dict, x):
+    """x: (B, S, d) -> (y, aux_loss). p: router + experts (+ shared).
+
+    With an activation context installed whose model axis is above 1 and
+    divides the experts, the expert-parallel path; else the dense one."""
+    mesh = activation_context_mesh()
+    M = mesh_axes(mesh).get("model", 1) if mesh is not None else 1
+    if M > 1 and cfg.moe.n_experts % M == 0:
+        return _moe_apply_ep(cfg, p, x, mesh, activation_context_rules())
+    return _moe_apply_dense(cfg, p, x)
+
+
+def _dispatch_compute_combine(cfg: ArchConfig, xf, probs, w: dict,
+                              e_base: int = 0, n_local: Optional[int] = None,
+                              capacity_rows: Optional[int] = None):
+    """Sort-based dispatch restricted to experts [e_base, e_base+n_local)
+    (``route``; default: all), grouped products of their weights ``w``
+    (w1, w2[, w3], n_local experts each), weighted combine. xf: (T, d).
+    Returns the (T, d) partial output (zeros for tokens routed elsewhere)
+    and the plan."""
+    T, d = xf.shape
+    k = cfg.moe.experts_per_token
+    dev = xf.device
+    r = route(cfg, probs, e_base, n_local, capacity_rows)
+    n, C = w["w1"].shape[0], r["capacity"]
+    order, keep, dest = r["order"], r["keep"], r["dest"]
     token_idx = torch.div(order, k, rounding_mode="floor")
 
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((n * C + 1, d), dtype=xf.dtype, device=dev)
     buf[dest] = xf[token_idx]
-    buf = buf[:-1].reshape(E, C, d)
+    out_buf = _experts(cfg, buf[:-1].reshape(n, C, d), w["w1"], w["w2"],
+                       w.get("w3")).reshape(n * C, d)
 
-    # ---- expert compute (grouped products) -----------------------------
-    w = p["experts"]
-    if "w3" in w:
-        act = silu if cfg.ffn_kind == "swiglu" else gelu_tanh
-        h = act(torch.bmm(buf, w["w1"])) * torch.bmm(buf, w["w3"])
-    else:
-        h = gelu_tanh(torch.bmm(buf, w["w1"]))
-    out_buf = torch.bmm(h, w["w2"]).reshape(E * C, d)
-
-    # ---- combine -------------------------------------------------------
     contrib = torch.where(keep[:, None],
-                          out_buf[torch.clamp(dest, max=E * C - 1)],
-                          torch.zeros((), dtype=x.dtype, device=x.device))
-    contrib = contrib * r["gate"].reshape(-1)[order][:, None].to(x.dtype)
-    yf = torch.zeros((T, d), dtype=x.dtype, device=x.device
-                     ).index_add_(0, token_idx, contrib)
-    y = yf.reshape(B, S, d)
+                          out_buf[torch.clamp(dest, max=n * C - 1)],
+                          torch.zeros((), dtype=xf.dtype, device=dev))
+    contrib = contrib * r["gate"].reshape(-1)[order][:, None].to(xf.dtype)
+    return torch.zeros((T, d), dtype=xf.dtype, device=dev
+                       ).index_add_(0, token_idx, contrib), r
 
+
+def _moe_apply_ep(cfg: ArchConfig, p: dict, x, mesh, rules):
+    """Explicit expert-parallel MoE, the reference's ``shard_map`` body run
+    by every rank. Operands come in at the reference's specs: x (B, S, d)
+    sharded over the data axes and replicated over "model"; the router
+    gathered over the FSDP axis (axis 0) and "model" (axis 1); w1/w3 over
+    the FSDP axis on axis 1 and w2 on axis 2, where d divides it and the
+    rules shard FSDP, experts left sharded over "model". Each rank
+    dispatches its data shard's tokens to its E/M experts at the capacity
+    of its T_loc tokens, and the partial outputs are summed over "model".
+
+    The aux: each rank computes it from its own probabilities. Its value
+    is data coordinate 0's, as the reference's unchecked ``out_specs=P()``
+    returns device 0's; its gradient is that of the mean over the data
+    shards, as the reference's transpose gives. The shared experts are
+    added after the sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    m = cfg.moe
+    sizes = mesh_axes(mesh)
+    B, S, d = x.shape
+    M = sizes["model"]
+    E_loc = m.n_experts // M
+    dp = [a for a in rules.dp_axes if a in sizes]
+    dpn = int(np.prod([sizes[a] for a in dp]))
+    T_loc = (B // dpn) * S
+    cap_rows = max(8, -(- int(m.experts_per_token * T_loc
+                              * m.capacity_factor / m.n_experts) // 8) * 8)
+
+    x_pl = spmd.axis_placements(mesh, {a: Shard(0) for a in dp}, Replicate())
+    # each model rank uses x, the router and its experts for its own
+    # experts only: their gradients are partial sums over the other axes
+    x_grad = spmd.axis_placements(mesh, {a: Shard(0) for a in dp}, Partial())
+    repl = [Replicate()] * mesh.ndim
+    w_pl = spmd.axis_placements(mesh, {"model": Shard(0)}, Replicate())
+    w_grad = spmd.axis_placements(mesh, {"model": Shard(0)}, Partial())
+
+    xl = spmd.local_view(x, mesh, x_pl, x_grad)
+    router = spmd.local_view(p["router"], mesh, repl, [Partial()] * mesh.ndim)
+    w = {n: spmd.local_view(t, mesh, w_pl, w_grad)
+         for n, t in p["experts"].items()}
+
+    e_base = mesh.get_local_rank("model") * E_loc
+    xf = xl.reshape(-1, d)
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    y, r = _dispatch_compute_combine(cfg, xf, probs, w, e_base, E_loc,
+                                     cap_rows)
+    y = spmd.psum(y, mesh, "model")
+
+    aux = _aux(cfg, probs, r["expert_ids"])
+    mean = aux / mesh.size()
+    for a in mesh.mesh_dim_names:          # every rank's share: the mean
+        mean = spmd.psum(mean, mesh, a)
+    aux = mean + (spmd.first_coordinate(aux, mesh, dp) - mean).detach()
+
+    y = spmd.from_local(y.reshape(xl.shape), mesh, x_pl, x)
+    aux = spmd.from_local(aux, mesh, repl, x, shape=())
     if "shared" in p:
         y = y + ffn_apply(x, p["shared"], cfg.ffn_kind)
-
-    # ---- load-balance aux (Switch): E * sum_i f_i * p_i ----------------
-    me = probs.mean(0)                                          # (E,)
-    ce = F.one_hot(r["expert_ids"][:, 0], E).float().mean(0)
-    aux = E * torch.sum(me * ce)
     return y, aux
+
+
+def _moe_apply_dense(cfg: ArchConfig, p: dict, x):
+    """The dense path: sort-based dispatch with static capacity over all
+    experts and tokens."""
+    B, S, d = x.shape
+    xf = x.reshape(B * S, d)
+    probs = torch.softmax(xf.float() @ p["router"].float(), dim=-1)  # (T, E)
+    yf, r = _dispatch_compute_combine(cfg, xf, probs, p["experts"])
+    y = yf.reshape(B, S, d)
+    if "shared" in p:
+        y = y + ffn_apply(x, p["shared"], cfg.ffn_kind)
+    return y, _aux(cfg, probs, r["expert_ids"])
 
 
 class MoELM(DenseLM):

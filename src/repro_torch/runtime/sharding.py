@@ -224,6 +224,10 @@ def activation_context_mesh():
     return _ACT_CTX["mesh"]
 
 
+def activation_context_rules() -> Optional[Rules]:
+    return _ACT_CTX["rules"]
+
+
 def logical_spec(shape, logical: Tuple[Optional[str], ...], mesh,
                  rules: Rules) -> tuple:
     """The spec ``constrain_logical`` resolves for an activation of

@@ -35,6 +35,7 @@ from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, make_production_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adam import AdamConfig, opt_state_decls
+from repro_torch.runtime import spmd
 from repro_torch.runtime.sharding import Rules
 
 LM_KEYS = {"arch", "shape", "optimized", "mesh", "chips",
@@ -240,14 +241,110 @@ def test_per_device_flops_are_local_shapes():
     assert counter.coll_counts == {k: 0 for k in counter.coll_counts}
 
 
-def test_opt_refused_and_default_out():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        dryrun.main(["--opt", "--arch", "qwen2-1.5b"])
-    with pytest.raises(NotImplementedError):
-        dryrun.lower_cell("qwen2-1.5b", "train_4k", multi_pod=False,
-                          optimized=True)
+def test_opt_refused_and_default_out(tmp_path, monkeypatch):
+    """``--opt`` is no longer refused; its cells go to their own directory
+    by default (the file tags are the baseline's) and say so."""
     assert dryrun.DEFAULT_OUT == "runs/dryrun_torch"
     assert not dryrun.DEFAULT_OUT.rstrip("/").endswith("runs/dryrun")
+    assert dryrun.OPT_OUT != dryrun.DEFAULT_OUT
+    monkeypatch.chdir(tmp_path)
+    dryrun.main(["--opt", "--arch", "nerf-icarus", "--shape",
+                 "render_quarter"])
+    files = list((tmp_path / dryrun.OPT_OUT).glob("*.json"))
+    assert [f.name for f in files] == ["nerf-icarus_render_quarter_16x16.json"]
+    assert json.loads(files[0].read_text())["optimized"] is True
+    assert not (tmp_path / dryrun.DEFAULT_OUT).exists()
+
+
+def _opt_pair(cfg, shape):
+    """The counters of one cell traced without and with the activation
+    context (``lower_cell(optimized=...)``'s two traces)."""
+    out = {}
+    for opt in (False, True):
+        with make_production_mesh() as mesh, \
+                dryrun._activation_context(mesh if opt else None, Rules()):
+            out[opt] = dryrun._run_cell(cfg, shape, mesh, Rules())[0]
+    return out
+
+
+def _count(counter, kind: str, nbytes: int) -> int:
+    return sum(1 for k, n in counter.coll_log if (k, n) == (kind, nbytes))
+
+
+def test_opt_expert_parallel_cell(monkeypatch):
+    """moonshot smoke with 16 experts (the model axis divides them) at the
+    small train_4k: the EP path's all-reduce of (T_local, d) appears once
+    per MoE layer and pass, the dense dispatch's replicated fallbacks are
+    gone, the model FLOPs are the baseline cell's; one MoE layer traced
+    alone does 1/16 of the baseline's expert FLOPs per device."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    base = smoke_config("moonshot-v1-16b-a3b")
+    cfg = base.replace(moe=dataclasses.replace(base.moe, n_experts=16))
+    shape = ShapeSpec(*SMALL["train_4k"])
+    _small_shapes(monkeypatch)
+    monkeypatch.setattr(dryrun, "get_config", lambda a: cfg)
+    r = {opt: dryrun.lower_cell("moonshot-v1-16b-a3b", "train_4k",
+                                multi_pod=False, verbose=False, probes=False,
+                                optimized=opt) for opt in (False, True)}
+    assert r[True]["optimized"] and not r[False]["optimized"]
+    assert r[True]["model_flops_global"] == r[False]["model_flops_global"]
+    assert "aten.index_add_.default" in r[False]["counted_by"]["analytic"]
+    assert not r[True]["counted_by"]["analytic"]
+    c = _opt_pair(cfg, shape)
+    t_local = shape.global_batch // 16 * shape.seq_len
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    y_bytes = t_local * cfg.d_model * 4
+    assert _count(c[True], "all-reduce", y_bytes) \
+        - _count(c[False], "all-reduce", y_bytes) == n_moe
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    flops = {}
+    for opt in (False, True):
+        with make_production_mesh() as mesh, \
+                dryrun._activation_context(mesh if opt else None, Rules()):
+            fm = FakeTensorMode(allow_non_fake_inputs=True)
+            decls = build_model(cfg).moe_layer_decls(0)
+            lp = dryrun.abstract_sharded(decls, mesh, Rules(), "float32", fm)
+            x = dryrun._dtensor((shape.global_batch, shape.seq_len,
+                                 cfg.d_model), torch.float32,
+                                ("data", None, None), mesh, fm)
+            counter, _, _ = dryrun._trace(
+                lambda: moe.moe_apply(cfg, spmd.fsdp_gathered(
+                    lp, mesh, Rules()), x), fm)
+        flops[opt] = counter.flops_by_op["bmm"]
+    assert flops[False] == 16 * flops[True]
+
+
+def test_opt_batch_split_cell():
+    """qwen2 smoke with 6 heads (16 does not divide them) and a batch of
+    256 (16 per data shard): each layer all-gathers its attention output
+    over "model" (B_local x S x H x hd f32 bytes)."""
+    cfg = smoke_config("qwen2-1.5b").replace(
+        n_heads=6, n_kv_heads=2, d_model=96, head_dim=16, d_ff=128)
+    shape = ShapeSpec("train_4k", 32, 256, "train")
+    c = _opt_pair(cfg, shape)
+    o_bytes = 256 // 16 * 32 * cfg.n_heads * cfg.head_dim * 4
+    assert _count(c[True], "all-gather", o_bytes) \
+        - _count(c[False], "all-gather", o_bytes) >= cfg.n_layers
+
+
+def test_opt_nerf_cell():
+    """render_800 in bf16 with rays over all 256 cards: the same FLOPs per
+    ray, a 16th of the baseline's rays per card, and the bytes per ray
+    about halved."""
+    r = {opt: dryrun.lower_nerf_cell("render_800", multi_pod=False,
+                                     verbose=False, optimized=opt)
+         for opt in (False, True)}
+    assert r[True]["optimized"] and r[True]["collectives"]["wire_bytes"] == 0
+    assert r[True]["model_flops_global"] == r[False]["model_flops_global"]
+    # per-call casts of the weights to bf16 do not scale with the rays
+    assert r[True]["hlo_flops_per_device"] * 16 == pytest.approx(
+        r[False]["hlo_flops_per_device"], rel=1e-4)
+    ratio = r[True]["hlo_bytes_per_device"] * 16 / r[False]["hlo_bytes_per_device"]
+    assert 0.4 < ratio < 0.6, ratio
 
 
 def test_no_kernel_under_the_nerf_trace():

@@ -1,0 +1,8 @@
+"""The 95th percentile of queueing, due time to first ray tiled, over the
+delivered views due in the window."""
+from bench.traffic import nearest_rank
+
+
+def read(run):
+    v = nearest_rank(run.queueing_s, 0.95)
+    return None if v is None else 1e3 * v

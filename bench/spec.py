@@ -1,0 +1,76 @@
+"""Where the benchmark finds what ``BENCHMARK.json`` names.
+
+* a cell: an entry of ``workloads``, by its ``name``;
+* a configuration: the JSON file that its ``configs`` entry names;
+* a traffic mix: ``bench/traffic/<traffic>.json``;
+* a metric: the module ``bench/metrics/<metric>.py``, whose ``read(run)``
+  returns the metric's value from a finished run, or ``None`` when the run
+  holds nothing to read it from.
+
+A later cell, mix or metric is a new file and a new entry: nothing here
+lists them.
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import re
+from pathlib import Path
+from typing import Callable, Optional
+
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}\Z")
+UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}\Z")
+TRAFFIC_DIR = Path("bench") / "traffic"
+METRICS_DIR = Path("bench") / "metrics"
+
+
+def load(root: Path) -> dict:
+    return json.loads((Path(root) / "BENCHMARK.json").read_text())
+
+
+def _named(entries: list, name: str, what: str) -> dict:
+    for e in entries:
+        if e["name"] == name:
+            return e
+    raise KeyError(f"no {what} named {name!r} in BENCHMARK.json")
+
+
+def workload(spec: dict, name: str) -> dict:
+    return _named(spec["workloads"], name, "workload")
+
+
+def config(root: Path, spec: dict, name: str) -> dict:
+    entry = _named(spec["configs"], name, "configuration")
+    return json.loads((Path(root) / entry["file"]).read_text())
+
+
+def traffic(root: Path, name: str) -> dict:
+    if not NAME.match(name):
+        raise ValueError(f"bad traffic name {name!r}")
+    return json.loads((Path(root) / TRAFFIC_DIR / f"{name}.json").read_text())
+
+
+def metric_reader(root: Path, name: str) -> Callable:
+    if not NAME.match(name):
+        raise ValueError(f"bad metric name {name!r}")
+    path = Path(root) / METRICS_DIR / f"{name}.py"
+    mod_name = "bench_metric_" + re.sub(r"\W", "_", name)
+    module_spec = importlib.util.spec_from_file_location(mod_name, path)
+    if module_spec is None or not path.exists():
+        raise FileNotFoundError(f"no reader for metric {name!r} at {path}")
+    module = importlib.util.module_from_spec(module_spec)
+    module_spec.loader.exec_module(module)
+    return module.read
+
+
+def cell_metrics(spec: dict, cell: str, trace: bool) -> list:
+    """The metric entries a run of ``cell`` reports: its end-to-end metrics
+    without a trace, its per-layer metrics with one. A metric without a
+    ``workloads`` key belongs to every cell."""
+    group = spec["per_layer"] if trace else spec["end_to_end"]
+    return [m for m in group if cell in m.get("workloads", [cell])]
+
+
+def read_metric(root: Path, name: str, run) -> Optional[float]:
+    value = metric_reader(root, name)(run)
+    return None if value is None else float(value)

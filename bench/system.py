@@ -1,0 +1,102 @@
+"""The system under test: the port's serving engine over its scene cache,
+as ``serve --mode engine --full --kernel --fuse-two-pass [--rmcm]`` builds
+it, from the library.
+
+Each scene's weights are the benchmark's input (``scenes.draw``); the
+program gets a copy of them, packed by ``PackedPlcore`` (and quantized by
+the port's RMCM for that format). Every scene of the cell is loaded into
+the cache here, and the tile shape is warmed up, so no load and no first
+launch falls in the window.
+
+This is the only module of the benchmark that imports the program.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from bench import scenes as S
+from repro_torch.configs.nerf_icarus import NerfConfig
+from repro_torch.core import rmcm
+from repro_torch.core.pipeline import PackedPlcore
+from repro_torch.serving.engine import RenderEngine, RenderRequest
+from repro_torch.serving.scene_cache import SceneCache, plcore_nbytes
+
+_FIELDS = {f.name for f in dataclasses.fields(NerfConfig)}
+
+
+def nerf_config(cfg: dict) -> NerfConfig:
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in cfg.items() if k in _FIELDS and k != "name"}
+    return NerfConfig(**kw)
+
+
+def scene_id(scene: int) -> str:
+    return f"scene{scene}"
+
+
+def port_params(cfg: dict, net: dict) -> dict:
+    """One network's drawn layers as the port's parameter tree."""
+    def lin(name):
+        w, b = net[name]
+        return {"w": w.clone(), "b": b.clone()}
+    return {"trunk": {f"l{i}": lin(f"trunk.{i}")
+                      for i in range(cfg["trunk_layers"])},
+            **{k: lin(k) for k in ("sigma", "feat", "color0", "rgb")}}
+
+
+def load(cfg: dict, nets: dict, device) -> PackedPlcore:
+    params = {n: port_params(cfg, nets[n]) for n in ("coarse", "fine")}
+    quant = None
+    if cfg["weights"] == "rmcm":
+        quant = {n: rmcm.quantize_tree(params[n]) for n in params}
+    return PackedPlcore(nerf_config(cfg), params, quant=quant,
+                        use_kernel=True, fuse_two_pass=True, device=device)
+
+
+def request(view) -> RenderRequest:
+    return RenderRequest(scene_id=scene_id(view.scene), hw=view.hw,
+                         theta=view.theta, phi=view.phi, radius=view.radius)
+
+
+class System:
+    """The engine of one run, its residents and the drawn weights."""
+
+    def __init__(self, cfg: dict, n_scenes: int, seed: int, device,
+                 tracer=None):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.weights = {scene_id(i): S.draw(cfg, seed, i, self.device)
+                        for i in range(n_scenes)}
+        self.cache = SceneCache(
+            lambda sid: load(cfg, self.weights[sid], self.device),
+            capacity_mb=float(cfg["cache_mb"]))
+        self.engine = RenderEngine(
+            self.cache, tile_rays=int(cfg["tile_rays"]),
+            pipeline_depth=int(cfg["pipeline_depth"]),
+            max_sticky_tiles=int(cfg["max_sticky_tiles"]), tracer=tracer)
+        self.residents = {sid: self.cache.get(sid) for sid in self.weights}
+        if len(self.cache) != n_scenes:
+            raise RuntimeError(f"the cache of {cfg['cache_mb']} MB holds "
+                               f"{len(self.cache)} of {n_scenes} scenes")
+
+    def resident_bytes(self) -> int:
+        return sum(plcore_nbytes(pp) for pp in self.residents.values())
+
+    def warm_up(self) -> None:
+        """One tile of the cell's one tile shape through every resident."""
+        n = int(self.cfg["tile_rays"])
+        o = torch.zeros(n, 3)
+        o[:, 2] = 4.0
+        d = torch.zeros(n, 3)
+        d[:, 2] = -1.0
+        for pp in self.residents.values():
+            handle, _ = pp.dispatch_tile(o.numpy(), d.numpy())
+            handle.result()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def close(self) -> None:
+        """Drop the program's state (engine, cache, residents)."""
+        self.engine = self.cache = self.residents = None

@@ -14,7 +14,9 @@
   its pixels come back through pinned host buffers with non-blocking
   copies, and CUDA events mark the start and end of the tile's own work,
   so draining tile k never waits for tile k+1 queued behind it, and the
-  tile's interval on the device can be read after it drains.
+  tile's interval on the device can be read after it drains. Given a
+  tracer on the card, a fused-path tile runs K2's traced instance and its
+  handle brings back K2's phase cycles with the pixels.
   ``render_tile_oracle`` renders the tile through the two-dispatch kernel
   chain, the fallback of a retry ladder. ``budget=`` renders a tile at an
   adaptive fine-sample count, ``alive=`` masks dead rows out of K2.
@@ -47,6 +49,7 @@ from repro_torch.core import plcore, sampling, volume
 from repro_torch.core.encoding import nerf_encoding
 from repro_torch.core.mlp import nerf_color_apply, nerf_trunk_apply
 from repro_torch.data import rays as drays
+from repro_torch.obs.metrics import K2_PHASES
 
 
 def render_image_single(cfg: NerfConfig, params, rays_o, rays_d, *,
@@ -76,16 +79,19 @@ class TileHandle:
     card the tile's work lies between two timing events, ``start``
     (recorded before its render was enqueued) and ``end`` (after its
     pixels' copy to the host): ``device_interval`` reads it once the
-    result is in."""
-    __slots__ = ("_host", "_event", "_device_rgb", "start", "end")
+    result is in. ``phase_cycles`` reads K2's phase rows (pinned host
+    memory the traced instance wrote) when the tile ran it."""
+    __slots__ = ("_host", "_event", "_device_rgb", "start", "end",
+                 "_phase")
 
     def __init__(self, host: torch.Tensor, event=None, device_rgb=None,
-                 start=None):
+                 start=None, phase=None):
         self._host = host
         self._event = event
         self._device_rgb = device_rgb    # alive until the copy has run
         self.start = start
         self.end = event
+        self._phase = phase
 
     def result(self) -> np.ndarray:
         if self._event is not None:
@@ -97,6 +103,12 @@ class TileHandle:
         """Whether the tile's work has run, asked without waiting (an
         event query); always true on the CPU."""
         return self._event is None or self._event.query()
+
+    def phase_cycles(self) -> Optional[list]:
+        """K2's cycles per ``obs.metrics.K2_PHASES`` slot, summed
+        over the tile's blocks, or None when the tile did not run the
+        traced instance. Call after ``result()``."""
+        return None if self._phase is None else self._phase.sum(0).tolist()
 
     def device_interval(self, anchor) -> Optional[tuple]:
         """(start, end) of the tile's work in seconds after the ``anchor``
@@ -248,23 +260,27 @@ class PackedPlcore:
 
     def render_tile(self, o_tile, d_tile, ert_eps: Optional[float] = None,
                     coarse_only: bool = False, budget: Optional[int] = None,
-                    alive=None) -> torch.Tensor:
+                    alive=None, phase_cycles=None) -> torch.Tensor:
         """ONE pre-coalesced ray tile (n, 3) -> rgb (n, 3), the same per-ray
         body as ``render_image``. ``coarse_only`` is the overload
         degradation: the coarse pass only, no resample, no fine pass.
         ``budget`` (adaptive sampling) renders the tile with ``n_fine =
         budget`` (K2 gets that config, so ``sample_rows`` gives it the
         budget's resample grid); ``alive`` is an optional (n,) dead-row
-        mask, 0 = dead, for the fused path."""
+        mask, 0 = dead, for the fused path; ``phase_cycles`` K2's phase rows
+        (``kernels.fused_plcore.two_pass_plcore_call``), fused path
+        only."""
         eps = self._eps(ert_eps)
         weights = self._weights("tile", eps, coarse_only, budget,
                                 alive is not None)
         return self._tile_body(weights, self._rays(o_tile),
                                self._rays(d_tile), eps, coarse_only, budget,
-                               None if alive is None else self._rays(alive))
+                               None if alive is None else self._rays(alive),
+                               phase_cycles)
 
     def _tile_body(self, weights, o, d, eps: float, coarse_only: bool,
-                   budget: Optional[int] = None, alive=None) -> torch.Tensor:
+                   budget: Optional[int] = None, alive=None,
+                   phase_cycles=None) -> torch.Tensor:
         """The tile render on ``weights`` = (params, quant, packed), on the
         device the rays lie on."""
         params, quant, packed = weights
@@ -281,7 +297,8 @@ class PackedPlcore:
         return plcore.render_rays(
             cfg, params, o, d, quant=quant, packed=packed,
             use_kernel=self.use_kernel, fuse_two_pass=self.fuse_two_pass,
-            ert_eps=eps, white_bkgd=True, alive=alive)["rgb"]
+            ert_eps=eps, white_bkgd=True, alive=alive,
+            phase_cycles=phase_cycles)["rgb"]
 
     def render_tile_oracle(self, o_tile, d_tile,
                            ert_eps: Optional[float] = None) -> torch.Tensor:
@@ -318,43 +335,51 @@ class PackedPlcore:
         ``layers = bytes = 0``, the ``cell``, and ``stage_layers`` /
         ``stage_bytes``, nonzero only on the dispatch that staged the
         (scene, cell) weights. ``tracer`` records the host-side enqueue as
-        a ``plcore.dispatch`` span (``trace_attrs`` added to it)."""
+        a ``plcore.dispatch`` range (``trace_attrs`` added to it); on the
+        card a fused-path tile then runs K2's traced instance, which writes
+        its phase cycles to zeroed pinned rows the handle keeps
+        (``TileHandle.phase_cycles``)."""
         use_percell = (percell and home_cell is not None
                        and self.shard_mesh is not None)
         if use_percell and (budget is not None or alive is not None):
             raise ValueError("adaptive budgets and dead-row masks are a "
                              "replicated single-cell feature — not with "
                              "percell")
-        t0 = tracer.clock() if tracer is not None else None
-        if use_percell:
-            cell = int(home_cell)
-            staged_now = cell not in self._cell_views
-            handle = self.render_tile_cell(o_tile, d_tile, cell,
-                                           ert_eps=ert_eps,
-                                           coarse_only=coarse_only,
-                                           tracer=tracer, handle=True)
-            stage = self.cell_stage_cost(cell)
-            cost = {"layers": 0, "bytes": 0, "cell": cell,
-                    "stage_layers": stage["layers"] if staged_now else 0,
-                    "stage_bytes": stage["bytes"] if staged_now else 0}
-        else:
-            o, d = self._upload(o_tile), self._upload(d_tile)
-            a = None if alive is None else self._upload(alive)
-            start = self.tile_start()
-            rgb = self.render_tile(o, d, ert_eps=ert_eps,
-                                   coarse_only=coarse_only, budget=budget,
-                                   alive=a)
-            handle = self.handle(rgb, start)
-            cost = self.tile_gather_cost(home_cell)
-        if tracer is not None:
-            tracer.complete("plcore.dispatch", t0, cat="plcore",
-                            rays=int(o_tile.shape[0]),
-                            coarse_only=bool(coarse_only),
-                            percell=bool(use_percell),
-                            cell=int(home_cell) if use_percell else -1,
-                            gather_layers=cost["layers"],
-                            gather_bytes=cost["bytes"],
-                            **(trace_attrs or {}))
+        traced = tracer is not None and tracer.enabled
+        with (tracer.range("plcore.dispatch", "plcore") if traced
+              else contextlib.nullcontext({})) as attrs:
+            if use_percell:
+                cell = int(home_cell)
+                staged_now = cell not in self._cell_views
+                handle = self.render_tile_cell(o_tile, d_tile, cell,
+                                               ert_eps=ert_eps,
+                                               coarse_only=coarse_only,
+                                               tracer=tracer, handle=True)
+                stage = self.cell_stage_cost(cell)
+                cost = {"layers": 0, "bytes": 0, "cell": cell,
+                        "stage_layers": stage["layers"] if staged_now else 0,
+                        "stage_bytes": stage["bytes"] if staged_now else 0}
+            else:
+                o, d = self._upload(o_tile), self._upload(d_tile)
+                a = None if alive is None else self._upload(alive)
+                phase = None
+                if (traced and self.device.type == "cuda"
+                        and self.fuse_two_pass and not coarse_only):
+                    phase = torch.zeros((len(o_tile), len(K2_PHASES)),
+                                        dtype=torch.int64, pin_memory=True)
+                start = self.tile_start()
+                rgb = self.render_tile(o, d, ert_eps=ert_eps,
+                                       coarse_only=coarse_only, budget=budget,
+                                       alive=a, phase_cycles=phase)
+                handle = self.handle(rgb, start, phase)
+                cost = self.tile_gather_cost(home_cell)
+            attrs.update(rays=int(o_tile.shape[0]),
+                         coarse_only=bool(coarse_only),
+                         percell=bool(use_percell),
+                         cell=int(home_cell) if use_percell else -1,
+                         gather_layers=cost["layers"],
+                         gather_bytes=cost["bytes"],
+                         **(trace_attrs or {}))
         return handle, cost
 
     def tile_start(self):
@@ -367,19 +392,21 @@ class PackedPlcore:
         event.record()
         return event
 
-    def handle(self, rgb: torch.Tensor, start=None) -> TileHandle:
+    def handle(self, rgb: torch.Tensor, start=None,
+               phase=None) -> TileHandle:
         """A ``TileHandle`` for pixels rendered on the card or the CPU (the
         pixels' own device decides): on the card, a non-blocking copy into
         pinned host memory and a timing event after it on the current
         stream (``start``: the event of ``tile_start`` before the render);
-        on the CPU, the pixels themselves."""
+        on the CPU, the pixels themselves. ``phase``: the pinned rows K2's
+        traced instance writes, kept with the pixels."""
         if rgb.device.type != "cuda":
             return TileHandle(rgb)
         host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
         host.copy_(rgb, non_blocking=True)
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        return TileHandle(host, event, rgb, start)
+        return TileHandle(host, event, rgb, start, phase)
 
     def tile_gather_cost(self, home_cell: Optional[int] = None) -> dict:
         """Weight-gather traffic of one tile dispatch in the owner-map

@@ -78,7 +78,8 @@ def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,
                 quant: Optional[dict] = None, use_kernel: bool = False,
                 fuse_two_pass: bool = False,
                 packed: Optional[dict] = None, ert_eps: float = 0.0,
-                white_bkgd: bool = True, alive=None) -> dict:
+                white_bkgd: bool = True, alive=None,
+                phase_cycles=None) -> dict:
     """Two-pass render (paper §5.1): n_coarse stratified + n_fine importance.
 
     rays_o/rays_d: (R, 3). Returns {rgb, rgb_coarse, depth, acc}.
@@ -86,6 +87,8 @@ def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,
     layouts. ``ert_eps`` > 0: rays whose transmittance after the coarse
     pass is below it keep the coarse color and skip the fine pass.
     ``alive`` (fused path only): optional (R,) mask, 0 = dead row.
+    ``phase_cycles`` (fused path only): K2's phase rows
+    (``kernels.fused_plcore.two_pass_plcore_call``).
     ``generator`` jitters the samples (training mode); the fused path is
     deterministic and refuses one.
     """
@@ -108,7 +111,7 @@ def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,
             pf = kops.kernel_weights(cfg, params["fine"], qf)
         out = kops.fused_render_two_pass(
             cfg, {"coarse": pc, "fine": pf}, rays_o, rays_d,
-            ert_eps=ert_eps, alive=alive)
+            ert_eps=ert_eps, alive=alive, phase_cycles=phase_cycles)
         rgb_f, rgb_c = out["rgb"], out["rgb_coarse"]
         if white_bkgd:
             rgb_f = volume.white_background(rgb_f, out["acc"])

@@ -19,7 +19,7 @@
 namespace plcore {
 template <int W, int C, bool Q>
 int k1_launch(const void* const* ptrs, const int* dims, void* stream);
-template <int W, int C, bool QC, bool QF>
+template <int W, int C, bool QC, bool QF, bool TRACE>
 int k2_launch(const void* const* ptrs, const int* dims, float thr,
               void* stream);
 template <int W, int C, bool Q>
@@ -36,13 +36,25 @@ int k1(const void* const* ptrs, const int* dims, void* stream) {
                   : plcore::k1_launch<W, C, false>(ptrs, dims, stream);
 }
 
+template <int W, int C, bool TRACE>
+int k2_formats(const void* const* ptrs, const int* dims, float thr,
+               void* stream) {
+  const int qc = dims[12], qf = dims[13];
+  if (qc && qf)
+    return plcore::k2_launch<W, C, true, true, TRACE>(ptrs, dims, thr, stream);
+  if (qc)
+    return plcore::k2_launch<W, C, true, false, TRACE>(ptrs, dims, thr, stream);
+  if (qf)
+    return plcore::k2_launch<W, C, false, true, TRACE>(ptrs, dims, thr, stream);
+  return plcore::k2_launch<W, C, false, false, TRACE>(ptrs, dims, thr, stream);
+}
+
+// the traced instance when the phase rows (after the 10 tensors and the
+// two networks' 14 pointers each) are given
 template <int W, int C>
 int k2(const void* const* ptrs, const int* dims, float thr, void* stream) {
-  const int qc = dims[12], qf = dims[13];
-  if (qc && qf) return plcore::k2_launch<W, C, true, true>(ptrs, dims, thr, stream);
-  if (qc) return plcore::k2_launch<W, C, true, false>(ptrs, dims, thr, stream);
-  if (qf) return plcore::k2_launch<W, C, false, true>(ptrs, dims, thr, stream);
-  return plcore::k2_launch<W, C, false, false>(ptrs, dims, thr, stream);
+  return ptrs[10 + 2 * 14] ? k2_formats<W, C, true>(ptrs, dims, thr, stream)
+                           : k2_formats<W, C, false>(ptrs, dims, thr, stream);
 }
 
 template <int W, int C>
@@ -72,7 +84,10 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
 }
 
 // K2. ptrs: rays_o, rays_d, t_row, u_row, alive|null, rgb, rgb_c, acc, acc_c,
-// depth, net_c[14], net_f[14].
+// depth, net_c[14], net_f[14], phase|null. With phase rows (pinned host
+// memory, a row of 5 int64 a block: mlp, ring_wait, resample, scalar,
+// total cycles) the traced instance runs and writes each block's row;
+// without, the untraced one.
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, Nc, Nf,
 // qc, qf, ert. thr: a ray stays alive while acc_c < thr (under ert).
 int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,

@@ -431,6 +431,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     else if (now - t0 > (1LL << 34)) __trap();
   }
 }
+// whether the barrier's phase of this parity has completed, asked without
+// waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
 // bytes (a multiple of 16, both addresses 16-byte aligned) global ->
 // shared, counted on bar's transaction bytes
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,

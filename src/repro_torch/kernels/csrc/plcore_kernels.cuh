@@ -2,9 +2,9 @@
 // MLP engine -> VRU, inside one thread block per ray tile. This header
 // holds the kernels as templates over the layer widths (W, C) and the
 // weight formats; each plcore_w*.cu instantiates them for one width pair
-// (one translation unit per pair and format family, so nvcc builds them in
-// parallel), and fused_plcore.cu holds the C entry points that pick the
-// instance.
+// (one translation unit per pair and format family, and per family for
+// K2's traced instances, so nvcc builds them in parallel), and
+// fused_plcore.cu holds the C entry points that pick the instance.
 //
 // Which TPU kernel each __global__ replaces (reference package, Pallas):
 //   plcore_fused_kernel     <- kernels/fused_plcore.py :: fused_plcore_call
@@ -69,6 +69,9 @@
 // an SM (128 registers a thread), and each k step's products are summed
 // apart and added to the layer's sums with rounded adds (mma_segment). The
 // host reads the resident blocks per SM from plcore_blocks_per_sm.
+//
+// K2's traced instances (TRACE) count where the block's cycles go (the
+// phase clock below); the untraced instances compile none of it.
 
 #pragma once
 
@@ -96,6 +99,85 @@ __host__ __device__ constexpr int slot_bytes() { return W * col_bytes<Q>(); }
 // resident blocks per SM the register budget is set for
 template <int W>
 __host__ __device__ constexpr int min_blocks() { return W >= 256 ? 1 : 2; }
+
+// ------------------------------------------------------- phase clock ----
+// The traced K2 splits each warpgroup's cycles into phases: its first
+// thread reads clock64() at the phases' borders and adds each interval to
+// the warpgroup's slots in shared memory; at exit the block writes both
+// warpgroups' sums (PH_OUT int64, in this order) to its row of the
+// launch's buffer, which lies in pinned host memory: the traced launch
+// adds no operation on the device (no zeroing, no copy back). PH_MLP is the MLP layers' time with the
+// ring waits inside them (PH_RING) taken out at exit; time between
+// borders that no phase names is counted in PH_TOTAL only. A ring wait
+// (one a k step) reads the clock only when the step's bytes have not
+// landed, and adds up in a register of every thread, which goes to the
+// slots at the MLP borders: a clock pair and a shared-memory update a
+// step cost the warpgroup 2 to 3% of K2's time.
+enum Phase { PH_MLP, PH_RING, PH_RESAMPLE, PH_SCALAR, PH_TOTAL, PH_OUT,
+             PH_LAST = PH_OUT, PH_SLOTS = 8 };
+
+__device__ __forceinline__ long long* phase_slots(int wg) {
+  __shared__ __align__(128) long long slots[2 * PH_SLOTS];
+  return slots + wg * PH_SLOTS;
+}
+
+__device__ __forceinline__ bool phase_leader() {
+  return (threadIdx.x & 127) == 0;
+}
+
+// the cycles since the warpgroup's last border go to phase P (P < 0:
+// to no phase)
+template <bool TRACE, int P>
+__device__ __forceinline__ void lap() {
+  if constexpr (TRACE) {
+    if (phase_leader()) {
+      long long* s = phase_slots(threadIdx.x >> 7);
+      const long long now = clock64();
+      if constexpr (P >= 0) s[P] += now - s[PH_LAST];
+      s[PH_LAST] = now;
+    }
+  }
+}
+
+// the MLP layers' border: the cycles since the last border go to PH_MLP,
+// the ring waits counted in `waited` since then to PH_RING
+template <bool TRACE>
+__device__ __forceinline__ void lap_mlp(long long& waited) {
+  if constexpr (TRACE) {
+    if (phase_leader()) phase_slots(threadIdx.x >> 7)[PH_RING] += waited;
+    waited = 0;
+    lap<TRACE, PH_MLP>();
+  }
+}
+
+template <bool TRACE>
+__device__ __forceinline__ void phases_begin() {
+  if constexpr (TRACE) {
+    if (phase_leader()) {
+      long long* s = phase_slots(threadIdx.x >> 7);
+      const long long now = clock64();
+      for (int p = 0; p < PH_OUT; ++p) s[p] = 0;
+      s[PH_TOTAL] = -now;
+      s[PH_LAST] = now;
+    }
+  }
+}
+
+// every thread of the block, at its exit: the block's row of `rows`
+template <bool TRACE>
+__device__ __forceinline__ void phases_end(long long* rows) {
+  if constexpr (TRACE) {
+    if (phase_leader()) phase_slots(threadIdx.x >> 7)[PH_TOTAL] += clock64();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const long long* a = phase_slots(0);
+      const long long* b = phase_slots(1);
+      long long* row = rows + (size_t)blockIdx.x * PH_OUT;
+      for (int p = 0; p < PH_OUT; ++p)
+        row[p] = a[p] + b[p] - (p == PH_MLP ? a[PH_RING] + b[PH_RING] : 0);
+    }
+  }
+}
 
 struct Mat {
   const float* w;       // f32 (rows, ncol), or null under RMCM
@@ -275,9 +357,20 @@ struct Ring {
     __syncwarp();
   }
 
-  // wait for the next step; its slot's shared address
-  __device__ __forceinline__ uint32_t acquire() {
-    mbar_wait(full + gs % NS, (gs / NS) & 1);
+  // wait for the next step; its slot's shared address. TRACE: a wait
+  // that does not find the bytes landed adds its cycles to *waited (one
+  // that does reads no clock)
+  template <bool TRACE = false>
+  __device__ __forceinline__ uint32_t acquire(long long* waited = nullptr) {
+    if constexpr (TRACE) {
+      if (!mbar_test(full + gs % NS, (gs / NS) & 1)) {
+        const long long t0 = clock64();
+        mbar_wait(full + gs % NS, (gs / NS) & 1);
+        *waited += clock64() - t0;
+      }
+    } else {
+      mbar_wait(full + gs % NS, (gs / NS) & 1);
+    }
     __syncwarp();
     return smem_addr(ring + (gs % NS) * SB);
   }
@@ -309,9 +402,10 @@ using Acc = float[W / 2];
 // a_hi.b_lo, a_hi.b_hi) make one commit group, waited for before the next
 // step writes its A registers: wgmma reads A from the registers while it
 // runs. The other warpgroup's MMAs fill the tensor cores meanwhile.
-template <int W, bool Q, int N>
+template <int W, bool Q, int N, bool TRACE = false>
 __device__ __forceinline__ void mma_segment(Acc<W>& acc, Ring<W, Q>& rg,
-                                            const float* in, int ld, int nk) {
+                                            const float* in, int ld, int nk,
+                                            long long* waited = nullptr) {
   const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
   const int wg = threadIdx.x >> 7;
   const int g = lane >> 2, t = lane & 3;
@@ -328,7 +422,7 @@ __device__ __forceinline__ void mma_segment(Acc<W>& acc, Ring<W, Q>& rg,
   if constexpr (split_sum) d_out = part; else d_out = acc;
 #pragma unroll 1
   for (int j = 0; j < nk; ++j, a += kstep<Q>()) {
-    const uint64_t d = b_desc(rg.acquire());
+    const uint64_t d = b_desc(rg.template acquire<TRACE>(waited));
     if constexpr (split_sum) {
       zero_acc(part);
       fence_acc(part);
@@ -450,8 +544,11 @@ __device__ __forceinline__ void stream_steps(const Dims& D, int* per_chunk,
 
 // One PEU -> MLP -> VRU pass of one ray over N samples at ts / dl. Leaves
 // rgb, acc, depth in sm.res and the per-sample weights in sm.wbuf. Every
-// thread of the block calls it.
-template <int W, int C, bool Q>
+// thread of the block calls it. TRACE: the MLP layers (with their
+// epilogues and barriers) go to PH_MLP, their ring waits to PH_RING, the
+// encoding, the exact heads, the direction part of the color layer and
+// the VRU to PH_SCALAR.
+template <int W, int C, bool Q, bool TRACE = false>
 __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
                          Ring<W, Q>& rg, const float* ts, const float* dl,
                          int N) {
@@ -472,6 +569,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
 
   rg.begin(net.stream, rg.per_chunk * ((N + S - 1) / S));
   Acc<W> acc;
+  long long waited = 0;   // TRACE: ring-wait cycles since the last border
   for (int c0 = 0; c0 < N; c0 += S) {
     const int rows = min(S, N - c0);
     // ---- PEU: positions of this chunk, double-angle encoded; the K
@@ -488,16 +586,17 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     for (int idx = tid; idx < S * npad; idx += NT)
       sm.pe[(idx / npad) * ps + D.pe + idx % npad] = 0.f;
     __syncthreads();
+    lap<TRACE, PH_SCALAR>();
 
     // ---- trunk ---------------------------------------------------------
     for (int i = 0; i < D.L; ++i) {
       mma_start<W>(acc);
       if (i == 0) {
-        mma_segment<W, Q, W>(acc, rg, sm.pe, ps, nkp);
+        mma_segment<W, Q, W, TRACE>(acc, rg, sm.pe, ps, nkp, &waited);
       } else {
-        mma_segment<W, Q, W>(acc, rg, sm.act, as, nkh);
+        mma_segment<W, Q, W, TRACE>(acc, rg, sm.act, as, nkh, &waited);
         if ((D.skip_mask >> i) & 1)
-          mma_segment<W, Q, W>(acc, rg, sm.pe, ps, nkp);
+          mma_segment<W, Q, W, TRACE>(acc, rg, sm.pe, ps, nkp, &waited);
       }
       mma_finish<W>(acc);
       __syncthreads();
@@ -508,24 +607,27 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
 
     // ---- heads: sigma (exact) and feature ------------------------------
     mma_start<W>(acc);
-    mma_segment<W, Q, W>(acc, rg, sm.act, as, nkh);
+    mma_segment<W, Q, W, TRACE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
+    lap_mlp<TRACE>(waited);
     if (tid < rows) {
       float s = 0.f;
       for (int k = 0; k < W; ++k) s = fmaf(sm.act[tid * as + k], net.sw[k], s);
       sm.sig[c0 + tid] = __fadd_rn(s, net.sb[0]);
     }
     __syncthreads();
+    lap<TRACE, PH_SCALAR>();
     store<W, Q, W>(sm.act, as, acc, net.fscl, net.fb, nullptr, false);
     __syncthreads();
 
     // ---- color branch: feature rows per sample + direction part per ray
     mma_start<W>(acc);
-    mma_segment<W, Q, C>(acc, rg, sm.act, as, nkh);
+    mma_segment<W, Q, C, TRACE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
     __syncthreads();
     store<W, Q, C>(sm.act, as, acc, net.color.scl, sm.cold, net.cb, true);
     __syncthreads();
+    lap_mlp<TRACE>(waited);
 
     // ---- rgb head (exact) + sigmoid ------------------------------------
     for (int idx = tid; idx < 3 * rows; idx += NT) {
@@ -536,6 +638,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
       sm.rgb[(c0 + s) * 3 + c] = 1.0f / (1.0f + expf(-r));
     }
     __syncthreads();
+    lap<TRACE, PH_SCALAR>();
   }
 
   // ---- VRU: T_{i+1} = exp(cumsum x), w_i = T_i - T_{i+1}, sequential ----
@@ -558,6 +661,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     sm.res[4] = dep;
   }
   __syncthreads();
+  lap<TRACE, PH_SCALAR>();
 }
 
 __device__ __forceinline__ void load_ray(Smem& sm, const float* o,
@@ -626,8 +730,9 @@ plcore_fused_kernel(Net net, Dims D, int N, const float* __restrict__ rays_o,
 
 // --------------------------------------------------------------- K2 -------
 // The rays of one block's tile: coarse pass through rgc, fine pass through
-// rgf (the same ring when both networks have one format).
-template <int W, int C, bool QC, bool QF>
+// rgf (the same ring when both networks have one format). TRACE: the
+// resample goes to PH_RESAMPLE, loading and encoding the ray to PH_SCALAR.
+template <int W, int C, bool QC, bool QF, bool TRACE>
 __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
                               const Net& netc, const Net& netf, const Dims& D,
                               Smem& sm, int Nc, int Nf, int ert, float thr,
@@ -642,11 +747,13 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
   const int Nt = Nc + Nf, M1 = Nc - 1, tid = threadIdx.x;
   const int r_end = min(D.R, (int)(blockIdx.x + 1) * D.rt);
   for (int r = blockIdx.x * D.rt; r < r_end; ++r) {
+    lap<TRACE, -1>();
     load_ray(sm, rays_o, rays_d, r);
     encode_dir(D, sm);
+    lap<TRACE, PH_SCALAR>();
 
     // ---- pass 1: coarse --------------------------------------------------
-    ray_pass<W, C, QC>(netc, D, sm, rgc, sm.tc, sm.dlc, Nc);
+    ray_pass<W, C, QC, TRACE>(netc, D, sm, rgc, sm.tc, sm.dlc, Nc);
     const float cr0 = sm.res[0], cr1 = sm.res[1], cr2 = sm.res[2];
     const float cacc = sm.res[3], cdep = sm.res[4];
     bool live = true;
@@ -722,9 +829,10 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
     for (int n = tid; n < Nt; n += NT)
       sm.dl[n] = n + 1 < Nt ? __fsub_rn(sm.ts[n + 1], sm.ts[n]) : 1e10f;
     __syncthreads();
+    lap<TRACE, PH_RESAMPLE>();
 
     // ---- pass 2: fine over the merged samples -----------------------------
-    ray_pass<W, C, QF>(netf, D, sm, rgf, sm.ts, sm.dl, Nt);
+    ray_pass<W, C, QF, TRACE>(netf, D, sm, rgf, sm.ts, sm.dl, Nt);
     if (tid == 0) {
       rgb[3 * r + 0] = sm.res[0]; rgb[3 * r + 1] = sm.res[1];
       rgb[3 * r + 2] = sm.res[2];
@@ -735,7 +843,10 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
   }
 }
 
-template <int W, int C, bool QC, bool QF>
+// TRACE: the traced instance, which writes each block's phase cycles to
+// its row of phase_cycles (PH_OUT int64 a row, pinned host memory); the
+// untraced one never reads it.
+template <int W, int C, bool QC, bool QF, bool TRACE>
 __global__ void __launch_bounds__(NT, min_blocks<W>())
 plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
                        float thr, const float* __restrict__ rays_o,
@@ -745,8 +856,10 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
                        const float* __restrict__ alive,
                        float* __restrict__ rgb, float* __restrict__ rgb_c,
                        float* __restrict__ acc, float* __restrict__ acc_c,
-                       float* __restrict__ depth) {
+                       float* __restrict__ depth,
+                       long long* __restrict__ phase_cycles) {
   extern __shared__ __align__(128) uint8_t smem_raw[];
+  phases_begin<TRACE>();
   const int tid = threadIdx.x;
   Smem sm;
   carve<W, QC, QF>(&sm, smem_raw, D, Nc + Nf, Nc, Nf);
@@ -759,16 +872,17 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
   Ring<W, QC> rgc;
   ring_init<W, QC>(rgc, sm, D, 0);
   if constexpr (QC == QF) {
-    two_pass_rays<W, C, QC, QF>(rgc, rgc, netc, netf, D, sm, Nc, Nf, ert,
-                                thr, rays_o, rays_d, alive, rgb, rgb_c, acc,
-                                acc_c, depth);
+    two_pass_rays<W, C, QC, QF, TRACE>(rgc, rgc, netc, netf, D, sm, Nc, Nf,
+                                       ert, thr, rays_o, rays_d, alive, rgb,
+                                       rgb_c, acc, acc_c, depth);
   } else {
     Ring<W, QF> rgf;
     ring_init<W, QF>(rgf, sm, D, Ring<W, QC>::NS);
-    two_pass_rays<W, C, QC, QF>(rgc, rgf, netc, netf, D, sm, Nc, Nf, ert,
-                                thr, rays_o, rays_d, alive, rgb, rgb_c, acc,
-                                acc_c, depth);
+    two_pass_rays<W, C, QC, QF, TRACE>(rgc, rgf, netc, netf, D, sm, Nc, Nf,
+                                       ert, thr, rays_o, rays_d, alive, rgb,
+                                       rgb_c, acc, acc_c, depth);
   }
+  phases_end<TRACE>(phase_cycles);
 }
 
 // ------------------------------------------------------------ host side ---
@@ -844,7 +958,9 @@ int k1_launch(const void* const* ptrs, const int* dims, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <int W, int C, bool QC, bool QF>
+// TRACE: the traced instance, writing to the phase rows at
+// ptrs[10 + 2 * NET_PTRS] (a row a block, in pinned host memory)
+template <int W, int C, bool QC, bool QF, bool TRACE>
 int k2_launch(const void* const* ptrs, const int* dims, float thr,
               void* stream) {
   const Dims D = make_dims(dims);
@@ -858,13 +974,16 @@ int k2_launch(const void* const* ptrs, const int* dims, float thr,
   float* out[5];
   for (int i = 0; i < 5; ++i)
     out[i] = static_cast<float*>(const_cast<void*>(ptrs[5 + i]));
+  long long* phase = TRACE ? static_cast<long long*>(const_cast<void*>(
+                                ptrs[10 + 2 * NET_PTRS]))
+                          : nullptr;
   const size_t smem = carve<W, QC, QF>(nullptr, nullptr, D, Nc + Nf, Nc, Nf);
-  cudaError_t e = launch_setup(plcore_two_pass_kernel<W, C, QC, QF>, smem);
+  auto kernel = plcore_two_pass_kernel<W, C, QC, QF, TRACE>;
+  cudaError_t e = launch_setup(kernel, smem);
   if (e) return (int)e;
-  plcore_two_pass_kernel<W, C, QC, QF><<<grid, NT, smem,
-                                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       nc, nf, D, Nc, Nf, ert, thr, in[0], in[1], in[2], in[3], in[4],
-      out[0], out[1], out[2], out[3], out[4]);
+      out[0], out[1], out[2], out[3], out[4], phase);
   return (int)cudaGetLastError();
 }
 
@@ -882,7 +1001,7 @@ int k2_resident(const int* dims, int* blocks) {
   const Dims D = make_dims(dims);
   if (!dims_ok<W, C>(D)) return (int)cudaErrorInvalidValue;
   const int Nc = dims[10], Nf = dims[11];
-  return (int)resident(plcore_two_pass_kernel<W, C, QC, QF>,
+  return (int)resident(plcore_two_pass_kernel<W, C, QC, QF, false>,
                        carve<W, QC, QF>(nullptr, nullptr, D, Nc + Nf, Nc, Nf),
                        blocks);
 }
@@ -890,15 +1009,17 @@ int k2_resident(const int* dims, int* blocks) {
 }  // namespace plcore
 
 // Explicit instances of one width pair: the same-format family (K1 and
-// K2, f32 and RMCM) or the mixed K2 family (qc != qf).
+// K2, f32 and RMCM) or the mixed K2 family (qc != qf), and K2's traced
+// instances of either family (translation units of their own, so nvcc
+// builds them beside the untraced ones).
 #define PLCORE_INSTANCES_SAME(W, C)                                          \
   template int plcore::k1_launch<W, C, false>(const void* const*,            \
                                               const int*, void*);            \
   template int plcore::k1_launch<W, C, true>(const void* const*,             \
                                              const int*, void*);             \
-  template int plcore::k2_launch<W, C, false, false>(                        \
+  template int plcore::k2_launch<W, C, false, false, false>(                 \
       const void* const*, const int*, float, void*);                         \
-  template int plcore::k2_launch<W, C, true, true>(                          \
+  template int plcore::k2_launch<W, C, true, true, false>(                   \
       const void* const*, const int*, float, void*);                         \
   template int plcore::k1_resident<W, C, false>(const int*, int*);           \
   template int plcore::k1_resident<W, C, true>(const int*, int*);            \
@@ -906,9 +1027,13 @@ int k2_resident(const int* dims, int* blocks) {
   template int plcore::k2_resident<W, C, true, true>(const int*, int*);
 
 #define PLCORE_INSTANCES_MIXED(W, C)                                         \
-  template int plcore::k2_launch<W, C, false, true>(                         \
+  template int plcore::k2_launch<W, C, false, true, false>(                  \
       const void* const*, const int*, float, void*);                         \
-  template int plcore::k2_launch<W, C, true, false>(                         \
+  template int plcore::k2_launch<W, C, true, false, false>(                  \
       const void* const*, const int*, float, void*);                         \
   template int plcore::k2_resident<W, C, false, true>(const int*, int*);     \
   template int plcore::k2_resident<W, C, true, false>(const int*, int*);
+
+#define PLCORE_INSTANCE_TRACED(W, C, QC, QF)                                 \
+  template int plcore::k2_launch<W, C, QC, QF, true>(                        \
+      const void* const*, const int*, float, void*);

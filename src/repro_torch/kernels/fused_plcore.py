@@ -7,7 +7,10 @@ in ``csrc/plcore_w*.cu``).
   these with the host resample between them make the two-dispatch chain.
 * ``two_pass_plcore_call`` (K2) — the whole coarse -> importance -> fine
   render of every ray in ONE launch; coarse weights and sample positions
-  never leave the block.
+  never leave the block. Given ``phase_cycles`` rows it runs K2's traced
+  instance, which writes where each block spent its cycles
+  (``obs.metrics.K2_PHASES``) to the block's row, in pinned host memory,
+  so a traced launch adds no operation on the device.
 
 Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
 RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:
@@ -39,7 +42,7 @@ import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
-from repro_torch.obs.metrics import CountsView, global_registry
+from repro_torch.obs.metrics import K2_PHASES, CountsView, global_registry
 
 LAUNCHES = CountsView(global_registry().counter(
     "plcore_kernel_launches_total", "fused PLCore kernel launches"),
@@ -254,13 +257,19 @@ def fused_plcore_call(cfg: NerfConfig, weights: dict, rays_o, rays_d, t,
 
 def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
                          rays_o, rays_d, t_row, u_row, *, rt: int,
-                         ert_eps: float, alive: Optional[torch.Tensor] = None):
+                         ert_eps: float, alive: Optional[torch.Tensor] = None,
+                         phase_cycles: Optional[torch.Tensor] = None):
     """K2. rays (R, 3); ``t_row`` (1, n_coarse) coarse positions and
     ``u_row`` (n_fine,) resample grid, both shared by every ray
     (``ops.sample_rows``); ``ert_eps`` > 0 lets rays with acc_c >= 1 - eps
-    skip their fine pass; ``alive`` optional (R,) float mask, 0 = dead.
-    Returns (rgb (R,3), rgb_coarse (R,3), acc (R,), acc_coarse (R,),
-    depth (R,)); the caller composites the white background."""
+    skip their fine pass; ``alive`` optional (R,) float mask, 0 = dead;
+    ``phase_cycles`` optional zeroed (R, 5) int64 tensor in pinned host
+    memory: the traced instance writes block b's cycles per ``K2_PHASES``
+    slot to row b (R rows hold every block; the sum over rows is the
+    launch's), readable once the launch has completed; the plain version on
+    the CPU ignores it. Returns (rgb (R,3), rgb_coarse (R,3), acc (R,),
+    acc_coarse (R,), depth (R,)); the caller composites the white
+    background."""
     dev = _device_of(rays_o)
     if dev.type == "cpu":
         return ref.two_pass_ref(cfg, packed_c, packed_f, rays_o, rays_d,
@@ -276,8 +285,14 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     _check("u_row", u_row, (Nf,), f32, dev)
     if alive is not None:
         _check("alive", alive, (R,), f32, dev)
+    if phase_cycles is not None:
+        if not phase_cycles.is_pinned():
+            raise ValueError("phase_cycles must lie in pinned host memory")
+        _check("phase_cycles", phase_cycles, (R, len(K2_PHASES)),
+               torch.int64, torch.device("cpu"))
     qc, qf = "trunk_mag" in packed_c, "trunk_mag" in packed_f
     ptrs = _net_ptrs(cfg, packed_c, dev) + _net_ptrs(cfg, packed_f, dev)
+    ptrs.append(None if phase_cycles is None else phase_cycles.data_ptr())
     outs = [torch.empty(s, dtype=f32, device=dev)
             for s in ((R, 3), (R, 3), (R,), (R,), (R,))]
     io = [rays_o.data_ptr(), rays_d.data_ptr(), t_row.data_ptr(),

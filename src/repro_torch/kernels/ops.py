@@ -360,11 +360,11 @@ def sample_rows(cfg: NerfConfig, device) -> tuple:
 
 def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
                           ert_eps: float = 0.0, rt: Optional[int] = None,
-                          alive=None) -> dict:
+                          alive=None, phase_cycles=None) -> dict:
     """The whole coarse -> importance -> fine render through K2, one
-    launch. ``packed``: {"coarse", "fine"} layouts. Returns {rgb,
-    rgb_coarse, acc, acc_coarse, depth}; white background is the caller's
-    composite."""
+    launch. ``packed``: {"coarse", "fine"} layouts; ``phase_cycles`` as
+    ``two_pass_plcore_call``'s. Returns {rgb, rgb_coarse, acc, acc_coarse,
+    depth}; white background is the caller's composite."""
     _DISPATCHES.inc()
     dev = rays_o.device
     if rt is None:
@@ -378,6 +378,7 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
         cfg, packed["coarse"], packed["fine"], rays_o.contiguous(),
         rays_d.contiguous(), t_row, u_row, rt=rt,
         ert_eps=float(ert_eps),
-        alive=None if alive is None else alive.to(torch.float32).contiguous())
+        alive=None if alive is None else alive.to(torch.float32).contiguous(),
+        phase_cycles=phase_cycles)
     return {"rgb": rgb, "rgb_coarse": rgb_c, "acc": acc,
             "acc_coarse": acc_c, "depth": depth}

@@ -52,7 +52,11 @@ Prints the loadgen report as JSON; ``--check`` gates it (see
 request and tile lifecycle (1 request chain in ``--trace-sample``; tiles
 always) and writes it as Chrome trace-event JSON, with the span-chain
 validator's verdict and, on the card, the device busy share from the
-tiles' ``tile.kernel`` spans in the report; ``--metrics-out PATH`` writes
+tiles' ``tile.kernel`` spans (``device_busy``) and where K2 spent its
+cycles (``plcore_two_pass_phase_share``: the MLP layers, the waits for
+the weight ring, the resample and the fp32 scalar work, each in percent of
+K2's cycles, from its traced instance; None on the CPU) in the report;
+``--metrics-out PATH`` writes
 the engine's and the process-wide registries as Prometheus text.
 
 ``--mode lm`` serves a batch of prompts on an LM arch (``--arch``, one
@@ -128,8 +132,9 @@ from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models.model_zoo import build_model
 from repro_torch.models.params import init_params
 from repro_torch.obs import (SpanTracer, device_busy, global_registry,
-                             prometheus_text, validate_chrome_trace,
-                             validate_trace, write_chrome_trace)
+                             phase_share, prometheus_text,
+                             validate_chrome_trace, validate_trace,
+                             write_chrome_trace)
 
 
 def write_ppm(path: str, img: torch.Tensor) -> None:
@@ -567,7 +572,9 @@ def export_observability(args, engine, tracer) -> dict:
     validator's verdict on the tracer (``integrity``) and on the written
     file (``chrome_integrity``), and the device busy share
     (``device_busy``: the union of the ``tile.kernel`` spans over the
-    traced window; ``busy_share`` None on the CPU)."""
+    traced window; ``busy_share`` None on the CPU) and K2's cycles by
+    phase (``plcore_two_pass_phase_share``, ``obs.export.phase_share``;
+    None on the CPU)."""
     out = {}
     if tracer is not None:
         tpath = Path(args.trace_out)
@@ -578,6 +585,7 @@ def export_observability(args, engine, tracer) -> dict:
         out["chrome_integrity"] = validate_chrome_trace(
             json.loads(tpath.read_text()))
         out["device_busy"] = device_busy(tracer)
+        out["plcore_two_pass_phase_share"] = phase_share(engine.stats)
         out["trace_out"] = str(tpath)
     if args.metrics_out:
         mpath = Path(args.metrics_out)

@@ -5,14 +5,15 @@ exporters (``export``): Chrome trace-event JSON, Prometheus text, JSON
 snapshots, the span-chain integrity validator behind ``serve --check``,
 and the card's busy share from the tiles' device spans."""
 from repro_torch.obs.export import (chrome_trace, device_busy,
-                                    prometheus_text, snapshot,
+                                    phase_share, prometheus_text, snapshot,
                                     validate_chrome_trace, validate_trace,
                                     write_chrome_trace)
 from repro_torch.obs.metrics import (CLUSTER_STATS_SCHEMA,
                                      ENGINE_STATS_SCHEMA,
                                      PERCELL_STATS_SCHEMA,
                                      ROUTING_STATS_SCHEMA,
-                                     SAMPLING_STATS_SCHEMA, CountsView,
+                                     K2_PHASES, SAMPLING_STATS_SCHEMA,
+                                     TRACE_STATS_SCHEMA, CountsView,
                                      EngineMetrics, Histogram,
                                      MetricsRegistry, StatsView,
                                      engine_stats_view, extend_stats_view,
@@ -24,7 +25,7 @@ __all__ = ["SpanTracer", "NullTracer", "NULL_TRACER", "Span",
            "engine_stats_view", "extend_stats_view", "global_registry",
            "log_buckets", "ENGINE_STATS_SCHEMA", "CLUSTER_STATS_SCHEMA",
            "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
-           "PERCELL_STATS_SCHEMA",
+           "PERCELL_STATS_SCHEMA", "TRACE_STATS_SCHEMA", "K2_PHASES",
            "CountsView", "chrome_trace", "write_chrome_trace",
            "prometheus_text", "snapshot", "validate_trace",
-           "validate_chrome_trace", "device_busy"]
+           "validate_chrome_trace", "device_busy", "phase_share"]

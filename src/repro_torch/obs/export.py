@@ -27,19 +27,20 @@ an exported JSON file (the CI artifact check), so a schema drift
 between exporter and validator cannot pass silently.
 
 ``device_busy`` reads the card's busy share from the ``tile.kernel``
-spans (the port's addition; the validator ignores their name).
+spans (the port's addition; the validator ignores their name), and
+``phase_share`` K2's cycles by phase from a traced engine's stats.
 """
 from __future__ import annotations
 
 import json
 from typing import Dict, List, Optional
 
-from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.metrics import K2_PHASES, MetricsRegistry
 from repro_torch.obs.trace import Span, SpanTracer
 
 __all__ = ["chrome_trace", "write_chrome_trace", "prometheus_text",
            "snapshot", "validate_trace", "validate_chrome_trace",
-           "device_busy"]
+           "device_busy", "phase_share"]
 
 # Thread-track ids per span category (device-compute spans use
 # 10 + slot instead, one track per executor slot; a tile's interval on
@@ -315,3 +316,15 @@ def device_busy(tracer_or_spans) -> dict:
         busy += cur[1] - cur[0]
     return {"kernel_spans": len(kern), "busy_s": busy, "window_s": window,
             "busy_share": (busy / window if kern and window > 0 else None)}
+
+
+def phase_share(stats) -> Optional[dict]:
+    """Where K2 spent its cycles, from a traced engine's stats: each phase
+    of ``K2_PHASES`` but the total, in percent of the blocks' total cycles
+    (the rest lies outside every phase). None when the stats have no
+    trace block or K2's traced instance counted nothing (the CPU)."""
+    total = stats.get("plcore_two_pass_cycles_total")
+    if not total:
+        return None
+    return {p: 100.0 * stats[f"plcore_two_pass_cycles_{p}"] / total
+            for p in K2_PHASES[:-1]}

@@ -38,7 +38,8 @@ __all__ = [
     "StatsView", "CountsView", "log_buckets", "global_registry",
     "engine_stats_view", "extend_stats_view", "ENGINE_STATS_SCHEMA",
     "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
-    "PERCELL_STATS_SCHEMA", "EngineMetrics",
+    "PERCELL_STATS_SCHEMA", "TRACE_STATS_SCHEMA", "K2_PHASES",
+    "EngineMetrics",
     "TIME_BUCKETS",
     "DEPTH_BUCKETS",
 ]
@@ -331,6 +332,39 @@ PERCELL_STATS_SCHEMA = (
      "distinct cells that have executed a tile"),
 )
 
+# The slots of a block's row of K2's phase cycles (``kernels.fused_plcore``),
+# each summed over the block's two warpgroups: the MLP layers without their
+# waits for the weight ring, those waits, the resample, the fp32 scalar
+# work (encoding, exact heads, direction part of the color layer, VRU), and
+# every cycle from the block's entry to its exit.
+K2_PHASES = ("mlp", "ring_wait", "resample", "scalar", "total")
+
+# The trace block, bound by ``extend_stats_view`` only when an engine has a
+# real tracer (``SpanTracer``), so the default stats keep their keys. The
+# cycle counters sum K2's traced instance's phase rows over the drained
+# tiles (``K2_PHASES``; zero off the card); host_wait_s is the time the
+# engine's thread waits on the card in the drain; backlog_tiles_at_admit
+# sums, over the admitted submits, the tiles the view finds ahead of it:
+# the queue's rays still to coalesce over tile_rays, rounded up, plus the
+# tiles in flight.
+TRACE_STATS_SCHEMA = (
+    ("plcore_two_pass_cycles_mlp", "counter", 0,
+     "K2 cycles in the MLP layers, ring waits excluded"),
+    ("plcore_two_pass_cycles_ring_wait", "counter", 0,
+     "K2 cycles waiting for the weight ring's bytes"),
+    ("plcore_two_pass_cycles_resample", "counter", 0,
+     "K2 cycles in the CDF, inverse-CDF search and sorted merge"),
+    ("plcore_two_pass_cycles_scalar", "counter", 0,
+     "K2 cycles in the encoding, exact heads, direction part and VRU"),
+    ("plcore_two_pass_cycles_total", "counter", 0,
+     "K2 cycles from block entry to exit"),
+    ("host_wait_s", "counter", 0.0,
+     "seconds the engine's thread waits on the card in the drain"),
+    ("admitted_views", "counter", 0, "admitted submits"),
+    ("backlog_tiles_at_admit", "counter", 0,
+     "tiles queued or in flight ahead of each admitted submit, summed"),
+)
+
 # The adaptive-sampling block, bound by ``extend_stats_view`` only when an
 # engine runs with ``adaptive_sampling``, so the default stats keep their
 # keys. The gauge ``dead_ray_fraction`` exports as
@@ -492,6 +526,6 @@ def engine_stats_view(registry: MetricsRegistry) -> StatsView:
 def extend_stats_view(view: StatsView, schema) -> StatsView:
     """Append a schema block (``SAMPLING_STATS_SCHEMA``,
     ``ROUTING_STATS_SCHEMA``, ``PERCELL_STATS_SCHEMA``,
-    ``CLUSTER_STATS_SCHEMA``) to an existing
+    ``CLUSTER_STATS_SCHEMA``, ``TRACE_STATS_SCHEMA``) to an existing
     view: same registry, same write-through binding."""
     return view.bind_schema(schema)

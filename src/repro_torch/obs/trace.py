@@ -17,6 +17,12 @@ INSTANT events in one bounded ring. Design constraints, in order:
 * **Cheap when off.** ``NULL_TRACER`` no-ops every call; instrumented
   code tests ``tracer.enabled`` only where it would otherwise do real
   work (building attribute dicts).
+* **On the profiler's clock.** ``range`` records a span over a block of
+  code and holds a ``torch.profiler.record_function`` of the same name
+  open around it, so a device trace taken meanwhile shows the engine's
+  layers where they ran (the engine's ranges: ``engine.submit``,
+  ``scheduler.next_tile``, ``plcore.dispatch``, ``executor.drain``,
+  ``completion.scatter``).
 
 Span taxonomy: ``request.*`` lifecycle, ``tile.*`` per-dispatch chain
 (coalesce -> dispatch -> device_compute -> drain -> scatter, with retry /
@@ -29,9 +35,12 @@ of the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from typing import Dict, List, Optional
+
+import torch
 
 __all__ = ["Span", "SpanTracer", "NullTracer", "NULL_TRACER"]
 
@@ -82,6 +91,9 @@ class NullTracer:
     def complete(self, name, t0, cat="engine", t1=None, **attrs):
         return None
 
+    def range(self, name, cat="engine", **attrs):
+        return _NULL_RANGE
+
     def sampled_request(self, rid: int) -> bool:
         return False
 
@@ -93,6 +105,7 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+_NULL_RANGE = contextlib.nullcontext()
 
 
 class SpanTracer:
@@ -163,6 +176,20 @@ class SpanTracer:
                     self.clock() if t1 is None else t1, attrs)
         self._commit(span)
         return span
+
+    @contextlib.contextmanager
+    def range(self, name: str, cat: str = "engine", **attrs):
+        """A span over the ``with`` block, on the tracer's clock, inside a
+        profiler range of the same name. Yields the span's attribute dict,
+        which the block may add to; the span is committed when the block
+        exits, as ``complete`` commits one."""
+        with torch.profiler.record_function(name):
+            t0 = self.clock()
+            try:
+                yield attrs
+            finally:
+                self._commit(Span(self._next_sid(), name, cat, "X", t0,
+                                  self.clock(), attrs))
 
     # ------------------------------------------------------------ read ----
     def sampled_request(self, rid: int) -> bool:

@@ -94,9 +94,20 @@ around its render, placed on the tracer's clock by one anchor event
 recorded on the idle device before the engine's first tile. The union of
 these spans over the traced window is the card's busy share
 (``obs.export.device_busy``); a CPU trace has none.
+
+A traced engine also opens ranges (``SpanTracer.range``: a span and a
+profiler range of the same name) at its layers' borders:
+``engine.submit`` (``TileScheduler.submit``), ``scheduler.next_tile``,
+``plcore.dispatch`` (``PackedPlcore.dispatch_tile``), ``executor.drain``
+(a slot's drain) and ``completion.scatter``; and binds the trace block
+of its stats (``TRACE_STATS_SCHEMA``): K2's phase cycles from the traced
+instance's buffer on the card, the seconds its thread waits on the card
+in the drain (``host_wait_s``), and the backlog each admitted view finds
+(``admitted_views``, ``backlog_tiles_at_admit``).
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -106,9 +117,10 @@ import numpy as np
 import torch
 
 from repro_torch.data import rays as R
-from repro_torch.obs.metrics import (PERCELL_STATS_SCHEMA,
+from repro_torch.obs.metrics import (K2_PHASES, PERCELL_STATS_SCHEMA,
                                      ROUTING_STATS_SCHEMA,
-                                     SAMPLING_STATS_SCHEMA, MetricsRegistry,
+                                     SAMPLING_STATS_SCHEMA,
+                                     TRACE_STATS_SCHEMA, MetricsRegistry,
                                      engine_stats_view, extend_stats_view)
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving.faults import FaultPlan, InjectedDispatchError
@@ -116,6 +128,21 @@ from repro_torch.serving.scene_cache import SceneCache, SceneLoadError
 
 #: Terminal request statuses (see module docstring).
 STATUSES = ("ok", "degraded", "partial", "expired", "rejected")
+
+
+def _layer_range(name: str):
+    """Run the method inside ``self.tracer.range(name)`` when the tracer
+    is real (module docstring, Tracing)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def ranged(self, *args, **kwargs):
+            tr = self.tracer
+            if not tr.enabled:
+                return fn(self, *args, **kwargs)
+            with tr.range(name):
+                return fn(self, *args, **kwargs)
+        return ranged
+    return wrap
 
 
 @dataclass(frozen=True)
@@ -380,10 +407,16 @@ class TileScheduler:
                 or self.tile_service_prior_s)
         if not ewma:
             return None
-        backlog = -(-sum(a.remaining for a in self.queue) // self.tile_rays)
-        in_flight = self.executor.in_flight if self.executor else 0
-        return (backlog + in_flight) * ewma
+        return self._backlog_tiles() * ewma
 
+    def _backlog_tiles(self) -> int:
+        """The tiles ahead of a new request: the queue's rays still to
+        coalesce over ``tile_rays``, rounded up, plus the tiles in
+        flight."""
+        backlog = -(-sum(a.remaining for a in self.queue) // self.tile_rays)
+        return backlog + (self.executor.in_flight if self.executor else 0)
+
+    @_layer_range("engine.submit")
     def submit(self, req: RenderRequest) -> int:
         """Enqueue a request; returns its request id. A request refused by
         admission control still gets an id: its terminal ``rejected``
@@ -423,6 +456,9 @@ class TileScheduler:
         if a.trace_span is not None:
             tr.event("request.admit", cat="request", request=rid,
                      queue_depth=len(self.queue))
+        if tr.enabled and "admitted_views" in self.stats:
+            self.stats["admitted_views"] += 1
+            self.stats["backlog_tiles_at_admit"] += self._backlog_tiles()
         self.queue.append(a)
         m = getattr(self.stats, "m", None)
         if m is not None:
@@ -576,6 +612,7 @@ class TileScheduler:
                      else ar.budgets[0])
         return bucket, budget, len(ar.budgets) + 1
 
+    @_layer_range("scheduler.next_tile")
     def next_tile(self) -> Optional[_Tile]:
         """Coalesce ONE tile from the best loadable scene's pending
         requests in rank order; ``None`` when nothing is schedulable."""
@@ -1002,9 +1039,27 @@ class TileExecutor:
         self._finish_slot(*self._slots.popleft())
         return True
 
+    def _note_wait(self, handle, waited_s: float) -> None:
+        """A traced drain's wait on the card and, from K2's traced
+        instance, its phase cycles, into the trace block of the stats."""
+        st = self.stats
+        if "host_wait_s" not in st:
+            return
+        st["host_wait_s"] += waited_s
+        cycles = handle.phase_cycles()
+        if cycles is not None:
+            for phase, n in zip(K2_PHASES, cycles):
+                st[f"plcore_two_pass_cycles_{phase}"] += n
+
+    @_layer_range("executor.drain")
     def _finish_slot(self, tile, handle, t0, extra, sp) -> None:
-        arr = handle.result()
         tr = self.tracer
+        if tr.enabled:
+            t_wait = self._clock()
+            arr = handle.result()
+            self._note_wait(handle, self._clock() - t_wait)
+        else:
+            arr = handle.result()
         tr.end(sp)
         if tr.enabled:
             self._device_span(tile, handle)
@@ -1094,6 +1149,7 @@ class CompletionSink:
         self.completed: Dict[int, RenderResult] = {}
         self.completion_order: List[int] = []
 
+    @_layer_range("completion.scatter")
     def scatter(self, tile: _Tile, rgb: np.ndarray) -> None:
         t0 = self._clock()
         off = 0
@@ -1259,8 +1315,10 @@ class RenderEngine:
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.stats = engine_stats_view(self.registry)
-        # the routing and per-cell blocks are bound only when armed, so the
-        # default stats keep their keys
+        # the routing, per-cell and trace blocks are bound only when armed,
+        # so the default stats keep their keys
+        if self.tracer.enabled:
+            extend_stats_view(self.stats, TRACE_STATS_SCHEMA)
         if route_by_shard:
             extend_stats_view(self.stats, ROUTING_STATS_SCHEMA)
         if percell_dispatch:

@@ -22,10 +22,10 @@ from repro_torch.core.pipeline import PackedPlcore, TileHandle
 from repro_torch.core.plcore import plcore_decls
 from repro_torch.kernels import fused_plcore, ops
 from repro_torch.models.params import init_params
-from repro_torch.obs import (CountsView, MetricsRegistry, Span, SpanTracer,
-                             chrome_trace, device_busy, global_registry,
-                             prometheus_text, snapshot,
-                             validate_chrome_trace, validate_trace)
+from repro_torch.obs import (K2_PHASES, CountsView, MetricsRegistry, Span,
+                             SpanTracer, chrome_trace, device_busy,
+                             global_registry, phase_share, prometheus_text,
+                             snapshot, validate_chrome_trace, validate_trace)
 from repro_torch.serving import (FaultConfig, FaultPlan, RenderEngine,
                                  RenderRequest, SceneCache)
 
@@ -286,6 +286,18 @@ def test_device_busy_is_the_union_over_the_window():
     assert out["busy_s"] == pytest.approx(4.0)
     assert out["window_s"] == pytest.approx(10.0)
     assert out["busy_share"] == pytest.approx(0.4)
+
+
+def test_phase_share_reads_the_trace_block():
+    """``serve --trace-out``'s ``plcore_two_pass_phase_share``: each phase
+    of K2's cycles but the total, in percent of the total; None without
+    the trace block or before K2's traced instance counted anything."""
+    st = {f"plcore_two_pass_cycles_{p}": n for p, n in
+          zip(K2_PHASES, (400, 100, 50, 250, 1000))}
+    assert phase_share(st) == {"mlp": 40.0, "ring_wait": 10.0,
+                               "resample": 5.0, "scalar": 25.0}
+    assert phase_share({**st, "plcore_two_pass_cycles_total": 0}) is None
+    assert phase_share({"dispatches": 3}) is None
 
 
 def test_tracer_complete_takes_an_end_time():

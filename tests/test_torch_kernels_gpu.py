@@ -2,7 +2,7 @@
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
 (bf16x3), at every built width pair and with a coarse and a fine network
 of different formats, K2 also at the adaptive budgets Nf = 8, 32, 64 with
-dead rows; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+dead rows, and K2's traced instance against the untraced one; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's. Then NeRF training
 on the card: one QAT train step at the full width against the same step
@@ -150,6 +150,54 @@ def test_k2_at_adaptive_budgets_on_card(n_fine, quantized):
     for i, (a, b) in enumerate(zip(k, p)):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-2 if i == 4 else 5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+def test_k2_traced_instance_on_card(quantized):
+    """K2's traced instance at full width on one 4,096-ray tile: its five
+    outputs equal the untraced instance's bit for bit, every phase counter
+    is positive and the four phases sum to at most the blocks' total; a
+    traced ``dispatch_tile`` brings the counters back with the untraced
+    dispatch's pixels, an untraced one none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.pipeline import PackedPlcore
+    from repro_torch.obs import K2_PHASES, SpanTracer
+    dev = torch.device("cuda")
+    cfg = CONFIG
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(2))
+    quant = ({n: rmcm.quantize_tree(params[n]) for n in ("coarse", "fine")}
+             if quantized else None)
+    pp = PackedPlcore(cfg, params, quant=quant, use_kernel=True,
+                      fuse_two_pass=True, device=dev)
+    o, d = _rays(4096, seed=7)
+    ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    untraced = ops.fused_render_two_pass(cfg, pp.packed, ot, dt)
+    shape = (len(o), len(K2_PHASES))
+    phase = torch.zeros(shape, dtype=torch.int64, pin_memory=True)
+    traced = ops.fused_render_two_pass(cfg, pp.packed, ot, dt,
+                                       phase_cycles=phase)
+    torch.cuda.synchronize()
+    for key, v in untraced.items():
+        assert torch.equal(v, traced[key]), key
+    with pytest.raises(ValueError, match="pinned"):
+        ops.fused_render_two_pass(cfg, pp.packed, ot, dt,
+                                  phase_cycles=torch.zeros(shape,
+                                                           dtype=torch.int64))
+
+    def check(cycles):
+        c = dict(zip(K2_PHASES, cycles))
+        assert all(v > 0 for v in c.values()), c
+        assert sum(c[p] for p in K2_PHASES[:-1]) <= c["total"], c
+
+    check(phase.sum(0).tolist())
+    h0, _ = pp.dispatch_tile(o, d)
+    h1, _ = pp.dispatch_tile(o, d, tracer=SpanTracer())
+    assert np.array_equal(h0.result(), h1.result())
+    assert h0.phase_cycles() is None
+    check(h1.phase_cycles())
 
 # the width pairs the kernels are built for beyond the full NerfConfig:
 # tiny() and the reference kernel tests' sweep (tests/test_kernels.py)

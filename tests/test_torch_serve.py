@@ -44,6 +44,21 @@ def test_serve_engine_check_clean():
     assert rep["check_compared"] == {"depth1": 8}
 
 
+def test_serve_engine_trace_out_holds_the_layer_ranges(tmp_path):
+    """``--trace-out``: the written trace holds the engine's five layer
+    ranges beside the tile chain, the integrity gate passes with them, and
+    the report's K2 phase share is None on the CPU."""
+    import json
+    path = tmp_path / "trace.json"
+    rep = serve.main(_engine_argv("--trace-out", str(path)))
+    obs = rep["observability"]
+    assert obs["integrity"]["ok"] and obs["chrome_integrity"]["ok"]
+    assert obs["plcore_two_pass_phase_share"] is None
+    names = {e["name"] for e in json.loads(path.read_text())["traceEvents"]}
+    assert {"engine.submit", "scheduler.next_tile", "plcore.dispatch",
+            "executor.drain", "completion.scatter"} <= names
+
+
 def test_serve_engine_check_under_chaos():
     """Every recovery that a tile's result or a scene load triggered traces
     back to an injected fault, and the check held the ok images against a

@@ -582,7 +582,11 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
     Nc, Nf = cfg.n_coarse, cfg.n_fine
     per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, Nf), (0, 0), DEV)
     rt = ops.pick_ray_tile(R, DEV, per_sm)
-    assert rt > 1 and R % rt != 0, ("no multi-ray ragged tiling", R, rt)
+    # K2's tile: even where it takes its rays in pairs
+    rt2 = ops.pick_ray_tile(R, DEV, per_sm,
+                            pairs=fused_plcore.k2_pairs(Nc, Nf))
+    assert min(rt, rt2) > 1 and R % rt and R % rt2, (
+        "no multi-ray ragged tiling", R, rt, rt2)
     alive = (torch.arange(R, device=DEV) % 3 != 0).to(torch.float32)
     rows = ops.sample_rows(cfg, DEV)
     nets = {q: packed_nets(cfg, params, q) for q in (False, True)}
@@ -639,7 +643,7 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
         return hold(K2, f"K2 rmcm={quantized} ert={eps} alive-mask="
                     f"{mask is not None}",
                     lambda: fused_plcore.two_pass_plcore_call(
-                        *k2, rt=rt, ert_eps=eps, alive=mask),
+                        *k2, rt=rt2, ert_eps=eps, alive=mask),
                     lambda: ref.two_pass_ref(*plain, rt=PLAIN_RT, ert_eps=eps,
                                              alive=mask),
                     (tol, tol, tol, tol, 1e-2), timed=timed)
@@ -669,7 +673,8 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
               K2 + ".rmcm": plcore_bounds(cfg, R, Nc + Nt, 2, k2_bytes[True],
                                           True, peaks)}
     print(f"checked and timed at {R} rays (one {HW}x{HW} view), ray tile "
-          f"{rt} (last tile {R % rt} rays, {per_sm} K2 block(s) per SM), K1 "
+          f"{rt}, K2's {rt2} (last tiles {R % rt} and {R % rt2} rays, "
+          f"{per_sm} K2 block(s) per SM), K1 "
           f"timed at N={Nt}; peaks TFLOP/s "
           f"{ {k: round(v / 1e12, 2) for k, v in peaks.items()} }",
           flush=True)
@@ -1007,7 +1012,8 @@ def budget_phase(cfg, params, peaks: dict) -> dict:
         for q in (False, True):
             per_sm = fused_plcore.blocks_per_sm(cfg_b, "k2", (Nc, Nf),
                                                 (q, q), DEV)
-            rt = ops.pick_ray_tile(R, DEV, per_sm)
+            rt = ops.pick_ray_tile(R, DEV, per_sm,
+                                   pairs=fused_plcore.k2_pairs(Nc, Nf))
             k2 = (cfg_b, nets[q]["coarse"], nets[q]["fine"], o, d, *rows)
             plain = (cfg_b, plain_nets[q]["coarse"], plain_nets[q]["fine"],
                      o, d, *rows)
@@ -1361,7 +1367,8 @@ def width_phase(peaks: dict) -> dict:
         for qc, qf in formats:
             per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, cfg.n_fine),
                                                 (qc, qf), DEV)
-            rt = ops.pick_ray_tile(R, DEV, per_sm)
+            rt = ops.pick_ray_tile(R, DEV, per_sm, pairs=fused_plcore.k2_pairs(
+                Nc, cfg.n_fine))
             k2 = (cfg, nets[qc]["coarse"], nets[qf]["fine"], o, d, *grids)
             plain = (cfg, plain_nets[qc]["coarse"], plain_nets[qf]["fine"],
                      o, d, *grids)
@@ -1841,7 +1848,8 @@ def train_phase(cfg, peaks: dict, steps: int = TRAIN_STEPS) -> dict:
         plain_nets = {n: {k: v for k, v in nets[n].items() if k != "mma"}
                       for n in nets}
         per_sm = fused_plcore.blocks_per_sm(cfg, "k2", (Nc, Nf), (q, q), DEV)
-        rt = ops.pick_ray_tile(R, DEV, per_sm)
+        rt = ops.pick_ray_tile(R, DEV, per_sm,
+                               pairs=fused_plcore.k2_pairs(Nc, Nf))
         got = fused_plcore.two_pass_plcore_call(
             cfg, nets["coarse"], nets["fine"], o, d, *rows, rt=rt,
             ert_eps=0.0)

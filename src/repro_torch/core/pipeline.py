@@ -49,7 +49,7 @@ from repro_torch.core import plcore, sampling, volume
 from repro_torch.core.encoding import nerf_encoding
 from repro_torch.core.mlp import nerf_color_apply, nerf_trunk_apply
 from repro_torch.data import rays as drays
-from repro_torch.obs.metrics import K2_PHASES
+from repro_torch.obs.metrics import K2_ROW_STATS
 
 
 def render_image_single(cfg: NerfConfig, params, rays_o, rays_d, *,
@@ -105,9 +105,10 @@ class TileHandle:
         return self._event is None or self._event.query()
 
     def phase_cycles(self) -> Optional[list]:
-        """K2's cycles per ``obs.metrics.K2_PHASES`` slot, summed
-        over the tile's blocks, or None when the tile did not run the
-        traced instance. Call after ``result()``."""
+        """K2's row per ``obs.metrics.K2_ROW_STATS`` slot (the phase
+        cycles, then the row counts), summed over the tile's blocks, or
+        None when the tile did not run the traced instance. Call after
+        ``result()``."""
         return None if self._phase is None else self._phase.sum(0).tolist()
 
     def device_interval(self, anchor) -> Optional[tuple]:
@@ -320,9 +321,10 @@ class PackedPlcore:
                       budget: Optional[int] = None, alive=None,
                       tracer=None, trace_attrs=None):
         """Enqueue ONE tile and return ``(handle, cost)`` at once. On the
-        card: the rays go up through pinned memory, the render is
-        launched on the current stream, a non-blocking copy of the pixels
-        into a pinned host buffer and a CUDA event follow it, and
+        card: the rays go up through pinned memory in one copy, the render
+        is launched on the current stream (the fused path: K2 alone, which
+        composites the white background itself), a non-blocking copy of
+        the pixels into a pinned host buffer and a CUDA event follow it, and
         ``handle.result()`` waits on that event only. On the CPU the
         handle holds the finished pixels. ``budget``/``alive`` as in
         ``render_tile``; ``cost`` is the weight-gather record,
@@ -360,12 +362,15 @@ class PackedPlcore:
                         "stage_layers": stage["layers"] if staged_now else 0,
                         "stage_bytes": stage["bytes"] if staged_now else 0}
             else:
-                o, d = self._upload(o_tile), self._upload(d_tile)
+                # origins and directions go up in one copy
+                o, d = self._upload(torch.stack((torch.as_tensor(o_tile),
+                                                 torch.as_tensor(d_tile)))
+                                    ).unbind(0)
                 a = None if alive is None else self._upload(alive)
                 phase = None
                 if (traced and self.device.type == "cuda"
                         and self.fuse_two_pass and not coarse_only):
-                    phase = torch.zeros((len(o_tile), len(K2_PHASES)),
+                    phase = torch.zeros((len(o_tile), len(K2_ROW_STATS)),
                                         dtype=torch.int64, pin_memory=True)
                 start = self.tile_start()
                 rgb = self.render_tile(o, d, ert_eps=ert_eps,

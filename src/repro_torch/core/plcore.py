@@ -111,13 +111,10 @@ def render_rays(cfg: NerfConfig, params: dict, rays_o, rays_d,
             pf = kops.kernel_weights(cfg, params["fine"], qf)
         out = kops.fused_render_two_pass(
             cfg, {"coarse": pc, "fine": pf}, rays_o, rays_d,
-            ert_eps=ert_eps, alive=alive, phase_cycles=phase_cycles)
-        rgb_f, rgb_c = out["rgb"], out["rgb_coarse"]
-        if white_bkgd:
-            rgb_f = volume.white_background(rgb_f, out["acc"])
-            rgb_c = volume.white_background(rgb_c, out["acc_coarse"])
-        return {"rgb": rgb_f, "rgb_coarse": rgb_c, "depth": out["depth"],
-                "acc": out["acc"]}
+            ert_eps=ert_eps, alive=alive, phase_cycles=phase_cycles,
+            white_bkgd=white_bkgd)
+        return {"rgb": out["rgb"], "rgb_coarse": out["rgb_coarse"],
+                "depth": out["depth"], "acc": out["acc"]}
 
     # ---- pass 1: coarse --------------------------------------------------
     R = rays_o.shape[:-1]

@@ -85,11 +85,13 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
 
 // K2. ptrs: rays_o, rays_d, t_row, u_row, alive|null, rgb, rgb_c, acc, acc_c,
 // depth, net_c[14], net_f[14], phase|null. With phase rows (pinned host
-// memory, a row of 5 int64 a block: mlp, ring_wait, resample, scalar,
-// total cycles) the traced instance runs and writes each block's row;
-// without, the untraced one.
+// memory, a row of 7 int64 a block: mlp, ring_wait, resample, scalar,
+// total cycles, then the MMA rows and the real sample rows among them)
+// the traced instance runs and writes each block's row; without, the
+// untraced one.
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, Nc, Nf,
-// qc, qf, ert. thr: a ray stays alive while acc_c < thr (under ert).
+// qc, qf, ert, white. thr: a ray stays alive while acc_c < thr (under
+// ert); white: rgb and rgb_c composited onto a white background.
 int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
                     void* stream) {
 #define PLCORE_K2(W, C) \

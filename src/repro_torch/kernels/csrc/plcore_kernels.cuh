@@ -25,14 +25,20 @@
 //   (Q): bf16x3 activations x exact bf16 signed magnitudes, the column
 //   scale, bias and ReLU in the epilogue. f32: 3xTF32 over weights split
 //   into hi/lo at pack time.
-// * A block of two warpgroups owns whole rays and walks its tile one ray
-//   at a time, 128 samples per chunk: each warpgroup takes 64 samples and
-//   every column of a layer (W / 2 f32 accumulators a thread), one wgmma
-//   per split piece and k step spanning them all. The widths are template
+// * A block of two warpgroups owns whole rays and walks its tile in chunks
+//   of 128 sample rows: each warpgroup takes a slab of 64 rows and every
+//   column of a layer (W / 2 f32 accumulators a thread), one wgmma per
+//   split piece and k step spanning them all. The widths are template
 //   parameters, so the wgmma N of every layer is an immediate and the
-//   pipeline has no branch; in a chunk shorter than 128 samples (the
-//   coarse pass; every pass at the small widths) the rows past the ray's
-//   samples are computed and never stored. The activations of a chunk live
+//   pipeline has no branch. A pass whose N samples fill whole slabs but
+//   leave its last chunk half empty (N = 64 mod 128: the 64 coarse and
+//   64 + 128 fine samples) walks two rays at once, the second ray's rows
+//   after the first's, so no MMA row is padding: 2 chunks a ray instead of
+//   3. Every other pass walks one ray at a time, and in a chunk shorter
+//   than 128 samples (every pass at the small widths) the rows past the
+//   ray's samples are computed and never stored. A slab's rows belong to
+//   one ray and a row's arithmetic does not depend on where it runs, so
+//   the outputs do not depend on how rays pair. The activations of a chunk live
 //   in shared memory as (sample x feature) f32 rows; the A fragments are
 //   loaded from there and split as they are loaded, so the pieces never
 //   take shared memory. A layer's output overwrites its input after a
@@ -53,18 +59,25 @@
 //   and the sorted merge. The prefix sums run sequentially per ray, in the
 //   order cumsum adds, with explicitly rounded operations (no FMA
 //   contraction), because the resampler turns last-ulp differences into
-//   moved samples. Coarse weights, sample positions and resample scratch
-//   never leave shared memory.
+//   moved samples; the VRU runs chunk by chunk, carrying its sums, and a
+//   pair's two rays on two threads. Coarse weights, sample positions and
+//   resample scratch never leave shared memory.
 // * With early ray termination or an alive mask, a dead ray skips its
 //   fine pass and keeps its coarse rgb/acc/depth (per ray, no compaction).
+// * K2 may composite its rgb outputs onto white itself (the serving tile's
+//   render), so a tile's render is one launch and no elementwise kernels.
 //
 // Shared memory of one block at full width (W = 256, pe = 63 padded to
-// 64, 64 + 192 samples): the weight ring (5 x 8 KB bf16 or 3 x 16 KB
+// 64, 64 + 128 samples): the weight ring (5 x 8 KB bf16 or 3 x 16 KB
 // TF32), its mbarriers, activations 128 x 264 (bf16x3) or 128 x 260
-// (TF32) f32, position encoding 128 x 72 or 128 x 68 f32, per-sample and
-// resample scratch (11,952 B): 225,024 B (RMCM) or 229,088 B (f32), one
-// block per SM. K2 with two formats takes the TF32 strides (the bf16x3
-// A loads then meet 2-way bank conflicts) and the 48 KB ring: 229,168 B.
+// (TF32) f32, position encoding 128 x 72 or 128 x 68 f32, and K2's
+// per-ray and resample scratch for a pair (9,568 B: per ray its
+// encodings, direction part, sums, samples, coarse weights, CDF and fine
+// positions; a chunk's densities and colors): 222,640 B (RMCM) or 226,704
+// B (f32), one block per SM. K2 with two formats takes the TF32 strides
+// (the bf16x3 A loads then meet 2-way bank conflicts) and the 48 KB ring:
+// 226,784 B; beside them K2 keeps 8 B of static memory (group_now), and
+// its traced instances 128 B more (the phase slots).
 // At the small widths (W <= 64) the ring has 8 slots, two blocks fit on
 // an SM (128 registers a thread), and each k step's products are summed
 // apart and added to the layer's sums with rounded adds (mma_segment). The
@@ -85,7 +98,20 @@ namespace {
 using namespace mma_split;
 
 constexpr int NT = 256;       // threads per block, two warpgroups
-constexpr int S = 128;        // samples per chunk, 64 per warpgroup
+constexpr int S = 128;        // sample rows per chunk
+constexpr int SLAB = S / 2;   // a warpgroup's rows of a chunk
+
+// whether a pass of N samples a ray walks two rays at once: when the rays
+// fill whole slabs (so a warpgroup's rows belong to one ray) and their rows
+// fill fewer chunks than two walks of one ray
+__host__ __device__ constexpr bool pairs(int N) {
+  return N % SLAB == 0 && (2 * N + S - 1) / S < 2 * ((N + S - 1) / S);
+}
+
+// rays whose scratch a K2 block holds at once: two when a pass pairs
+__host__ __device__ constexpr int k2_group(int Nc, int Nf) {
+  return pairs(Nc) || pairs(Nc + Nf) ? 2 : 1;
+}
 
 template <bool Q>
 __host__ __device__ constexpr int kstep() { return Q ? 16 : 8; }
@@ -112,9 +138,11 @@ __host__ __device__ constexpr int min_blocks() { return W >= 256 ? 1 : 2; }
 // (one a k step) reads the clock only when the step's bytes have not
 // landed, and adds up in a register of every thread, which goes to the
 // slots at the MLP borders: a clock pair and a shared-memory update a
-// step cost the warpgroup 2 to 3% of K2's time.
-enum Phase { PH_MLP, PH_RING, PH_RESAMPLE, PH_SCALAR, PH_TOTAL, PH_OUT,
-             PH_LAST = PH_OUT, PH_SLOTS = 8 };
+// step cost the warpgroup 2 to 3% of K2's time. Two counts follow the
+// cycles: the MMA rows the warpgroup computed (64 a chunk) and the real
+// sample rows among them (PH_ROWS_MMA, PH_ROWS_REAL).
+enum Phase { PH_MLP, PH_RING, PH_RESAMPLE, PH_SCALAR, PH_TOTAL, PH_ROWS_MMA,
+             PH_ROWS_REAL, PH_OUT, PH_LAST = PH_OUT, PH_SLOTS = 8 };
 
 __device__ __forceinline__ long long* phase_slots(int wg) {
   __shared__ __align__(128) long long slots[2 * PH_SLOTS];
@@ -147,6 +175,20 @@ __device__ __forceinline__ void lap_mlp(long long& waited) {
     if (phase_leader()) phase_slots(threadIdx.x >> 7)[PH_RING] += waited;
     waited = 0;
     lap<TRACE, PH_MLP>();
+  }
+}
+
+// a chunk of `rows` real sample rows: the warpgroup's 64 MMA rows and its
+// real rows among them
+template <bool TRACE>
+__device__ __forceinline__ void count_rows(int rows) {
+  if constexpr (TRACE) {
+    if (phase_leader()) {
+      const int wg = threadIdx.x >> 7;
+      long long* s = phase_slots(wg);
+      s[PH_ROWS_MMA] += SLAB;
+      s[PH_ROWS_REAL] += min(max(rows - SLAB * wg, 0), SLAB);
+    }
   }
 }
 
@@ -212,26 +254,33 @@ __host__ __device__ inline int stride(int n, bool q) {
   return ((n + 31) & ~31) + (q ? 8 : 4);
 }
 
-// the shared-memory carve-up of one block
+// The shared-memory carve-up of one block. The per-ray scratch holds the
+// block's rays at once (a pair, in K2 when a pass pairs): ray k's at
+// k times the size shown.
 struct Smem {
   uint8_t* ring;    // weight ring: the slots of each network's ring
   uint64_t* full;   // per slot: its bytes landed (a ring per format)
   int* rel;         // per slot: warpgroups done with its step
   int as, ps;   // row strides of act and pe
+  int ds;       // floats of a ray's ped
   float* act;   // S x as: hidden activations of a chunk
   float* pe;    // S x ps: position encoding of a chunk
-  float* ped;   // de: direction encoding of the ray
-  float* cold;  // C: direction part of the color layer
-  float* ray;   // 8: o, d
-  float* res;   // 8: rgb, acc, depth of the last pass
-  float* sig;   // N: raw density per sample
-  float* rgb;   // 3N: color per sample
-  float* wbuf;  // N: VRU weights per sample
-  float* ts;    // N: sample positions
-  float* dl;    // N: sample spacing
-  // two-pass scratch
+  float* ped;   // per ray, de (stride ds): direction encoding
+  float* cold;  // per ray, C: direction part of the color layer
+  float* ray;   // per ray, 8: o, d
+  float* res;   // per ray, 8: rgb, acc, depth of its last pass; VRU carry
+  float* sig;   // a chunk's rows: raw density
+  float* rgb;   // 3 per chunk row: color
+  float* wbuf;  // VRU weights: K1's N; K2's coarse pass, Nc per ray
+  float* ts;    // per ray, N: sample positions
+  float* dl;    // per ray, N: sample spacing
+  // two-pass scratch: the coarse row (tc, dlc) and u-grid, shared by
+  // every ray; per ray, its CDF (Nc) and fine positions (tf, Nf)
   float* tc; float* dlc; float* cdf; float* u; float* tf;
 };
+
+// the VRU's carry in a ray's res slot, besides rgb (0..2) and depth (4)
+enum { RES_ACC = 3, RES_DEPTH = 4, RES_T = 5, RES_CUM = 6 };
 
 __host__ __device__ inline int rup4(int v) { return (v + 3) & ~3; }
 
@@ -249,6 +298,7 @@ __host__ __device__ constexpr size_t ring_bytes() {
              : (size_t)ring_slots<W, QF>() * slot_bytes<W, QF>();
 }
 
+// K1: N samples, Nc = Nf = 0; K2: N = Nc + Nf
 template <int W, bool QC, bool QF>
 __host__ __device__ inline size_t carve(Smem* sm, uint8_t* base,
                                         const Dims& D, int N, int Nc,
@@ -257,6 +307,8 @@ __host__ __device__ inline size_t carve(Smem* sm, uint8_t* base,
   constexpr size_t RB = ring_bytes<W, QC, QF>();
   // the bf16x3 strides only when every pass is bf16x3
   constexpr bool QS = QC && QF;
+  const int nray = Nf > 0 ? k2_group(Nc, Nf) : 1;
+  const int chunk_rows = nray * N < S ? nray * N : S;
   uint8_t* ring = base;
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + RB);
   int* rel = reinterpret_cast<int*>(bars + NB);
@@ -270,22 +322,23 @@ __host__ __device__ inline size_t carve(Smem* sm, uint8_t* base,
   s.rel = rel;
   s.as = stride(rows, QS);
   s.ps = stride(D.kpe, QS);
+  s.ds = rup4(D.de);
   s.act = take(S * s.as);
   s.pe = take(S * s.ps);
-  s.ped = take(D.de);
-  s.cold = take(D.C);
-  s.ray = take(8);
-  s.res = take(8);
-  s.sig = take(N);
-  s.rgb = take(3 * N);
-  s.wbuf = take(N);
-  s.ts = take(N);
-  s.dl = take(N);
+  s.ped = take(nray * s.ds);
+  s.cold = take(nray * D.C);
+  s.ray = take(nray * 8);
+  s.res = take(nray * 8);
+  s.sig = take(chunk_rows);
+  s.rgb = take(3 * chunk_rows);
+  s.wbuf = take(Nf > 0 ? nray * Nc : N);
+  s.ts = take(nray * N);
+  s.dl = take(nray * N);
   s.tc = take(Nc);
   s.dlc = take(Nc);
-  s.cdf = take(Nc);
+  s.cdf = take(nray * Nc);
   s.u = take(Nf);
-  s.tf = take(Nf);
+  s.tf = take(nray * Nf);
   if (sm) *sm = s;
   return RB + 16 * NB + (size_t)(p - fbase) * sizeof(float);
 }
@@ -519,19 +572,6 @@ __device__ __forceinline__ void encode(float x, int a, int n_freqs, float* out,
   }
 }
 
-// normalized direction -> ped (every thread of the block calls it)
-__device__ void encode_dir(const Dims& D, Smem& sm) {
-  if (threadIdx.x < 3) {
-    const float* d = sm.ray + 3;
-    const float ss = __fadd_rn(__fadd_rn(__fmul_rn(d[0], d[0]),
-                                         __fmul_rn(d[1], d[1])),
-                               __fmul_rn(d[2], d[2]));
-    const float dn = __fmul_rn(d[threadIdx.x], rsqrtf(ss));
-    encode(dn, threadIdx.x, D.dir_freqs, sm.ped, 1, 0);
-  }
-  __syncthreads();
-}
-
 // k steps of one network's stream per chunk, and the first of color0's
 template <bool Q>
 __device__ __forceinline__ void stream_steps(const Dims& D, int* per_chunk,
@@ -542,44 +582,111 @@ __device__ __forceinline__ void stream_steps(const Dims& D, int* per_chunk,
   *per_chunk = *color_from + nkh;
 }
 
-// One PEU -> MLP -> VRU pass of one ray over N samples at ts / dl. Leaves
-// rgb, acc, depth in sm.res and the per-sample weights in sm.wbuf. Every
-// thread of the block calls it. TRACE: the MLP layers (with their
-// epilogues and barriers) go to PH_MLP, their ring waits to PH_RING, the
-// encoding, the exact heads, the direction part of the color layer and
-// the VRU to PH_SCALAR.
+// The rays of one pass: nr (1, or 2 when pairs(N)) of the block's, from
+// ray k0, N samples each. Ray k's positions and spacing are at ts and dl
+// + k * tstride (tstride 0: one row for every ray); with w, the VRU writes
+// its per-sample weights to w + k * N.
+struct Walk {
+  const float* ts;
+  const float* dl;
+  float* w;
+  int tstride, N, k0, nr;
+
+  // the walk's rows, and the real ones in the chunk from row c0
+  __device__ __forceinline__ int total() const { return nr * N; }
+  __device__ __forceinline__ int rows(int c0) const {
+    return min(S, total() - c0);
+  }
+  // the walk's ray j of row p
+  __device__ __forceinline__ int ray_of(int p) const {
+    return min(p / N, nr - 1);
+  }
+};
+
+// The VRU over the rows c0 .. c0 + rows - 1 of a walk (sig and rgb hold
+// them): T_{i+1} = exp(cumsum x), w_i = T_i - T_{i+1}, sequential per ray
+// on lane 0 of warp j for the walk's ray j, which carries T, the cumsum,
+// rgb and depth in the ray's res slot from one chunk to the next and
+// leaves acc there after the ray's last sample.
+__device__ __forceinline__ void vru_rows(Smem& sm, const Walk& wk, int c0,
+                                         int rows) {
+  const int j = threadIdx.x >> 5, N = wk.N;
+  if ((threadIdx.x & 31) != 0 || j >= wk.nr) return;
+  const int p0 = max(c0, j * N), p1 = min(c0 + rows, (j + 1) * N);
+  if (p0 >= p1) return;
+  const int k = wk.k0 + j;
+  float* v = sm.res + 8 * k;
+  const float* ts = wk.ts + k * wk.tstride;
+  const float* dl = wk.dl + k * wk.tstride;
+  const bool first = p0 == j * N;
+  float Ti = first ? 1.f : v[RES_T], cum = first ? 0.f : v[RES_CUM];
+  float r0 = first ? 0.f : v[0], r1 = first ? 0.f : v[1];
+  float r2 = first ? 0.f : v[2], dep = first ? 0.f : v[RES_DEPTH];
+  for (int p = p0; p < p1; ++p) {
+    const int n = p - j * N, s = p - c0;
+    const float x = __fmul_rn(-fmaxf(sm.sig[s], 0.f), dl[n]);
+    cum = __fadd_rn(cum, x);
+    const float Tn = expf(cum);
+    const float w = __fsub_rn(Ti, Tn);
+    if (wk.w) wk.w[k * N + n] = w;
+    r0 = fmaf(w, sm.rgb[3 * s + 0], r0);
+    r1 = fmaf(w, sm.rgb[3 * s + 1], r1);
+    r2 = fmaf(w, sm.rgb[3 * s + 2], r2);
+    dep = fmaf(w, ts[n], dep);
+    Ti = Tn;
+  }
+  v[0] = r0; v[1] = r1; v[2] = r2;
+  v[RES_DEPTH] = dep;
+  v[RES_T] = Ti;
+  v[RES_CUM] = cum;
+  if (p1 == (j + 1) * N) v[RES_ACC] = __fsub_rn(1.f, Ti);
+}
+
+// One PEU -> MLP -> VRU pass over the walk's rays. Their rows follow one
+// another, ray after ray: row p is sample p - jN of the walk's ray j = p /
+// N. A chunk holds 128 rows, 64 a warpgroup, and a warpgroup's rows belong
+// to one ray (a pair's N is a multiple of 64), so a row's arithmetic is
+// the same as in a walk of its ray alone. A lone ray's last chunk may be
+// short: the rows past N are computed and never stored. Leaves each ray's
+// rgb, acc and depth in its res slot. Every thread of the block calls it.
+// TRACE: the MLP layers (with their epilogues and barriers) go to PH_MLP,
+// their ring waits to PH_RING, the encoding, the exact heads, the
+// direction part of the color layer and the VRU to PH_SCALAR; each chunk
+// counts its rows.
 template <int W, int C, bool Q, bool TRACE = false>
 __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
-                         Ring<W, Q>& rg, const float* ts, const float* dl,
-                         int N) {
+                         Ring<W, Q>& rg, const Walk& wk) {
   const int tid = threadIdx.x;
   const int as = sm.as, ps = sm.ps;
   const int nkh = W / kstep<Q>(), nkp = D.kpe / kstep<Q>();
-  const float* o = sm.ray;
-  const float* d = sm.ray + 3;
+  rg.begin(net.stream, rg.per_chunk * ((wk.total() + S - 1) / S));
 
-  // direction part of the color layer, once per ray and network
-  for (int j = tid; j < C; j += NT) {
+  // direction part of the color layer, once per ray and network (the
+  // ring's first steps land meanwhile)
+  for (int idx = tid; idx < wk.nr * C; idx += NT) {
+    const int k = wk.k0 + idx / C, j = idx % C;
     const float scl = Q ? net.color.scl[j] : 0.f;
+    const float* ped = sm.ped + k * sm.ds;
     float s = 0.f;
-    for (int k = 0; k < D.de; ++k)
-      s = fmaf(sm.ped[k], wget<Q>(net.color, W + k, j, scl), s);
-    sm.cold[j] = s;
+    for (int i = 0; i < D.de; ++i)
+      s = fmaf(ped[i], wget<Q>(net.color, W + i, j, scl), s);
+    sm.cold[k * C + j] = s;
   }
 
-  rg.begin(net.stream, rg.per_chunk * ((N + S - 1) / S));
   Acc<W> acc;
   long long waited = 0;   // TRACE: ring-wait cycles since the last border
-  for (int c0 = 0; c0 < N; c0 += S) {
-    const int rows = min(S, N - c0);
+  for (int c0 = 0; c0 < wk.total(); c0 += S) {
     // ---- PEU: positions of this chunk, double-angle encoded; the K
-    // padding is zero. The rows past N (up to the chunk's 128) repeat
-    // sample N - 1, so every row the MMAs read is finite; they are never
-    // stored.
+    // padding is zero. The rows past a lone ray's N (up to the chunk's
+    // 128) repeat its sample N - 1, so every row the MMAs read is finite;
+    // they are never stored.
     for (int idx = tid; idx < 3 * S; idx += NT) {
       const int s = idx / 3, a = idx % 3;
-      const int n = min(c0 + s, N - 1);
-      const float x = __fadd_rn(o[a], __fmul_rn(ts[n], d[a]));
+      const int p = c0 + s, j = wk.ray_of(p), k = wk.k0 + j;
+      const int n = min(p - j * wk.N, wk.N - 1);
+      const float* o = sm.ray + 8 * k;
+      const float x = __fadd_rn(o[a], __fmul_rn(wk.ts[k * wk.tstride + n],
+                                                o[3 + a]));
       encode(x, a, D.pos_freqs, sm.pe + s * ps, 1, 0);
     }
     const int npad = D.kpe - D.pe;
@@ -587,6 +694,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
       sm.pe[(idx / npad) * ps + D.pe + idx % npad] = 0.f;
     __syncthreads();
     lap<TRACE, PH_SCALAR>();
+    count_rows<TRACE>(wk.rows(c0));
 
     // ---- trunk ---------------------------------------------------------
     for (int i = 0; i < D.L; ++i) {
@@ -610,64 +718,66 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     mma_segment<W, Q, W, TRACE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
     lap_mlp<TRACE>(waited);
-    if (tid < rows) {
+    if (tid < wk.rows(c0)) {
       float s = 0.f;
       for (int k = 0; k < W; ++k) s = fmaf(sm.act[tid * as + k], net.sw[k], s);
-      sm.sig[c0 + tid] = __fadd_rn(s, net.sb[0]);
+      sm.sig[tid] = __fadd_rn(s, net.sb[0]);
     }
     __syncthreads();
     lap<TRACE, PH_SCALAR>();
     store<W, Q, W>(sm.act, as, acc, net.fscl, net.fb, nullptr, false);
     __syncthreads();
 
-    // ---- color branch: feature rows per sample + direction part per ray
+    // ---- color branch: feature rows per sample + direction part of the
+    // warpgroup's ray
     mma_start<W>(acc);
     mma_segment<W, Q, C, TRACE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
     __syncthreads();
-    store<W, Q, C>(sm.act, as, acc, net.color.scl, sm.cold, net.cb, true);
+    const int kw = wk.k0 + wk.ray_of(c0 + SLAB * (tid >> 7));
+    store<W, Q, C>(sm.act, as, acc, net.color.scl, sm.cold + kw * C, net.cb,
+                   true);
     __syncthreads();
     lap_mlp<TRACE>(waited);
 
     // ---- rgb head (exact) + sigmoid ------------------------------------
+    const int rows = wk.rows(c0);
     for (int idx = tid; idx < 3 * rows; idx += NT) {
       const int c = idx / rows, s = idx % rows;
       float r = 0.f;
       for (int k = 0; k < C; ++k) r = fmaf(sm.act[s * as + k], net.rw[k * 3 + c], r);
       r = __fadd_rn(r, net.rb[c]);
-      sm.rgb[(c0 + s) * 3 + c] = 1.0f / (1.0f + expf(-r));
+      sm.rgb[s * 3 + c] = 1.0f / (1.0f + expf(-r));
     }
     __syncthreads();
     lap<TRACE, PH_SCALAR>();
-  }
 
-  // ---- VRU: T_{i+1} = exp(cumsum x), w_i = T_i - T_{i+1}, sequential ----
-  if (tid == 0) {
-    float Ti = 1.f, cum = 0.f, r0 = 0.f, r1 = 0.f, r2 = 0.f, dep = 0.f;
-    for (int n = 0; n < N; ++n) {
-      const float x = __fmul_rn(-fmaxf(sm.sig[n], 0.f), dl[n]);
-      cum = __fadd_rn(cum, x);
-      const float Tn = expf(cum);
-      const float w = __fsub_rn(Ti, Tn);
-      sm.wbuf[n] = w;
-      r0 = fmaf(w, sm.rgb[3 * n + 0], r0);
-      r1 = fmaf(w, sm.rgb[3 * n + 1], r1);
-      r2 = fmaf(w, sm.rgb[3 * n + 2], r2);
-      dep = fmaf(w, ts[n], dep);
-      Ti = Tn;
-    }
-    sm.res[0] = r0; sm.res[1] = r1; sm.res[2] = r2;
-    sm.res[3] = __fsub_rn(1.f, Ti);
-    sm.res[4] = dep;
+    // ---- VRU over the chunk's rows, done before the next chunk's heads
+    // overwrite sig and rgb (the MLP's barriers lie between) -------------
+    vru_rows(sm, wk, c0, rows);
   }
   __syncthreads();
   lap<TRACE, PH_SCALAR>();
 }
 
-__device__ __forceinline__ void load_ray(Smem& sm, const float* o,
-                                         const float* d, int r) {
-  if (threadIdx.x < 3) sm.ray[threadIdx.x] = o[3 * r + threadIdx.x];
-  else if (threadIdx.x < 6) sm.ray[threadIdx.x] = d[3 * r + threadIdx.x - 3];
+// rays r .. r + nr - 1 -> the block's ray slots (o, d), and their
+// normalized directions -> ped (every thread of the block calls it;
+// thread 8k + i takes ray k's component i)
+__device__ void load_rays(const Dims& D, Smem& sm, const float* o,
+                          const float* d, int r, int nr) {
+  const int k = threadIdx.x >> 3, i = threadIdx.x & 7;
+  float* ray = sm.ray + 8 * k;
+  if (k < nr && i < 6)
+    ray[i] = i < 3 ? o[3 * (r + k) + i] : d[3 * (r + k) + i - 3];
+  __syncthreads();
+  if (k < nr && i < 3) {
+    const float* dk = ray + 3;
+    const float ss = __fadd_rn(__fadd_rn(__fmul_rn(dk[0], dk[0]),
+                                         __fmul_rn(dk[1], dk[1])),
+                               __fmul_rn(dk[2], dk[2]));
+    const float dn = __fmul_rn(dk[i], rsqrtf(ss));
+    encode(dn, i, D.dir_freqs, sm.ped + k * sm.ds, 1, 0);
+  }
   __syncthreads();
 }
 
@@ -718,24 +828,52 @@ plcore_fused_kernel(Net net, Dims D, int N, const float* __restrict__ rays_o,
       sm.ts[n] = t[(size_t)r * N + n];
       sm.dl[n] = deltas[(size_t)r * N + n];
     }
-    load_ray(sm, rays_o, rays_d, r);
-    encode_dir(D, sm);
-    ray_pass<W, C, Q>(net, D, sm, rg, sm.ts, sm.dl, N);
+    load_rays(D, sm, rays_o, rays_d, r, 1);
+    ray_pass<W, C, Q>(net, D, sm, rg, Walk{sm.ts, sm.dl, sm.wbuf, 0, N, 0, 1});
     for (int n = threadIdx.x; n < N; n += NT) w_out[(size_t)r * N + n] = sm.wbuf[n];
     if (threadIdx.x < 3) rgb[3 * r + threadIdx.x] = sm.res[threadIdx.x];
-    if (threadIdx.x == 0) acc_out[r] = sm.res[3];
+    if (threadIdx.x == 0) acc_out[r] = sm.res[RES_ACC];
     __syncthreads();
   }
 }
 
 // --------------------------------------------------------------- K2 -------
+// a ray's rgb from its res slot to dst; with white, composited onto a
+// white background with its acc, rgb + (1 - acc), rounded as the caller's
+// composite would be (volume.white_background)
+__device__ __forceinline__ void put_rgb(float* dst, const float* v,
+                                        int white) {
+  for (int c = 0; c < 3; ++c)
+    dst[c] = white ? __fadd_rn(v[c], __fsub_rn(1.f, v[RES_ACC])) : v[c];
+}
+
+// The rays under way in two_pass_rays: nr of them from ray r, and in bit
+// k of live whether ray r + k takes its fine pass. In shared memory, read
+// where used, so neither holds a register through a pass: at full width
+// the MLP layers take every register a thread has (the f32 instance ran
+// 6% slower with them in registers).
+struct Group {
+  int nr, live;
+};
+
+__device__ __forceinline__ Group& group_now() {
+  __shared__ Group g;
+  return g;
+}
+
 // The rays of one block's tile: coarse pass through rgc, fine pass through
-// rgf (the same ring when both networks have one format). TRACE: the
-// resample goes to PH_RESAMPLE, loading and encoding the ray to PH_SCALAR.
+// rgf (the same ring when both networks have one format). Where a pass
+// pairs (k2_group), the block takes its rays two at a time: the pair's
+// coarse pass walks both rays at once when pairs(Nc), its fine pass when
+// both live and pairs(Nt); otherwise each ray walks alone, as does the
+// last ray of an odd tile. The pair's CDFs run side by side, on two
+// threads. TRACE: the resample goes to PH_RESAMPLE, loading and encoding
+// the rays to PH_SCALAR.
 template <int W, int C, bool QC, bool QF, bool TRACE>
 __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
                               const Net& netc, const Net& netf, const Dims& D,
                               Smem& sm, int Nc, int Nf, int ert, float thr,
+                              int white,
                               const float* __restrict__ rays_o,
                               const float* __restrict__ rays_d,
                               const float* __restrict__ alive,
@@ -745,99 +883,135 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
                               float* __restrict__ acc_c,
                               float* __restrict__ depth) {
   const int Nt = Nc + Nf, M1 = Nc - 1, tid = threadIdx.x;
+  const int group = k2_group(Nc, Nf);
   const int r_end = min(D.R, (int)(blockIdx.x + 1) * D.rt);
-  for (int r = blockIdx.x * D.rt; r < r_end; ++r) {
+  const Group& g = group_now();
+  // rays a walk of either pass takes at once
+  const auto coarse_rays = [&] { return g.nr == 2 && pairs(Nc) ? 2 : 1; };
+  const auto fine_rays = [&] { return g.live == 3 && pairs(Nt) ? 2 : 1; };
+  for (int r = blockIdx.x * D.rt; r < r_end; r += group) {
+    const int nr = min(group, r_end - r);
+    if (tid == 0) group_now() = Group{nr, 0};
     lap<TRACE, -1>();
-    load_ray(sm, rays_o, rays_d, r);
-    encode_dir(D, sm);
+    load_rays(D, sm, rays_o, rays_d, r, nr);
     lap<TRACE, PH_SCALAR>();
 
-    // ---- pass 1: coarse --------------------------------------------------
-    ray_pass<W, C, QC, TRACE>(netc, D, sm, rgc, sm.tc, sm.dlc, Nc);
-    const float cr0 = sm.res[0], cr1 = sm.res[1], cr2 = sm.res[2];
-    const float cacc = sm.res[3], cdep = sm.res[4];
-    bool live = true;
-    if (ert) live = cacc < thr;
-    if (alive) live = live && alive[r] > 0.f;
-
-    if (tid == 0) {
-      rgb_c[3 * r + 0] = cr0; rgb_c[3 * r + 1] = cr1; rgb_c[3 * r + 2] = cr2;
-      acc_c[r] = cacc;
+    // ---- pass 1: coarse, over the pinned row -----------------------------
+    for (int k = 0; k < g.nr; k += coarse_rays())
+      ray_pass<W, C, QC, TRACE>(netc, D, sm, rgc,
+                                Walk{sm.tc, sm.dlc, sm.wbuf, 0, Nc, k,
+                                     coarse_rays()});
+    int live = 0;
+    for (int k = 0; k < g.nr; ++k) {
+      bool l = true;
+      if (ert) l = sm.res[8 * k + RES_ACC] < thr;
+      if (alive) l = l && alive[r + k] > 0.f;
+      live |= (int)l << k;
     }
-    if (!live) {   // dead ray keeps the coarse estimate
-      if (tid == 0) {
-        rgb[3 * r + 0] = cr0; rgb[3 * r + 1] = cr1; rgb[3 * r + 2] = cr2;
-        acc[r] = cacc;
-        depth[r] = cdep;
+    if (tid == 0) group_now().live = live;
+
+    if (tid < g.nr) {
+      const float* v = sm.res + 8 * tid;
+      const int q = r + tid;
+      put_rgb(rgb_c + 3 * q, v, white);
+      acc_c[q] = v[RES_ACC];
+      if (!((live >> tid) & 1)) {   // a dead ray keeps the coarse estimate
+        put_rgb(rgb + 3 * q, v, white);
+        acc[q] = v[RES_ACC];
+        depth[q] = v[RES_DEPTH];
       }
+    }
+    if (!live) {
       __syncthreads();
       continue;
     }
 
-    // ---- inverse-CDF resample over the interior coarse weights -----------
-    if (tid == 0) {
+    // ---- inverse-CDF resample over the interior coarse weights, per live
+    // ray; ray k's CDF on lane 0 of warp k ---------------------------------
+    if ((tid & 31) == 0 && ((live >> (tid >> 5)) & 1)) {
+      const int k = tid >> 5;
+      const float* wb = sm.wbuf + k * Nc;
+      float* cdf = sm.cdf + k * Nc;
       float wsum = 0.f;
       for (int i = 1; i < Nc - 1; ++i)
-        wsum = __fadd_rn(wsum, __fadd_rn(sm.wbuf[i], 1e-5f));
+        wsum = __fadd_rn(wsum, __fadd_rn(wb[i], 1e-5f));
       float c = 0.f;
-      sm.cdf[0] = 0.f;
+      cdf[0] = 0.f;
       for (int i = 1; i < Nc - 1; ++i) {
-        c = __fadd_rn(c, __fdiv_rn(__fadd_rn(sm.wbuf[i], 1e-5f), wsum));
-        sm.cdf[i] = c;
+        c = __fadd_rn(c, __fdiv_rn(__fadd_rn(wb[i], 1e-5f), wsum));
+        cdf[i] = c;
       }
     }
     __syncthreads();
-    for (int j = tid; j < Nf; j += NT) {
-      const float u = sm.u[j];
-      int lo = 0, hi = M1;            // count of cdf entries <= u
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (sm.cdf[mid] <= u) lo = mid + 1; else hi = mid;
+    for (int k = 0; k < g.nr; ++k) {
+      if (!((live >> k) & 1)) continue;
+      const float* cdf = sm.cdf + k * Nc;
+      for (int j = tid; j < Nf; j += NT) {
+        const float u = sm.u[j];
+        int lo = 0, hi = M1;            // count of cdf entries <= u
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (cdf[mid] <= u) lo = mid + 1; else hi = mid;
+        }
+        const int i = min(max(lo - 1, 0), M1 - 2);
+        const float cl = cdf[i], chh = cdf[i + 1];
+        const float tl = sm.tc[i], th = sm.tc[i + 1];
+        const float diff = __fsub_rn(chh, cl);
+        const float den = diff < 1e-8f ? 1.0f : diff;
+        const float frac = __fdiv_rn(__fsub_rn(u, cl), den);
+        sm.tf[k * Nf + j] = __fadd_rn(tl, __fmul_rn(frac, __fsub_rn(th, tl)));
       }
-      const int idx = min(max(lo - 1, 0), M1 - 2);
-      const float cl = sm.cdf[idx], chh = sm.cdf[idx + 1];
-      const float tl = sm.tc[idx], th = sm.tc[idx + 1];
-      const float diff = __fsub_rn(chh, cl);
-      const float den = diff < 1e-8f ? 1.0f : diff;
-      const float frac = __fdiv_rn(__fsub_rn(u, cl), den);
-      sm.tf[j] = __fadd_rn(tl, __fmul_rn(frac, __fsub_rn(th, tl)));
     }
     __syncthreads();
 
     // ---- sorted merge, ties to the coarse sample --------------------------
-    for (int i = tid; i < Nt; i += NT) {
-      if (i < Nc) {
-        const float v = sm.tc[i];
-        int lo = 0, hi = Nf;            // count of tf < v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (sm.tf[mid] < v) lo = mid + 1; else hi = mid;
+    for (int k = 0; k < g.nr; ++k) {
+      if (!((live >> k) & 1)) continue;
+      const float* tf = sm.tf + k * Nf;
+      float* ts = sm.ts + k * Nt;
+      for (int i = tid; i < Nt; i += NT) {
+        if (i < Nc) {
+          const float v = sm.tc[i];
+          int lo = 0, hi = Nf;            // count of tf < v
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (tf[mid] < v) lo = mid + 1; else hi = mid;
+          }
+          ts[i + lo] = v;
+        } else {
+          const int j = i - Nc;
+          const float v = tf[j];
+          int lo = 0, hi = Nc;            // count of tc <= v
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (sm.tc[mid] <= v) lo = mid + 1; else hi = mid;
+          }
+          ts[j + lo] = v;
         }
-        sm.ts[i + lo] = v;
-      } else {
-        const int j = i - Nc;
-        const float v = sm.tf[j];
-        int lo = 0, hi = Nc;            // count of tc <= v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (sm.tc[mid] <= v) lo = mid + 1; else hi = mid;
-        }
-        sm.ts[j + lo] = v;
       }
     }
     __syncthreads();
-    for (int n = tid; n < Nt; n += NT)
-      sm.dl[n] = n + 1 < Nt ? __fsub_rn(sm.ts[n + 1], sm.ts[n]) : 1e10f;
+    for (int k = 0; k < g.nr; ++k) {
+      if (!((live >> k) & 1)) continue;
+      const float* ts = sm.ts + k * Nt;
+      for (int n = tid; n < Nt; n += NT)
+        sm.dl[k * Nt + n] = n + 1 < Nt ? __fsub_rn(ts[n + 1], ts[n]) : 1e10f;
+    }
     __syncthreads();
     lap<TRACE, PH_RESAMPLE>();
 
     // ---- pass 2: fine over the merged samples -----------------------------
-    ray_pass<W, C, QF, TRACE>(netf, D, sm, rgf, sm.ts, sm.dl, Nt);
-    if (tid == 0) {
-      rgb[3 * r + 0] = sm.res[0]; rgb[3 * r + 1] = sm.res[1];
-      rgb[3 * r + 2] = sm.res[2];
-      acc[r] = sm.res[3];
-      depth[r] = sm.res[4];
+    for (int k = 0; k < g.nr; k += fine_rays())
+      if (fine_rays() == 2 || ((g.live >> k) & 1))
+        ray_pass<W, C, QF, TRACE>(netf, D, sm, rgf,
+                                  Walk{sm.ts, sm.dl, nullptr, Nt, Nt, k,
+                                       fine_rays()});
+    if (tid < g.nr && ((g.live >> tid) & 1)) {
+      const float* v = sm.res + 8 * tid;
+      const int q = r + tid;
+      put_rgb(rgb + 3 * q, v, white);
+      acc[q] = v[RES_ACC];
+      depth[q] = v[RES_DEPTH];
     }
     __syncthreads();
   }
@@ -849,7 +1023,8 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
 template <int W, int C, bool QC, bool QF, bool TRACE>
 __global__ void __launch_bounds__(NT, min_blocks<W>())
 plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
-                       float thr, const float* __restrict__ rays_o,
+                       float thr, int white,
+                       const float* __restrict__ rays_o,
                        const float* __restrict__ rays_d,
                        const float* __restrict__ t_row,
                        const float* __restrict__ u_row,
@@ -873,14 +1048,14 @@ plcore_two_pass_kernel(Net netc, Net netf, Dims D, int Nc, int Nf, int ert,
   ring_init<W, QC>(rgc, sm, D, 0);
   if constexpr (QC == QF) {
     two_pass_rays<W, C, QC, QF, TRACE>(rgc, rgc, netc, netf, D, sm, Nc, Nf,
-                                       ert, thr, rays_o, rays_d, alive, rgb,
-                                       rgb_c, acc, acc_c, depth);
+                                       ert, thr, white, rays_o, rays_d,
+                                       alive, rgb, rgb_c, acc, acc_c, depth);
   } else {
     Ring<W, QF> rgf;
     ring_init<W, QF>(rgf, sm, D, Ring<W, QC>::NS);
     two_pass_rays<W, C, QC, QF, TRACE>(rgc, rgf, netc, netf, D, sm, Nc, Nf,
-                                       ert, thr, rays_o, rays_d, alive, rgb,
-                                       rgb_c, acc, acc_c, depth);
+                                       ert, thr, white, rays_o, rays_d,
+                                       alive, rgb, rgb_c, acc, acc_c, depth);
   }
   phases_end<TRACE>(phase_cycles);
 }
@@ -964,7 +1139,7 @@ template <int W, int C, bool QC, bool QF, bool TRACE>
 int k2_launch(const void* const* ptrs, const int* dims, float thr,
               void* stream) {
   const Dims D = make_dims(dims);
-  const int Nc = dims[10], Nf = dims[11], ert = dims[14];
+  const int Nc = dims[10], Nf = dims[11], ert = dims[14], white = dims[15];
   if (!dims_ok<W, C>(D) || Nc < 3 || Nf < 1) return (int)cudaErrorInvalidValue;
   const Net nc = make_net(ptrs + 10, D.C);
   const Net nf = make_net(ptrs + 10 + NET_PTRS, D.C);
@@ -982,7 +1157,7 @@ int k2_launch(const void* const* ptrs, const int* dims, float thr,
   cudaError_t e = launch_setup(kernel, smem);
   if (e) return (int)e;
   kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      nc, nf, D, Nc, Nf, ert, thr, in[0], in[1], in[2], in[3], in[4],
+      nc, nf, D, Nc, Nf, ert, thr, white, in[0], in[1], in[2], in[3], in[4],
       out[0], out[1], out[2], out[3], out[4], phase);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,11 @@ in ``csrc/plcore_w*.cu``).
   render of every ray in ONE launch; coarse weights and sample positions
   never leave the block. Given ``phase_cycles`` rows it runs K2's traced
   instance, which writes where each block spent its cycles
-  (``obs.metrics.K2_PHASES``) to the block's row, in pinned host memory,
-  so a traced launch adds no operation on the device.
+  (``obs.metrics.K2_PHASES``) and how many of its MMA rows were real
+  samples (``K2_ROW_COUNTS``) to the block's row, in pinned host memory,
+  so a traced launch adds no operation on the device. A block renders
+  its rays two at a time in a pass whose rows then fill every chunk
+  (``pairs``), so K2 wants an even ray tile there (``k2_pairs``).
 
 Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
 RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:
@@ -42,7 +45,7 @@ import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
-from repro_torch.obs.metrics import K2_PHASES, CountsView, global_registry
+from repro_torch.obs.metrics import K2_ROW_STATS, CountsView, global_registry
 
 LAUNCHES = CountsView(global_registry().counter(
     "plcore_kernel_launches_total", "fused PLCore kernel launches"),
@@ -60,6 +63,25 @@ INSTANCE_LAUNCHES = CountsView(global_registry().counter(
 # NerfConfig, tiny() and the reference kernel tests' 5-layer config, their
 # 2-layer config (csrc/fused_plcore.cu PLCORE_WIDTHS)
 KERNEL_WIDTHS = ((256, 128), (64, 32), (32, 16))
+
+# sample rows of a chunk of the kernels' MMA pipeline, half of them a
+# warpgroup's (csrc/plcore_kernels.cuh S)
+CHUNK_ROWS = 128
+
+
+def pairs(n_samples: int) -> bool:
+    """Whether K2 walks a pass of ``n_samples`` per ray two rays at once
+    (``csrc/plcore_kernels.cuh`` ``pairs``): the rays fill whole half
+    chunks and two rays' rows fill fewer chunks than two walks of one."""
+    half, n = CHUNK_ROWS // 2, n_samples
+    return n % half == 0 and -(-2 * n // CHUNK_ROWS) < 2 * -(-n // CHUNK_ROWS)
+
+
+def k2_pairs(n_coarse: int, n_fine: int) -> bool:
+    """Whether K2 takes its rays in pairs: its coarse or its fine pass
+    (``n_coarse + n_fine`` merged samples) pairs."""
+    return pairs(n_coarse) or pairs(n_coarse + n_fine)
+
 
 # one network's pointer order at the C interface: the MLP layers come from
 # the tensor-core stream; of the reference layout the kernels read the
@@ -258,23 +280,26 @@ def fused_plcore_call(cfg: NerfConfig, weights: dict, rays_o, rays_d, t,
 def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
                          rays_o, rays_d, t_row, u_row, *, rt: int,
                          ert_eps: float, alive: Optional[torch.Tensor] = None,
-                         phase_cycles: Optional[torch.Tensor] = None):
+                         phase_cycles: Optional[torch.Tensor] = None,
+                         white_bkgd: bool = False):
     """K2. rays (R, 3); ``t_row`` (1, n_coarse) coarse positions and
     ``u_row`` (n_fine,) resample grid, both shared by every ray
     (``ops.sample_rows``); ``ert_eps`` > 0 lets rays with acc_c >= 1 - eps
     skip their fine pass; ``alive`` optional (R,) float mask, 0 = dead;
-    ``phase_cycles`` optional zeroed (R, 5) int64 tensor in pinned host
-    memory: the traced instance writes block b's cycles per ``K2_PHASES``
-    slot to row b (R rows hold every block; the sum over rows is the
-    launch's), readable once the launch has completed; the plain version on
-    the CPU ignores it. Returns (rgb (R,3), rgb_coarse (R,3), acc (R,),
-    acc_coarse (R,), depth (R,)); the caller composites the white
-    background."""
+    ``phase_cycles`` optional zeroed (R, 7) int64 tensor in pinned host
+    memory: the traced instance writes block b's cycles and row counts per
+    ``obs.metrics.K2_ROW_STATS`` slot to row b (R rows hold every block;
+    the sum over rows is the launch's), readable once the launch has
+    completed; the plain version on the CPU ignores it. Returns (rgb
+    (R,3), rgb_coarse (R,3), acc (R,), acc_coarse (R,), depth (R,)); with
+    ``white_bkgd`` both rgb outputs composited onto a white background
+    (``volume.white_background`` of each with its acc, the same bits),
+    else the caller composites."""
     dev = _device_of(rays_o)
     if dev.type == "cpu":
         return ref.two_pass_ref(cfg, packed_c, packed_f, rays_o, rays_d,
                                 t_row, u_row, rt=rt, ert_eps=ert_eps,
-                                alive=alive)
+                                alive=alive, white_bkgd=white_bkgd)
     from repro_torch.kernels import build
     R = rays_o.shape[0]
     Nc, Nf = t_row.shape[-1], cfg.n_fine
@@ -288,7 +313,7 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     if phase_cycles is not None:
         if not phase_cycles.is_pinned():
             raise ValueError("phase_cycles must lie in pinned host memory")
-        _check("phase_cycles", phase_cycles, (R, len(K2_PHASES)),
+        _check("phase_cycles", phase_cycles, (R, len(K2_ROW_STATS)),
                torch.int64, torch.device("cpu"))
     qc, qf = "trunk_mag" in packed_c, "trunk_mag" in packed_f
     ptrs = _net_ptrs(cfg, packed_c, dev) + _net_ptrs(cfg, packed_f, dev)
@@ -299,7 +324,7 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
           u_row.data_ptr(), None if alive is None else alive.data_ptr()]
     io += [o.data_ptr() for o in outs]
     dims = _dims(cfg, R, rt) + [Nc, Nf, int(qc), int(qf),
-                                int(ert_eps > 0.0)]
+                                int(ert_eps > 0.0), int(white_bkgd)]
     _launch(build.load().plcore_two_pass, io + ptrs, dims,
             ctypes.c_float(ref.ert_threshold(ert_eps)))
     LAUNCHES["two_pass_plcore_call"] += 1

@@ -300,20 +300,37 @@ def unstack_trunk_params(cfg: NerfConfig, packed: dict):
     return params_t, quant_t
 
 
+def ray_tile(n_rays: int, slots: int, pairs: bool = False) -> int:
+    """Rays one block walks, for ``n_rays`` over ``slots`` resident
+    blocks (the SMs times the kernel's blocks per SM): about ``WAVES``
+    waves of blocks. With ``pairs`` (K2 taking its rays two at a time,
+    ``fused_plcore.k2_pairs``) the count is even, so no block ends on a
+    lone ray: of the two even neighbours of an odd count, the one whose
+    grid takes fewer ray walks in whole waves, the smaller on a tie."""
+    rt = max(1, n_rays // (WAVES * slots))
+    if not pairs or rt % 2 == 0:
+        return rt
+
+    def walks(t):   # waves of the grid, each t ray walks long
+        return -(-(-(-n_rays // t)) // slots) * t
+    lo, hi = rt - 1, rt + 1
+    return hi if lo < 2 or walks(hi) < walks(lo) else lo
+
+
 def pick_ray_tile(n_rays: int, device: torch.device,
-                  blocks_per_sm: int = 0) -> int:
+                  blocks_per_sm: int = 0, pairs: bool = False) -> int:
     """Rays per tile. On the card a tile is the rays one block walks, one
-    after another: outputs do not depend on it, so it is sized to give
-    about ``WAVES`` waves of resident blocks, ``blocks_per_sm`` being the
-    kernel's (``fused_plcore.blocks_per_sm``). On the CPU it is the plain
-    version's tensor batch."""
+    after another or two at a time (``pairs``): outputs do not depend on
+    it, so it is sized by ``ray_tile`` over the card's SMs and the
+    kernel's resident blocks per SM (``fused_plcore.blocks_per_sm``). On
+    the CPU it is the plain version's tensor batch."""
     if device.type != "cuda":
         return PLAIN_TILE
     if blocks_per_sm < 1:
         raise ValueError("pick_ray_tile on the card needs the kernel's "
                          "resident blocks per SM")
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, n_rays // (WAVES * blocks_per_sm * n_sm))
+    return ray_tile(n_rays, blocks_per_sm * n_sm, pairs)
 
 
 def _quantized(packed: dict) -> int:
@@ -360,11 +377,13 @@ def sample_rows(cfg: NerfConfig, device) -> tuple:
 
 def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
                           ert_eps: float = 0.0, rt: Optional[int] = None,
-                          alive=None, phase_cycles=None) -> dict:
+                          alive=None, phase_cycles=None,
+                          white_bkgd: bool = False) -> dict:
     """The whole coarse -> importance -> fine render through K2, one
-    launch. ``packed``: {"coarse", "fine"} layouts; ``phase_cycles`` as
+    launch. ``packed``: {"coarse", "fine"} layouts; ``phase_cycles`` and
+    ``white_bkgd`` (K2 composites both rgb outputs onto white) as
     ``two_pass_plcore_call``'s. Returns {rgb, rgb_coarse, acc, acc_coarse,
-    depth}; white background is the caller's composite."""
+    depth}."""
     _DISPATCHES.inc()
     dev = rays_o.device
     if rt is None:
@@ -372,13 +391,14 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
             cfg, "k2", (cfg.n_coarse, cfg.n_fine),
             (_quantized(packed["coarse"]), _quantized(packed["fine"])), dev)
             if dev.type == "cuda" else 0)
-        rt = pick_ray_tile(rays_o.shape[0], dev, per_sm)
+        rt = pick_ray_tile(rays_o.shape[0], dev, per_sm,
+                           pairs=_fp.k2_pairs(cfg.n_coarse, cfg.n_fine))
     t_row, u_row = sample_rows(cfg, dev)
     rgb, rgb_c, acc, acc_c, depth = _fp.two_pass_plcore_call(
         cfg, packed["coarse"], packed["fine"], rays_o.contiguous(),
         rays_d.contiguous(), t_row, u_row, rt=rt,
         ert_eps=float(ert_eps),
         alive=None if alive is None else alive.to(torch.float32).contiguous(),
-        phase_cycles=phase_cycles)
+        phase_cycles=phase_cycles, white_bkgd=white_bkgd)
     return {"rgb": rgb, "rgb_coarse": rgb_c, "acc": acc,
             "acc_coarse": acc_c, "depth": depth}

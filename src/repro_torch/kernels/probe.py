@@ -106,7 +106,9 @@ def time_kernels() -> dict:
             for n in ("coarse", "fine")}
         per_sm = fused_plcore.blocks_per_sm(
             cfg, "k2", (cfg.n_coarse, cfg.n_fine), (q, q), dev)
-        rt = ops.pick_ray_tile(o.shape[0], dev, per_sm)
+        rt = ops.pick_ray_tile(o.shape[0], dev, per_sm,
+                               pairs=fused_plcore.k2_pairs(cfg.n_coarse,
+                                                           cfg.n_fine))
         out[f"k2.{'rmcm' if q else 'f32'}"] = _cuda_ms(
             lambda: fused_plcore.two_pass_plcore_call(
                 cfg, nets["coarse"], nets["fine"], o, d, *grids, rt=rt,

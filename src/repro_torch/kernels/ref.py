@@ -189,8 +189,10 @@ def two_pass_tile(cfg: NerfConfig, net_c, net_f, o, d, t_row, u_row,
 
 def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
                  rays_d, t_row, u_row, *, rt: int, ert_eps: float,
-                 alive: Optional[torch.Tensor] = None):
-    """K2's plain version over R rays, ``rt`` rays at a time."""
+                 alive: Optional[torch.Tensor] = None,
+                 white_bkgd: bool = False):
+    """K2's plain version over R rays, ``rt`` rays at a time; with
+    ``white_bkgd`` rgb and rgb_coarse composited onto white."""
     net_c, net_f = net_arrays(cfg, packed_c), net_arrays(cfg, packed_f)
     thr = ert_threshold(ert_eps)
     outs = []
@@ -198,7 +200,11 @@ def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
         outs.append(two_pass_tile(
             cfg, net_c, net_f, rays_o[s:e], rays_d[s:e], t_row, u_row, thr,
             ert_eps > 0.0, None if alive is None else alive[s:e]))
-    return tuple(torch.cat(x) for x in zip(*outs))
+    rgb, rgb_c, acc, acc_c, depth = (torch.cat(x) for x in zip(*outs))
+    if white_bkgd:
+        rgb = volume.white_background(rgb, acc)
+        rgb_c = volume.white_background(rgb_c, acc_c)
+    return rgb, rgb_c, acc, acc_c, depth
 
 
 def rmcm_matmul_ref(x: torch.Tensor, packed: dict) -> torch.Tensor:

@@ -39,7 +39,7 @@ __all__ = [
     "engine_stats_view", "extend_stats_view", "ENGINE_STATS_SCHEMA",
     "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
     "PERCELL_STATS_SCHEMA", "TRACE_STATS_SCHEMA", "K2_PHASES",
-    "EngineMetrics",
+    "K2_ROW_COUNTS", "K2_ROW_STATS", "EngineMetrics",
     "TIME_BUCKETS",
     "DEPTH_BUCKETS",
 ]
@@ -338,11 +338,19 @@ PERCELL_STATS_SCHEMA = (
 # work (encoding, exact heads, direction part of the color layer, VRU), and
 # every cycle from the block's entry to its exit.
 K2_PHASES = ("mlp", "ring_wait", "resample", "scalar", "total")
+# The counts after the cycles in a block's row: the MMA rows its
+# warpgroups computed (64 a chunk each) and the real sample rows among
+# them, the rest being padding. They are not cycles: no phase share
+# divides them.
+K2_ROW_COUNTS = ("rows_mma", "rows_real")
+# the engine's stats key of each slot of a block's row, in the row's order
+K2_ROW_STATS = (tuple(f"plcore_two_pass_cycles_{p}" for p in K2_PHASES)
+                + tuple(f"plcore_two_pass_{c}" for c in K2_ROW_COUNTS))
 
 # The trace block, bound by ``extend_stats_view`` only when an engine has a
 # real tracer (``SpanTracer``), so the default stats keep their keys. The
-# cycle counters sum K2's traced instance's phase rows over the drained
-# tiles (``K2_PHASES``; zero off the card); host_wait_s is the time the
+# cycle and row counters sum K2's traced instance's rows over the drained
+# tiles (``K2_ROW_STATS``; zero off the card); host_wait_s is the time the
 # engine's thread waits on the card in the drain; backlog_tiles_at_admit
 # sums, over the admitted submits, the tiles the view finds ahead of it:
 # the queue's rays still to coalesce over tile_rays, rounded up, plus the
@@ -358,6 +366,10 @@ TRACE_STATS_SCHEMA = (
      "K2 cycles in the encoding, exact heads, direction part and VRU"),
     ("plcore_two_pass_cycles_total", "counter", 0,
      "K2 cycles from block entry to exit"),
+    ("plcore_two_pass_rows_mma", "counter", 0,
+     "K2 sample rows its MMAs computed, padding included"),
+    ("plcore_two_pass_rows_real", "counter", 0,
+     "K2 real sample rows among the rows its MMAs computed"),
     ("host_wait_s", "counter", 0.0,
      "seconds the engine's thread waits on the card in the drain"),
     ("admitted_views", "counter", 0, "admitted submits"),

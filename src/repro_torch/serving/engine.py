@@ -100,8 +100,8 @@ profiler range of the same name) at its layers' borders:
 ``engine.submit`` (``TileScheduler.submit``), ``scheduler.next_tile``,
 ``plcore.dispatch`` (``PackedPlcore.dispatch_tile``), ``executor.drain``
 (a slot's drain) and ``completion.scatter``; and binds the trace block
-of its stats (``TRACE_STATS_SCHEMA``): K2's phase cycles from the traced
-instance's buffer on the card, the seconds its thread waits on the card
+of its stats (``TRACE_STATS_SCHEMA``): K2's phase cycles and row counts
+from the traced instance's buffer on the card, the seconds its thread waits on the card
 in the drain (``host_wait_s``), and the backlog each admitted view finds
 (``admitted_views``, ``backlog_tiles_at_admit``).
 """
@@ -117,7 +117,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import rays as R
-from repro_torch.obs.metrics import (K2_PHASES, PERCELL_STATS_SCHEMA,
+from repro_torch.obs.metrics import (K2_ROW_STATS, PERCELL_STATS_SCHEMA,
                                      ROUTING_STATS_SCHEMA,
                                      SAMPLING_STATS_SCHEMA,
                                      TRACE_STATS_SCHEMA, MetricsRegistry,
@@ -1041,15 +1041,16 @@ class TileExecutor:
 
     def _note_wait(self, handle, waited_s: float) -> None:
         """A traced drain's wait on the card and, from K2's traced
-        instance, its phase cycles, into the trace block of the stats."""
+        instance, its phase cycles and row counts, into the trace block of
+        the stats."""
         st = self.stats
         if "host_wait_s" not in st:
             return
         st["host_wait_s"] += waited_s
-        cycles = handle.phase_cycles()
-        if cycles is not None:
-            for phase, n in zip(K2_PHASES, cycles):
-                st[f"plcore_two_pass_cycles_{phase}"] += n
+        row = handle.phase_cycles()
+        if row is not None:
+            for key, n in zip(K2_ROW_STATS, row):
+                st[key] += n
 
     @_layer_range("executor.drain")
     def _finish_slot(self, tile, handle, t0, extra, sp) -> None:

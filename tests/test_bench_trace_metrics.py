@@ -51,16 +51,33 @@ def test_backlog_tiles_mean():
     assert _read("backlog_tiles_mean", {}, {"dispatches": 2}) is None
 
 
+def test_row_fill_pct():
+    """The window's real rows over its MMA rows, in percent: 2/3 for lone
+    rays at 64 + 128 samples, 100 for pairs; None without a traced K2
+    launch in the window or without the counters (the parent)."""
+    def rows(mma, real):
+        return {"plcore_two_pass_rows_mma": mma,
+                "plcore_two_pass_rows_real": real}
+    name = "plcore_two_pass_row_fill_pct"
+    s0 = rows(3840, 2560)
+    assert _read(name, s0, rows(3840 + 384, 2560 + 256)) == pytest.approx(
+        200.0 / 3.0)
+    assert _read(name, s0, rows(3840 + 512, 2560 + 512)) == pytest.approx(
+        100.0)
+    assert _read(name, s0, s0) is None
+    assert _read(name, _cycles(1, 1, 1, 1, 4), _cycles(2, 2, 2, 2, 8)) is None
+
+
 def test_readers_are_declared_where_they_read():
     """Each reader has its ``per_layer`` entry: the closed cells for the
-    shares and the host's wait (``rays_per_s``), the open cell for the
-    backlog (``latency_p95_ms``)."""
+    shares, the host's wait and K2's row fill (``rays_per_s``), the open
+    cell for the backlog (``latency_p95_ms``)."""
     spec = S.load(ROOT)
     entry = {m["name"]: m for m in spec["per_layer"]}
     closed = ["f32-view800-closed", "rmcm-view800-closed",
               "rmcm-preview-closed"]
     for name in [f"plcore_two_pass_{p}_pct" for p in SHARES] + [
-            "host_wait_pct"]:
+            "host_wait_pct", "plcore_two_pass_row_fill_pct"]:
         assert entry[name]["workloads"] == closed
         assert entry[name]["moves"] == "rays_per_s"
         assert entry[name]["source"] == "program_counter"

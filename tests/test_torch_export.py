@@ -300,6 +300,16 @@ def test_phase_share_reads_the_trace_block():
     assert phase_share({"dispatches": 3}) is None
 
 
+def test_phase_share_leaves_the_row_counts_out():
+    """K2's row counts sit in the trace block beside the cycles; they are
+    not cycles, so the phase shares neither divide nor list them."""
+    st = {f"plcore_two_pass_cycles_{p}": n for p, n in
+          zip(K2_PHASES, (400, 100, 50, 250, 1000))}
+    rows = {"plcore_two_pass_rows_mma": 384, "plcore_two_pass_rows_real": 256}
+    assert phase_share({**st, **rows}) == phase_share(st)
+    assert set(phase_share({**st, **rows})) == set(K2_PHASES[:-1])
+
+
 def test_tracer_complete_takes_an_end_time():
     tr = SpanTracer(clock=lambda: 5.0)
     a = tr.complete("x", 1.0, cat="device", t1=2.5, tile=1)

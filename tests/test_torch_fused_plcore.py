@@ -133,6 +133,24 @@ def test_plain_k2_tile_size_invariant(nets):
             torch.testing.assert_close(out[k], base[k], rtol=0, atol=1e-5)
 
 
+def test_plain_k2_white_background_is_the_callers_composite(nets):
+    """K2 with ``white_bkgd`` gives both rgb outputs composited onto white
+    with their own acc, bit for bit ``volume.white_background``; the
+    rest as without."""
+    from repro_torch.core import volume
+    _, pt = _packed(*nets, True)
+    o, d = map(torch.from_numpy, _rays())
+    base = ops.fused_render_two_pass(tiny(), pt, o, d, rt=R)
+    white = ops.fused_render_two_pass(tiny(), pt, o, d, rt=R,
+                                      white_bkgd=True)
+    assert torch.equal(white["rgb"],
+                       volume.white_background(base["rgb"], base["acc"]))
+    assert torch.equal(white["rgb_coarse"], volume.white_background(
+        base["rgb_coarse"], base["acc_coarse"]))
+    for k in ("acc", "acc_coarse", "depth"):
+        assert torch.equal(white[k], base[k])
+
+
 def test_k2_sample_rows_built_once_and_match_reference():
     cfg = tiny()
     t_row, u_row = ops.sample_rows(cfg, "cpu")
@@ -159,3 +177,46 @@ def test_dispatch_count_ticks_once_per_fused_call(nets):
     # the CPU path never launches a kernel
     assert fused_plcore.LAUNCHES == {"fused_plcore_call": 0,
                                      "two_pass_plcore_call": 0}
+
+
+@pytest.mark.parametrize("n,paired", [
+    (64, True), (192, True), (320, True),       # N = 64 mod 128
+    (16, False), (32, False), (8, False),       # tiny(), the sweep
+    (72, False), (96, False),                   # ASDR budgets Nc + 8, + 32
+    (128, False), (256, False)])                # whole chunks already
+def test_k2_pairs_a_pass_only_where_its_rows_then_fill_the_chunks(n, paired):
+    """A pass of n samples a ray pairs when n fills whole half chunks and
+    two rays' rows fill fewer 128-row chunks than two walks of one."""
+    assert fused_plcore.pairs(n) is paired
+    if n % 64 == 0:
+        assert paired == (-(-2 * n // 128) < 2 * -(-n // 128))
+
+
+@pytest.mark.parametrize("nc,nf,paired", [
+    (64, 128, True), (64, 8, True), (64, 32, True), (64, 64, True),
+    (16, 16, False), (8, 8, False), (128, 64, True), (128, 128, False)])
+def test_k2_takes_rays_in_pairs_where_a_pass_pairs(nc, nf, paired):
+    assert fused_plcore.k2_pairs(nc, nf) is paired
+
+
+@pytest.mark.parametrize("n_rays,slots,want,want_paired", [
+    (4096, 132, 3, 2),        # 1,366 blocks in 10.35 waves -> 2,048 / 15.5
+    (16384, 132, 15, 14),     # 14: 1,171 blocks in 9 waves, 16: 1,024 in 8
+    (8192, 132, 7, 8),        # 8: 1,024 blocks in 8 waves, 6: 1,366 in 11
+    (4096, 264, 1, 2),        # two blocks an SM
+    (512, 132, 1, 2),
+    (65536, 132, 62, 62)])    # already even
+def test_ray_tile_is_even_for_k2_where_it_pairs(n_rays, slots, want,
+                                                 want_paired):
+    """K1, and K2 where no pass pairs, keep the tile of about eight waves;
+    K2 taking its rays in pairs gets an even tile, the even neighbour
+    whose grid takes fewer ray walks in whole waves."""
+    assert ops.ray_tile(n_rays, slots) == want
+    got = ops.ray_tile(n_rays, slots, pairs=True)
+    assert got == want_paired and got % 2 == 0
+
+
+def test_pick_ray_tile_on_the_cpu_keeps_the_plain_batch():
+    cpu = torch.device("cpu")
+    assert ops.pick_ray_tile(4096, cpu) == ops.PLAIN_TILE
+    assert ops.pick_ray_tile(4096, cpu, pairs=True) == ops.PLAIN_TILE

@@ -2,7 +2,9 @@
 the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
 (bf16x3), at every built width pair and with a coarse and a fine network
 of different formats, K2 also at the adaptive budgets Nf = 8, 32, 64 with
-dead rows, and K2's traced instance against the untraced one; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+dead rows, K2's outputs the same bits at every ray tile (lone rays, pairs,
+odd tails, dead rays, ERT) in every format pair, and K2's traced instance
+against the untraced one with its row counts; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's. Then NeRF training
 on the card: one QAT train step at the full width against the same step
@@ -30,7 +32,7 @@ from repro_torch.core import nerf_train
 from repro_torch.data import rays as R_
 from repro_torch.optim import adam
 from repro_torch.configs.nerf_icarus import CONFIG
-from repro_torch.core import plcore, rmcm, sampling
+from repro_torch.core import plcore, rmcm, sampling, volume
 from repro_torch.kernels import fused_plcore, ops, ref
 from repro_torch.kernels import rmcm_matmul as k3
 from repro_torch.models.params import init_params as torch_init
@@ -163,7 +165,7 @@ def test_k2_traced_instance_on_card(quantized):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.core.pipeline import PackedPlcore
-    from repro_torch.obs import K2_PHASES, SpanTracer
+    from repro_torch.obs import K2_PHASES, K2_ROW_STATS, SpanTracer
     dev = torch.device("cuda")
     cfg = CONFIG
     params = torch_init(plcore.plcore_decls(cfg),
@@ -175,7 +177,7 @@ def test_k2_traced_instance_on_card(quantized):
     o, d = _rays(4096, seed=7)
     ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     untraced = ops.fused_render_two_pass(cfg, pp.packed, ot, dt)
-    shape = (len(o), len(K2_PHASES))
+    shape = (len(o), len(K2_ROW_STATS))
     phase = torch.zeros(shape, dtype=torch.int64, pin_memory=True)
     traced = ops.fused_render_two_pass(cfg, pp.packed, ot, dt,
                                        phase_cycles=phase)
@@ -187,10 +189,13 @@ def test_k2_traced_instance_on_card(quantized):
                                   phase_cycles=torch.zeros(shape,
                                                            dtype=torch.int64))
 
-    def check(cycles):
-        c = dict(zip(K2_PHASES, cycles))
+    def check(row):
+        c = dict(zip(K2_ROW_STATS, row))
         assert all(v > 0 for v in c.values()), c
-        assert sum(c[p] for p in K2_PHASES[:-1]) <= c["total"], c
+        total = c["plcore_two_pass_cycles_total"]
+        assert sum(c[f"plcore_two_pass_cycles_{p}"]
+                   for p in K2_PHASES[:-1]) <= total, c
+        return c["plcore_two_pass_rows_real"], c["plcore_two_pass_rows_mma"]
 
     check(phase.sum(0).tolist())
     h0, _ = pp.dispatch_tile(o, d)
@@ -198,6 +203,76 @@ def test_k2_traced_instance_on_card(quantized):
     assert np.array_equal(h0.result(), h1.result())
     assert h0.phase_cycles() is None
     check(h1.phase_cycles())
+
+    # the row counts: a lone ray computes 3 chunks of 128 rows for its 64 +
+    # 192 samples, a pair 4 for 2 x 256 (published 64 + 128 samples)
+    args = (cfg, pp.packed["coarse"], pp.packed["fine"], ot, dt,
+            *ops.sample_rows(cfg, dev))
+    for rt, (num, den) in ((1, (2, 3)), (2, (1, 1)), (4, (1, 1))):
+        rows = torch.zeros(shape, dtype=torch.int64, pin_memory=True)
+        got = fused_plcore.two_pass_plcore_call(*args, rt=rt, ert_eps=0.0,
+                                                phase_cycles=rows)
+        plain = fused_plcore.two_pass_plcore_call(*args, rt=rt, ert_eps=0.0)
+        torch.cuda.synchronize()
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b), rt
+        real, mma = check(rows.sum(0).tolist())
+        assert real == 256 * len(o) and den * real == num * mma, (
+            rt, real, mma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("formats", ["f32/f32", "rmcm/rmcm", "f32/rmcm",
+                                     "rmcm/f32"])
+def test_k2_outputs_do_not_depend_on_the_ray_tile_on_card(formats):
+    """Full width at the published 64 + 128 samples, where K2 walks a
+    block's rays in pairs: its five outputs are the same bits at ray tiles
+    1 to 5 (lone rays, pairs, an odd tail), also with an alive mask that
+    kills one ray of some pairs and both of others, and with ERT; they
+    keep to the plain version (5e-3, depth 1e-2); and K2's own white
+    background gives the bits of ``volume.white_background`` on them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = CONFIG
+    assert fused_plcore.k2_pairs(cfg.n_coarse, cfg.n_fine)
+    qc, qf = (f == "rmcm" for f in formats.split("/"))
+    params = torch_init(plcore.plcore_decls(cfg),
+                        torch.Generator().manual_seed(2))
+    packed = {}
+    for n, q in (("coarse", qc), ("fine", qf)):
+        packed[n] = bridge.to_device(ops.kernel_weights(
+            cfg, params[n], rmcm.quantize_tree(params[n]) if q else None),
+            dev)
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(R, seed=7))
+    args = (cfg, packed["coarse"], packed["fine"], o, d,
+            *ops.sample_rows(cfg, dev))
+    # dead: rays 0 mod 3 (one ray of a pair at even tiles) and 4 mod 7
+    idx = torch.arange(R, device=dev)
+    alive = ((idx % 3 != 0) & (idx % 7 != 4)).to(torch.float32)
+    acc_c = ref.two_pass_ref(*args, rt=R, ert_eps=0.0)[3]
+    eps = _ert_eps_between(acc_c)
+    for e, mask in ((0.0, None), (0.0, alive), (eps, None)):
+        outs = [fused_plcore.two_pass_plcore_call(*args, rt=rt, ert_eps=e,
+                                                  alive=mask)
+                for rt in (1, 2, 3, 4, 5)]
+        plain = ref.two_pass_ref(*args, rt=R, ert_eps=e, alive=mask)
+        torch.cuda.synchronize()
+        for rt, out in zip((2, 3, 4, 5), outs[1:]):
+            for i, (a, b) in enumerate(zip(outs[0], out)):
+                assert torch.equal(a, b), (formats, e, mask is not None, rt,
+                                           i, float((a - b).abs().max()))
+        for i, (a, b) in enumerate(zip(outs[1], plain)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-2 if i == 4 else 5e-3)
+        white = fused_plcore.two_pass_plcore_call(*args, rt=2, ert_eps=e,
+                                                  alive=mask, white_bkgd=True)
+        rgb, rgb_c, acc, acc_c, depth = outs[0]
+        want = (volume.white_background(rgb, acc),
+                volume.white_background(rgb_c, acc_c), acc, acc_c, depth)
+        for i, (a, b) in enumerate(zip(white, want)):
+            assert torch.equal(a, b), (formats, e, mask is not None, i)
 
 # the width pairs the kernels are built for beyond the full NerfConfig:
 # tiny() and the reference kernel tests' sweep (tests/test_kernels.py)

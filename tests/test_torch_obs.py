@@ -16,6 +16,7 @@ from repro_torch.core.pipeline import PackedPlcore
 from repro_torch.core.plcore import plcore_decls
 from repro_torch.models.params import init_params
 from repro_torch.obs.metrics import (ENGINE_STATS_SCHEMA, K2_PHASES,
+                                     K2_ROW_COUNTS, K2_ROW_STATS,
                                      TRACE_STATS_SCHEMA, MetricsRegistry,
                                      engine_stats_view, log_buckets)
 from repro_torch.obs.trace import NULL_TRACER, SpanTracer
@@ -201,7 +202,7 @@ def test_trace_block_counts_on_a_fake_clock():
     rounded up, plus the tiles in flight; a rejected submit counts
     nothing), and ``host_wait_s`` one clock step per drain: on the fake
     clock nothing else reads the clock while the drain waits. On the CPU
-    K2's phase counters stay 0."""
+    K2's phase and row counters stay 0."""
     clock = _StepClock()
     eng = _engine(SpanTracer(clock=clock), clock=clock, max_queue=4)
     st = eng.stats
@@ -218,3 +219,30 @@ def test_trace_block_counts_on_a_fake_clock():
     eng.drain()
     assert st["host_wait_s"] == pytest.approx(st["dispatches"] * clock.step)
     assert all(st[f"plcore_two_pass_cycles_{p}"] == 0 for p in K2_PHASES)
+    assert all(st[k] == 0 for k in K2_ROW_STATS)
+
+
+def test_trace_block_holds_k2s_row_in_its_order():
+    """K2's pinned row is its phase cycles, then the MMA rows and the real
+    rows among them; each slot has its counter in the trace block, and a
+    traced drain adds a tile's summed row slot by slot."""
+    keys = [k for k, *_ in TRACE_STATS_SCHEMA]
+    assert K2_ROW_COUNTS == ("rows_mma", "rows_real")
+    assert list(K2_ROW_STATS) == (
+        [f"plcore_two_pass_cycles_{p}" for p in K2_PHASES]
+        + ["plcore_two_pass_rows_mma", "plcore_two_pass_rows_real"])
+    assert keys[:len(K2_ROW_STATS)] == list(K2_ROW_STATS)
+
+    class Handle:
+        def phase_cycles(self):
+            return [70, 10, 5, 10, 100, 384, 256]
+
+    eng = _engine(SpanTracer())
+    for _ in range(2):
+        eng.executor._note_wait(Handle(), 0.25)
+    st = eng.stats
+    assert st["host_wait_s"] == pytest.approx(0.5)
+    assert (st["plcore_two_pass_cycles_mlp"],
+            st["plcore_two_pass_cycles_total"]) == (140, 200)
+    assert (st["plcore_two_pass_rows_mma"],
+            st["plcore_two_pass_rows_real"]) == (768, 512)

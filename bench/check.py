@@ -1,5 +1,5 @@
 """What decides ``correct``: the views the window delivered, held to the
-plain reference.
+plain reference that the configuration names (``ref``, its module).
 
 Every view sent in the window has to come back delivered
 (``undelivered``, limit 0). Of each delivered view a sample of its
@@ -26,8 +26,6 @@ from typing import Dict, List
 
 import numpy as np
 import torch
-
-from bench.reference import nerf as ref
 
 SAMPLE_RAYS = 131072
 MIN_PER_VIEW = 64
@@ -61,10 +59,13 @@ def pick(sent: list, completed: Dict[int, object], seed: int,
     return picks, len(sent) - len(done)
 
 
-def render_picks(cfg: dict, picks: List[Pick], weights: Dict[int, dict],
+def render_picks(ref, cfg: dict, picks: List[Pick],
+                 weights: Dict[int, dict],
                  precision: str = "f64") -> np.ndarray:
     """The reference's pixels (sum of k, 3) for the picks, in their order;
-    ``weights``: scene index -> drawn networks."""
+    ``ref``: the reference module; ``weights``: scene index -> the drawn
+    input. The rays of one scene's picks go to ``ref.render`` together,
+    each of ``ref.pixel_rays``' arrays joined over the views."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = [None] * len(picks)
@@ -74,8 +75,8 @@ def render_picks(cfg: dict, picks: List[Pick], weights: Dict[int, dict],
                                picks[i].view.radius, picks[i].view.hw,
                                picks[i].pixels) for i in mine]
         served = ref.served_weights(cfg, weights[scene])
-        rgb = ref.render(cfg, served, np.concatenate([r[0] for r in rays]),
-                         np.concatenate([r[1] for r in rays]),
+        rgb = ref.render(cfg, served,
+                         *[np.concatenate(parts) for parts in zip(*rays)],
                          precision=precision, block=REF_BLOCK)
         rgb = rgb.double().cpu().numpy()
         off = 0
@@ -92,7 +93,7 @@ def gaps(got: np.ndarray, want: np.ndarray) -> dict:
             "err_max": float(e.max()) if e.size else 0.0}
 
 
-def judge(cfg: dict, picks: List[Pick], weights: Dict[int, dict],
+def judge(ref, cfg: dict, picks: List[Pick], weights: Dict[int, dict],
           got: np.ndarray = None, want: np.ndarray = None) -> dict:
     """The gaps of ``got`` (default: the program's picked pixels) and of
     the float32 reference to the float64 one (``want``, rendered here if
@@ -101,8 +102,9 @@ def judge(cfg: dict, picks: List[Pick], weights: Dict[int, dict],
         got = (np.concatenate([p.got for p in picks]) if picks
                else np.zeros((0, 3)))
     if want is None:
-        want = render_picks(cfg, picks, weights)
-    floor = gaps(render_picks(cfg, picks, weights, precision="f32"), want)
+        want = render_picks(ref, cfg, picks, weights)
+    floor = gaps(render_picks(ref, cfg, picks, weights, precision="f32"),
+                 want)
     mine = gaps(got, want)
     return {**mine, "err_mean_f32": floor["err_mean"],
             "err_ratio": mine["err_mean"] / max(floor["err_mean"], FLOOR)}

@@ -50,19 +50,17 @@ def main(argv=None) -> int:
                               DEVICE)
         t_ref = time.perf_counter()
         got = np.concatenate([p.got for p in run.picks])
-        want = check.render_picks(run.cfg, run.picks, run.weights)
+        sample = (run.ref, run.cfg, run.picks, run.weights)
+        want = check.render_picks(*sample)
         row = {"workload": cell["name"], "seed": seed,
                "undelivered": run.undelivered, "attempted": run.attempted,
                "pixels": len(got), "views": len(run.picks),
-               "program": check.judge(run.cfg, run.picks, run.weights, got,
-                                      want),
+               "program": check.judge(*sample, got, want),
                "reference_s": time.perf_counter() - t_ref}
         if seed in controls:
             for prec in CONTROLS:
-                low = check.render_picks(run.cfg, run.picks, run.weights,
-                                         precision=prec)
-                row[prec] = check.judge(run.cfg, run.picks, run.weights,
-                                        low, want)
+                low = check.render_picks(*sample, precision=prec)
+                row[prec] = check.judge(*sample, low, want)
         row["seconds"] = time.perf_counter() - t0
         rows.append(row)
         print(json.dumps(row), flush=True)

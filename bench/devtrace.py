@@ -1,29 +1,28 @@
 """The device's timeline in a traced run, from ``torch.profiler``.
 
 The run marks its window on the host (``MARK``, a zero-length annotation
-at a known time of the engine's clock) and names what the host does
-around the engine's layers (``HOST_SPANS``, annotations that ``harness``
-wraps around the calls). ``reduce`` reads the exported Chrome trace:
+at a known time of the engine's clock); the host ranges are named by the
+caller (the program's own ranges around its layers, and the harness's
+around its sleep), and so are the kernels whose launches are timed.
+``reduce`` reads the exported Chrome trace:
 
 * ``busy_s``: the union of the device's operations (kernels, copies,
   sets) inside the window; ``window_s`` its length;
 * ``device_ops``: device seconds inside the window by operation name;
-* ``kernel_s``: the durations of every launch of each kernel named in
-  ``KERNELS``, over the whole trace (window and drain);
-* ``idle_by_host``: the window's idle seconds by the innermost host span
-  open at each gap's middle ("none" where none was).
+* ``kernel_s``: the durations of every launch of each kernel in
+  ``kernels``, over the whole trace (window and drain);
+* ``idle_by_host``: the window's idle seconds by the innermost host range
+  open at each gap's middle: the shortest, the least name among equally
+  long ones ("none" where none was open).
 """
 from __future__ import annotations
 
+import heapq
 import json
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 MARK = "bench.mark"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-HOST_SPANS = ("engine.submit", "scheduler.next_tile", "plcore.dispatch",
-              "executor.drain", "completion.scatter", "loop.sleep")
-#: the port's K2 kernel, as the device names its launches
-KERNELS = {"plcore_two_pass": "plcore_two_pass_kernel"}
 
 
 def _union(iv: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -36,9 +35,37 @@ def _union(iv: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return out
 
 
-def reduce(path: str, mark_clock: float, t0: float, t1: float) -> dict:
+def _idle_by_host(gaps: Iterable[Tuple[float, float]],
+                  host: List[Tuple[float, float, str]]) -> Dict[str, float]:
+    """Seconds of the gaps (a, b), in order of time, by the least (length,
+    name) among the host ranges (start, end, name) that hold each gap's
+    middle. One sweep: a range joins a heap when the middles reach its
+    start and leaves it once they have passed its end."""
+    host = sorted(host)
+    idle: Dict[str, float] = {}
+    open_: List[Tuple[float, str, float]] = []
+    j = 0
+    for a, b in gaps:
+        if b <= a:
+            continue
+        mid = (a + b) / 2
+        while j < len(host) and host[j][0] <= mid:
+            s, e, n = host[j]
+            heapq.heappush(open_, (e - s, n, e))
+            j += 1
+        while open_ and open_[0][2] < mid:
+            heapq.heappop(open_)
+        name = open_[0][1] if open_ else "none"
+        idle[name] = idle.get(name, 0.0) + (b - a) / 1e6
+    return idle
+
+
+def reduce(path: str, mark_clock: float, t0: float, t1: float,
+           kernels: Dict[str, str], host: Iterable[str]) -> dict:
     """The device summary of the window [t0, t1] (engine clock, seconds);
-    ``mark_clock`` is the engine clock at the ``MARK`` annotation."""
+    ``mark_clock`` is the engine clock at the ``MARK`` annotation;
+    ``kernels``: key -> a kernel's symbol, as the device names its
+    launches; ``host``: the names of the host ranges for the idle gaps."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
@@ -56,21 +83,16 @@ def reduce(path: str, mark_clock: float, t0: float, t1: float) -> dict:
     for a, b, n in inside:
         ops[n] = ops.get(n, 0.0) + (b - a) / 1e6
     kernel_s = {k: [(b - a) / 1e6 for a, b, n in dev if sym in n]
-                for k, sym in KERNELS.items()}
-    host = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
-             e["name"]) for e in events if e.get("name") in HOST_SPANS]
-    idle: Dict[str, float] = {}
+                for k, sym in kernels.items()}
+    names = frozenset(host)
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+               e["name"]) for e in events if e.get("name") in names]
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    for a, b in zip(edges[0::2], edges[1::2]):
-        if b <= a:
-            continue
-        mid = (a + b) / 2
-        open_ = [(e - s, n) for s, e, n in host if s <= mid <= e]
-        name = min(open_)[1] if open_ else "none"
-        idle[name] = idle.get(name, 0.0) + (b - a) / 1e6
     return {"busy_s": sum(b - a for a, b in busy) / 1e6,
             "window_s": (w1 - w0) / 1e6,
-            "device_ops": ops, "kernel_s": kernel_s, "idle_by_host": idle}
+            "device_ops": ops, "kernel_s": kernel_s,
+            "idle_by_host": _idle_by_host(zip(edges[0::2], edges[1::2]),
+                                          ranges)}
 
 
 def short(name: str) -> str:

@@ -4,10 +4,13 @@ reference, and the result line.
 ``main`` is the command line (``bench/run.py``); ``run_cell`` is a run
 without the look for a card, which the tests drive on the CPU. A run:
 
-1. reads the cell, its configuration and its traffic mix by name;
-2. draws every scene's weights from the seed, loads them all into the
-   engine's cache and warms the tile shape up (``system``): set-up ends
-   here, and ``setup_s`` counts from the process's start;
+1. reads the cell, its configuration and its traffic mix by name, and
+   loads the two modules that the configuration names (``spec.
+   model_module``): its ``reference`` and its ``system``;
+2. draws every scene's weights from the seed with the reference, hands
+   them to the system, which loads them all into the engine's cache and
+   warms the tile shape up: set-up ends here, and ``setup_s`` counts from
+   the process's start;
 3. drives the engine for ``--seconds`` with the mix's loop, then waits for
    every view sent in the window (``traffic``); with ``--trace 1`` under
    ``torch.profiler`` and the engine's span tracer;
@@ -17,6 +20,30 @@ without the look for a card, which the tests drive on the CPU. A run:
 6. reads each of the cell's metrics with its own reader
    (``bench/metrics/<name>.py``): the end-to-end metrics without a trace,
    the per-layer metrics with one.
+
+The reference module holds the model's equations and what follows from
+them, and imports nothing of the program:
+
+* ``draw(cfg, seed, scene, device)``: one scene's input, drawn on the
+  device (``scenes.generator``);
+* ``pixel_rays(theta, phi, radius, hw, pixels)``: a tuple of per-pixel
+  arrays, which ``check`` joins view by view and hands to ``render``;
+* ``served_weights(cfg, drawn)`` and ``render(cfg, served, *rays,
+  precision=, block=)``: the pixels, in ``"f64"``, ``"f32"`` and the
+  controls' ``"tf32"`` and ``"bf16"``;
+* ``param_count(cfg)``, ``flops_per_ray(cfg)``, ``samples_per_ray(cfg)``,
+  ``launch_bytes(cfg, rays)``: the counts the metric readers read
+  (``run.ref``).
+
+The system module holds the program and is the only module of the
+benchmark that imports it:
+
+* ``System(cfg, weights, device, trace)`` with ``engine``, ``residents``,
+  ``tracer`` (None untraced), ``warm_up()``, ``resident_bytes()`` and
+  ``close()``; ``request(view)``, the engine's request for a view;
+* ``KERNELS`` (the device-trace keys of the metric readers -> kernel
+  symbols) and ``HOST_RANGES`` (the program's own host ranges, for the
+  traced run's idle gaps); ``build_seconds()``.
 """
 from __future__ import annotations
 
@@ -36,32 +63,13 @@ from bench import check, devtrace, spec as S, traffic as T, work
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 HOST_THREADS = 4
+#: the host range around the open loop's sleep, the harness's own
+SLEEP = "loop.sleep"
 
 
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is one of ``FORBIDDEN``."""
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
-def _annotate(obj, attr: str, name: str) -> None:
-    fn = getattr(obj, attr)
-
-    def wrapped(*a, **kw):
-        with torch.profiler.record_function(name):
-            return fn(*a, **kw)
-    setattr(obj, attr, wrapped)
-
-
-def _annotate_layers(system) -> None:
-    """Host spans around the calls into the engine's layers, for the
-    traced run's idle gaps (``devtrace.HOST_SPANS``)."""
-    eng = system.engine
-    _annotate(eng, "submit", "engine.submit")
-    _annotate(eng.scheduler, "next_tile", "scheduler.next_tile")
-    _annotate(eng.executor, "_finish_slot", "executor.drain")
-    _annotate(eng.completion, "scatter", "completion.scatter")
-    for pp in system.residents.values():
-        _annotate(pp, "dispatch_tile", "plcore.dispatch")
 
 
 def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
@@ -71,22 +79,21 @@ def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
     readings (the metric readers' ``run``), with the sampled pixels
     (``picks``), the drawn weights and the views not delivered.
     ``mix_over`` changes parameters of the traffic mix (the rate sweep)."""
-    from bench.system import System, request
-    from repro_torch.obs.trace import SpanTracer
-
     clock = time.perf_counter
     t_start = clock() if t_start is None else t_start
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     cfg = S.config(root, spec, cell["config"])
     mix = {**S.traffic(root, cell["traffic"]), **(mix_over or {})}
-    tracer = SpanTracer(capacity=1 << 21) if trace else None
-    system = System(cfg, int(mix["scenes"]), seed, dev, tracer=tracer)
+    ref = S.model_module(root, cfg, "reference")
+    program = S.model_module(root, cfg, "system")
+    weights = {i: ref.draw(cfg, seed, i, dev)
+               for i in range(int(mix["scenes"]))}
+    system = program.System(cfg, weights, dev, trace=trace)
     system.warm_up()
     if plant is not None:
         plant(system)
-    engine = system.engine
-    weights = {int(k[len("scene"):]): v for k, v in system.weights.items()}
+    engine, tracer = system.engine, system.tracer
     log = T.ScatterLog(engine, clock)
     nvml = None
     if on_card and not trace:
@@ -97,10 +104,8 @@ def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
     sleep = time.sleep
     prof = None
     if trace:
-        _annotate_layers(system)
-
         def sleep(s):
-            with torch.profiler.record_function("loop.sleep"):
+            with torch.profiler.record_function(SLEEP):
                 time.sleep(s)
         acts = [torch.profiler.ProfilerActivity.CPU]
         if on_card:
@@ -120,10 +125,11 @@ def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
 
     setup_s = clock() - t_start
     if mix["loop"] == "closed":
-        win = T.run_closed(engine, request, stream, int(mix["clients"]),
-                           seconds, clock, on_open, on_close)
+        win = T.run_closed(engine, program.request, stream,
+                           int(mix["clients"]), seconds, clock, on_open,
+                           on_close)
     elif mix["loop"] == "open":
-        win = T.run_open(engine, request, stream,
+        win = T.run_open(engine, program.request, stream,
                          T.arrivals(mix, seed, seconds), seconds, clock,
                          sleep, on_open, on_close)
     else:
@@ -137,9 +143,15 @@ def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
         if on_card:
             with tempfile.TemporaryDirectory() as tmp:
                 path = os.path.join(tmp, "trace.json")
+                t_export = clock()
                 prof.export_chrome_trace(path)
-                device_summary = devtrace.reduce(path, marks["mark"],
-                                                 win.t0, win.t1)
+                t_reduce = clock()
+                device_summary = devtrace.reduce(
+                    path, marks["mark"], win.t0, win.t1, program.KERNELS,
+                    program.HOST_RANGES + (SLEEP,))
+                t_done = clock()
+            print(f"bench: trace exported in {t_reduce - t_export} s, "
+                  f"reduced in {t_done - t_reduce} s", file=sys.stderr)
         prof = None
     peak_bytes = torch.cuda.max_memory_allocated(dev) if on_card else 0
     resident_bytes = system.resident_bytes()
@@ -188,7 +200,7 @@ def measure(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
         backlog_at_close=sum(1 for s in win.sent
                              if log.done_at.get(s.rid, float("inf"))
                              > win.t1),
-        undelivered=undelivered, picks=picks, weights=weights)
+        undelivered=undelivered, picks=picks, weights=weights, ref=ref)
 
 
 def run_cell(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
@@ -198,7 +210,7 @@ def run_cell(root: Path, spec: dict, cell: dict, seed: int, seconds: float,
     (tests) may change the system after set-up, before the window."""
     run = measure(root, spec, cell, seed, seconds, trace, device, t_start,
                   plant)
-    numbers = check.judge(run.cfg, run.picks, run.weights)
+    numbers = check.judge(run.ref, run.cfg, run.picks, run.weights)
     compared = check.compared(run.cfg, run.undelivered, numbers)
     correct = check.verdict(compared) and bool(run.picks)
     metrics = {}
@@ -256,9 +268,10 @@ def main(argv, t_start: float, root: Path) -> int:
     if found:
         print(f"bench: the run loaded {found}", file=sys.stderr)
         return 3
-    from repro_torch.kernels import build
+    program = S.model_module(root, S.config(root, spec, cell["config"]),
+                             "system")
     print(f"bench: {result['device']['kind']}, kernel library built in this "
-          f"run: {build.BUILD_LOG['seconds']} s", file=sys.stderr)
+          f"run: {program.build_seconds()} s", file=sys.stderr)
     if "generator_late_ms" in result:
         print(f"bench: generator late {result['generator_late_ms']}",
               file=sys.stderr)

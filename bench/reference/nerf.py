@@ -40,7 +40,26 @@ bits, ``"bf16"`` to 7, the products then exact and summed in float32;
 ``"f32"`` is plain float32. Those are the controls: the reference computed
 a step below the precision the configuration states.
 
-This module imports torch and numpy only.
+The counts of the work (``flops_per_ray``, ``samples_per_ray``,
+``launch_bytes``) follow from the configuration alone, whatever kernel
+does the work: model FLOPs per ray are 2 x (one network's weights) x
+(sample evaluations: ``n_coarse`` by the coarse network, ``n_coarse +
+n_fine`` by the fine one); biases, encodings, the resample and the VRU are
+left out, and so are the padding and any product an implementation
+splits or repeats. Bytes per launch: each ray's inputs (origin,
+direction) and outputs (rgb, coarse rgb, acc, coarse acc, depth) once,
+and the launch's weights once: 4 bytes per float32 weight, 2 per RMCM
+weight (the two exact heads and the biases at 4).
+
+The scenes' weights, the benchmark's input, are drawn here (``draw``):
+every weight matrix is normal with standard deviation sqrt(2 / fan-in)
+where a ReLU follows it (the trunk, the colour layer) and 1 / sqrt(fan-in)
+elsewhere; every bias is normal with standard deviation ``BIAS_STD``
+around 0, the density head's around ``DENSITY_BIAS``, so that most draws
+hold opaque matter and few render as an empty, white view. A distinct
+draw stands in for a distinct trained scene.
+
+This module imports torch, numpy and the benchmark's ``scenes`` only.
 """
 from __future__ import annotations
 
@@ -49,6 +68,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from bench import scenes
 
 #: the resample's CDF floor and grid end, and the last sample's delta
 PDF_EPS = 1e-5
@@ -59,6 +80,15 @@ RMCM_LAYERS = ("trunk", "feat", "color0")
 _NIBBLE = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 8, 10, 10, 12, 12, 14, 14])
 
 PRECISIONS = ("f64", "f32", "tf32", "bf16")
+#: the drawn biases' spread, and the density head's mean
+BIAS_STD = 0.1
+DENSITY_BIAS = 1.0
+#: the layers whose weights a ReLU follows
+RELU_LAYERS = ("trunk", "color0")
+#: a ray's inputs (origin, direction) and outputs (rgb, coarse rgb, acc,
+#: coarse acc, depth) in float32
+RAY_IN_BYTES = 6 * 4
+RAY_OUT_BYTES = 9 * 4
 
 
 def layers(cfg: dict) -> List[Tuple[str, int, int]]:
@@ -91,6 +121,32 @@ def param_count(cfg: dict) -> int:
     return sum(i * o + o for _, i, o in layers(cfg))
 
 
+# ------------------------------------------------------------------ work --
+def samples_per_ray(cfg: dict) -> int:
+    """Sample evaluations per ray: the coarse set by the coarse network,
+    then the coarse and fine sets by the fine one (``serve`` counts energy
+    per sample so)."""
+    return 2 * cfg["n_coarse"] + cfg["n_fine"]
+
+
+def flops_per_ray(cfg: dict) -> int:
+    return 2 * weight_count(cfg) * samples_per_ray(cfg)
+
+
+def weight_bytes(cfg: dict) -> int:
+    """Both networks' weights and biases as one launch reads them once."""
+    total = 0
+    for name, i, o in layers(cfg):
+        quantized = (cfg["weights"] == "rmcm"
+                     and name.split(".")[0] in RMCM_LAYERS)
+        total += i * o * (2 if quantized else 4) + 4 * o
+    return 2 * total
+
+
+def launch_bytes(cfg: dict, rays: int) -> int:
+    return rays * (RAY_IN_BYTES + RAY_OUT_BYTES) + weight_bytes(cfg)
+
+
 # ------------------------------------------------------------------ rays --
 def pose(theta_deg: float, phi_deg: float, radius: float):
     """(rotation (3, 3), origin (3,)) of a camera on a sphere looking at the
@@ -121,6 +177,25 @@ def pixel_rays(theta: float, phi: float, radius: float, hw: int,
 
 
 # --------------------------------------------------------------- weights --
+def draw(cfg: dict, seed: int, scene: int, device) -> dict:
+    """The scene's networks, in one ``torch.randn`` call on ``device``:
+    {"coarse", "fine"} -> {layer name: (w (in, out), b (out,))}."""
+    gen = scenes.generator(seed, scene, device)
+    z = torch.randn(2 * param_count(cfg), generator=gen, device=device)
+    nets, off = {}, 0
+    for net in ("coarse", "fine"):
+        lay = {}
+        for name, i, o in layers(cfg):
+            gain = 2.0 if name.split(".")[0] in RELU_LAYERS else 1.0
+            w = z[off:off + i * o].view(i, o) * (gain / i) ** 0.5
+            off += i * o
+            b = z[off:off + o] * BIAS_STD
+            lay[name] = (w, b + DENSITY_BIAS if name == "sigma" else b)
+            off += o
+        nets[net] = lay
+    return nets
+
+
 def rmcm_dequantize(w: torch.Tensor) -> torch.Tensor:
     """The RMCM value of each float32 weight of a (K, N) matrix, float32."""
     amax = w.abs().amax(dim=0, keepdim=True)

@@ -1,14 +1,15 @@
-"""The system under test: the port's serving engine over its scene cache,
-as ``serve --mode engine --full --kernel --fuse-two-pass [--rmcm]`` builds
-it, from the library.
+"""The system under test of the NeRF configurations: the port's serving
+engine over its scene cache, as ``serve --mode engine --full --kernel
+--fuse-two-pass [--rmcm]`` builds it, from the library.
 
-Each scene's weights are the benchmark's input (``scenes.draw``); the
-program gets a copy of them, packed by ``PackedPlcore`` (and quantized by
-the port's RMCM for that format). Every scene of the cell is loaded into
-the cache here, and the tile shape is warmed up, so no load and no first
-launch falls in the window.
+Each scene's weights are the benchmark's input (the reference's
+``draw``); the program gets a copy of them, packed by ``PackedPlcore``
+(and quantized by the port's RMCM for that format). Every scene of the
+cell is loaded into the cache here, and the tile shape is warmed up, so no
+load and no first launch falls in the window.
 
-This is the only module of the benchmark that imports the program.
+A configuration names this module as its ``system``; it is the only module
+of the benchmark that imports the program.
 """
 from __future__ import annotations
 
@@ -16,12 +17,22 @@ import dataclasses
 
 import torch
 
-from bench import scenes as S
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.core import rmcm
 from repro_torch.core.pipeline import PackedPlcore
+from repro_torch.kernels import build
+from repro_torch.obs.trace import SpanTracer
 from repro_torch.serving.engine import RenderEngine, RenderRequest
 from repro_torch.serving.scene_cache import SceneCache, plcore_nbytes
+
+#: the device-trace keys that metric readers use -> the kernel's symbol
+#: as the device names its launches (K2)
+KERNELS = {"plcore_two_pass": "plcore_two_pass_kernel"}
+#: the engine's own host ranges around its layers (``SpanTracer.range``)
+HOST_RANGES = ("engine.submit", "scheduler.next_tile", "plcore.dispatch",
+               "executor.drain", "completion.scatter")
+#: closed spans the tracer of a traced run keeps
+TRACE_CAPACITY = 1 << 21
 
 _FIELDS = {f.name for f in dataclasses.fields(NerfConfig)}
 
@@ -60,26 +71,34 @@ def request(view) -> RenderRequest:
                          theta=view.theta, phi=view.phi, radius=view.radius)
 
 
-class System:
-    """The engine of one run, its residents and the drawn weights."""
+def build_seconds():
+    """Seconds this process spent building the kernel library (None when
+    it found the library built)."""
+    return build.BUILD_LOG["seconds"]
 
-    def __init__(self, cfg: dict, n_scenes: int, seed: int, device,
-                 tracer=None):
+
+class System:
+    """The engine of one run and its residents. ``weights``: scene index ->
+    the networks the reference drew; ``trace``: the engine gets a span
+    tracer (``tracer``, else None)."""
+
+    def __init__(self, cfg: dict, weights: dict, device, trace: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.weights = {scene_id(i): S.draw(cfg, seed, i, self.device)
-                        for i in range(n_scenes)}
+        self.tracer = SpanTracer(capacity=TRACE_CAPACITY) if trace else None
+        self.weights = {scene_id(i): nets for i, nets in weights.items()}
         self.cache = SceneCache(
             lambda sid: load(cfg, self.weights[sid], self.device),
             capacity_mb=float(cfg["cache_mb"]))
         self.engine = RenderEngine(
             self.cache, tile_rays=int(cfg["tile_rays"]),
             pipeline_depth=int(cfg["pipeline_depth"]),
-            max_sticky_tiles=int(cfg["max_sticky_tiles"]), tracer=tracer)
+            max_sticky_tiles=int(cfg["max_sticky_tiles"]),
+            tracer=self.tracer)
         self.residents = {sid: self.cache.get(sid) for sid in self.weights}
-        if len(self.cache) != n_scenes:
+        if len(self.cache) != len(weights):
             raise RuntimeError(f"the cache of {cfg['cache_mb']} MB holds "
-                               f"{len(self.cache)} of {n_scenes} scenes")
+                               f"{len(self.cache)} of {len(weights)} scenes")
 
     def resident_bytes(self) -> int:
         return sum(plcore_nbytes(pp) for pp in self.residents.values())

@@ -36,9 +36,10 @@ def traffic(loop: str = "closed", **over) -> dict:
 
 
 def make_root(tmp: Path, cells: dict) -> tuple:
-    """A root holding the benchmark's metrics and one configuration and one
-    traffic file per cell: ``cells`` name -> (config dict, traffic dict).
-    Returns (root, spec)."""
+    """A root holding the benchmark's metrics, one configuration and one
+    traffic file per cell (``cells`` name -> (config dict, traffic dict)),
+    and the model modules that the configurations name where the
+    benchmark has them. Returns (root, spec)."""
     tmp = Path(tmp)
     shutil.copytree(BENCH / "metrics", tmp / "bench" / "metrics")
     (tmp / "bench" / "configs").mkdir(parents=True)
@@ -46,6 +47,11 @@ def make_root(tmp: Path, cells: dict) -> tuple:
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     spec["configs"], spec["workloads"] = [], []
     for name, (cfg, mix) in cells.items():
+        for role in ("reference", "system"):
+            src, dst = ROOT / cfg[role], tmp / cfg[role]
+            if src.exists() and not dst.exists():
+                dst.parent.mkdir(parents=True, exist_ok=True)
+                shutil.copy(src, dst)
         path = f"bench/configs/{name}.json"
         (tmp / path).write_text(json.dumps(cfg))
         (tmp / "bench" / "traffic" / f"{name}.json").write_text(

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench import check, harness, scenes, spec as S
+from bench import check, harness, spec as S
 from bench.reference import nerf as ref
 from bench.tests import cells
 
@@ -67,7 +67,7 @@ def test_open_loop_cell_on_the_cpu(tmp_path):
 def test_rmcm_copy_equals_the_ports_quantization():
     from repro_torch.core import rmcm
     cfg = cells.config("rmcm", tiny=False)
-    nets = scenes.draw(cfg, 7, 0, "cpu")
+    nets = ref.draw(cfg, 7, 0, "cpu")
     for name, (w, _) in nets["fine"].items():
         ours = ref.rmcm_dequantize(w)
         theirs = rmcm.dequantize(rmcm.quantize(w))
@@ -76,9 +76,9 @@ def test_rmcm_copy_equals_the_ports_quantization():
 
 def test_weights_repeat_by_seed_and_scene():
     cfg = cells.config("f32")
-    a = scenes.draw(cfg, 2 ** 31 + 5, 1, "cpu")["coarse"]["trunk.0"][0]
-    b = scenes.draw(cfg, 2 ** 31 + 5, 1, "cpu")["coarse"]["trunk.0"][0]
-    c = scenes.draw(cfg, 2 ** 31 + 5, 2, "cpu")["coarse"]["trunk.0"][0]
+    a = ref.draw(cfg, 2 ** 31 + 5, 1, "cpu")["coarse"]["trunk.0"][0]
+    b = ref.draw(cfg, 2 ** 31 + 5, 1, "cpu")["coarse"]["trunk.0"][0]
+    c = ref.draw(cfg, 2 ** 31 + 5, 2, "cpu")["coarse"]["trunk.0"][0]
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 

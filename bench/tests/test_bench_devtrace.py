@@ -1,10 +1,15 @@
 """The reduction of a profiler trace to the device's busy time, its
 operations, K2's launches and the idle gaps by host span."""
 import json
+import random
 
 import pytest
 
 from bench import devtrace
+
+KERNELS = {"plcore_two_pass": "plcore_two_pass_kernel"}
+HOST = ("engine.submit", "scheduler.next_tile", "plcore.dispatch",
+        "executor.drain", "completion.scatter", "loop.sleep")
 
 
 def _ev(name, cat, ts, dur):
@@ -29,7 +34,7 @@ def test_reduce(tmp_path):
     ]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    r = devtrace.reduce(str(path), 100.0, 100.5, 101.5)
+    r = devtrace.reduce(str(path), 100.0, 100.5, 101.5, KERNELS, HOST)
     assert r["window_s"] == pytest.approx(1.0)
     # busy: 1.5..1.6 and 1.7..2.0 (the copy inside the kernel)
     assert r["busy_s"] == pytest.approx(0.4)
@@ -56,4 +61,74 @@ def test_reduce_needs_the_mark(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": []}))
     with pytest.raises(RuntimeError):
-        devtrace.reduce(str(path), 0.0, 0.0, 1.0)
+        devtrace.reduce(str(path), 0.0, 0.0, 1.0, KERNELS, HOST)
+
+
+def _scan(path, mark_clock, t0, t1, host):
+    """The idle gaps by host range as the parent commit 2bfbd91 read them:
+    every range scanned for every gap (the oracle of the sweep)."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    marks = [e for e in events if e.get("name") == devtrace.MARK]
+    base = float(marks[0]["ts"]) - mark_clock * 1e6
+    w0, w1 = base + t0 * 1e6, base + t1 * 1e6
+    dev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+            e["name"]) for e in events
+           if e.get("cat") in devtrace.DEVICE_CATS]
+    inside = [(max(a, w0), min(b, w1), n) for a, b, n in dev
+              if b > w0 and a < w1]
+    busy = devtrace._union([(a, b) for a, b, _ in inside])
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+              e["name"]) for e in events if e.get("name") in host]
+    idle = {}
+    edges = [w0] + [x for iv in busy for x in iv] + [w1]
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        mid = (a + b) / 2
+        open_ = [(e - s, n) for s, e, n in spans if s <= mid <= e]
+        name = min(open_)[1] if open_ else "none"
+        idle[name] = idle.get(name, 0.0) + (b - a) / 1e6
+    return idle
+
+
+def _synthetic(seed):
+    """A trace on a grid of 10 us, so that ranges nest, repeat, abut and
+    end exactly at a gap's middle: device operations, some overlapping,
+    and host ranges of the listed names and of others."""
+    rng = random.Random(seed)
+    ev = [_ev(devtrace.MARK, "user_annotation", 0, 0)]
+    t = 0
+    for _ in range(300):
+        t += 10 * rng.randint(0, 4)
+        ev.append(_ev(rng.choice(["k1", "k2", "Memcpy HtoD"]),
+                      rng.choice(devtrace.DEVICE_CATS), t,
+                      10 * rng.randint(0, 6)))
+    names = list(HOST) + ["other.range"]
+    for _ in range(400):
+        s = 10 * rng.randint(-5, t // 10 + 5)
+        d = 10 * rng.randint(0, 30)
+        ev.append(_ev(rng.choice(names), "user_annotation", s, d))
+        if rng.random() < 0.2:          # the same range twice, or nested
+            ev.append(_ev(rng.choice(names), "user_annotation", s, d))
+        if rng.random() < 0.2:          # abutting: starts where it ends
+            ev.append(_ev(rng.choice(names), "user_annotation", s + d,
+                          10 * rng.randint(0, 10)))
+    rng.shuffle(ev)
+    return ev, t
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_sweep_equals_the_scan(tmp_path, seed):
+    """The sweep's idle gaps by host range equal the old scan's exactly,
+    ties included (the least length, then the least name)."""
+    events, end = _synthetic(seed)
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    t0, t1 = 25e-6, (end - 15) * 1e-6
+    r = devtrace.reduce(str(path), 0.0, t0, t1, KERNELS, HOST)
+    want = _scan(str(path), 0.0, t0, t1, HOST)
+    assert len(want) >= 3
+    assert r["idle_by_host"] == want
+    assert list(r["idle_by_host"]) == list(want)

@@ -6,6 +6,7 @@ from types import SimpleNamespace
 import pytest
 
 from bench import spec as S, traffic as T
+from bench.reference import nerf
 from bench.tests import cells
 
 MIX = {"loop": "open", "rate_rps": 8.0, "hw": [64, 128, 256], "scenes": 16,
@@ -73,7 +74,7 @@ def _run(**kw):
                 queueing_s=[], service_s=[], device=None, peak=None,
                 stats0={"padded_rays": 0, "rays_rendered": 0},
                 stats1={"padded_rays": 0, "rays_rendered": 0},
-                dispatch_s=[], coalesced_rays=[], setup_s=1.0)
+                dispatch_s=[], coalesced_rays=[], setup_s=1.0, ref=nerf)
     base.update(kw)
     return SimpleNamespace(**base)
 

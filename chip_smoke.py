@@ -272,6 +272,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    restart from step 600, the final loss below the stream's unigram
    entropy (``lm e2e:``, with the wall time). At the example's default
    300 steps the loss is still above it (the reference's own curve too).
+27. K2's Mip-NeRF instance (``mip_phase``, after step 11): one 128x128
+   view of cones (16384 rays) at the published ``MipNerfConfig`` and at
+   its tiny(), against ``ref.mip_two_pass_ref`` (TF32 off) at rgb/acc
+   1e-3, depth 1e-2, both timed beside the bound of one network's layers
+   at both levels; the traced instance's bits equal the untraced, its
+   phase shares and the encoding's share printed (``K2 mipnerf ...:``).
+   Only this phase: ``import chip_smoke as cs; cs.build.build();
+   cs.mip_phase(cs.peak_flops())`` from a script in ``build/``.
+28. Mip-NeRF's main path (``mip_engine_phase``, after step 27): ``serve
+   --mode engine --model mipnerf --full --kernel --fuse-two-pass`` on 6
+   views of 64x64 and 128x128 over 3 scenes, clean and with
+   ``--inject-faults``, launch counts zeroed just before each run and
+   read just after: K2's Mip-NeRF instance runs once a dispatch attempt
+   that did not raise and once an oracle rung (the model has no second
+   kernel: the rung relaunches it), and no other kernel runs; every clean
+   image equals a direct render of its view's cones bit for bit, and the
+   ``--check`` gates hold. Its launches go into the ``kernels`` row of
+   ``mip_two_pass_call``, with step 27's times and bound.
 
 Every main-path run zeroes the launch counters just before and reads
 them just after; the instances the main path runs (tiny()'s K2 in f32 and
@@ -306,6 +324,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config, list_archs, smoke_config  # noqa: E402
 from repro_torch.configs.nerf_icarus import CONFIG, tiny  # noqa: E402
+from repro_torch.configs import mipnerf as mip_configs  # noqa: E402
+from repro_torch.core import mipnerf  # noqa: E402
 from repro_torch.core import (encoding, mlp, nerf_train, plcore,  # noqa: E402
                               rmcm, sampling, sdf, slf)
 from repro_torch.core.pipeline import (AdaptiveRenderer,  # noqa: E402
@@ -692,6 +712,123 @@ def kernel_phase(cfg, params, peaks: dict) -> dict:
         "bound_ms_rmcm": bounds[rmcm_row]["bound_ms"],
         "bound_ms_fp32_rmcm": bounds[rmcm_row]["bound_ms_fp32"]})
     return rows_out
+
+
+def mip_phase(peaks: dict) -> dict:
+    """K2's Mip-NeRF instance (``mip_two_pass_call``) against its plain
+    version (``ref.mip_two_pass_ref``, TF32 off) on one 128x128 view of
+    cones (16384 rays) at the main path's ray tile, at the published width
+    and at tiny(): rgb/acc within 1e-3, depth 1e-2 (K2's f32 tolerances).
+    Both timed with CUDA events beside the least time of the work (one
+    network's layers at both levels: ``plcore_bounds`` with 2 x n_samples
+    evaluations and two direction parts a ray); the traced instance gives
+    the same bits, and its phase shares and the encoding's share."""
+    from repro_torch.obs.metrics import K2_MIP_ROW_STATS
+    out = {}
+    o, d, r = rays.mip_view_rays(45.0, -25.0, 4.0, HW)
+    cones = torch.from_numpy(np.concatenate([o, d, r], axis=1)).to(DEV)
+    R = cones.shape[0]
+    for label, cfg in (("full", mip_configs.CONFIG),
+                       ("tiny", mip_configs.tiny())):
+        params = init_params(mipnerf.mip_decls(cfg),
+                             torch.Generator().manual_seed(4))
+        pp = mipnerf.PackedMipNerf(cfg, params, use_kernel=True, device=DEV)
+        rt = ops.pick_ray_tile(R, DEV, fused_plcore.mip_blocks_per_sm(cfg,
+                                                                      DEV))
+        t_row, u_row = ops.mip_sample_rows(cfg, DEV)
+        plain_net = {k: v for k, v in pp.packed.items() if k != "mma"}
+        args = (cfg, pp.packed, cones, t_row, u_row)
+        ms, got = cuda_ms(lambda: fused_plcore.mip_two_pass_call(
+            *args, rt=rt), 3)
+        plain_ms, want = cuda_ms(lambda: ref.mip_two_pass_ref(
+            cfg, plain_net, cones, t_row, u_row, rt=PLAIN_RT), 1)
+        err = check(f"K2 mipnerf {label}", got, want,
+                    (1e-3, 1e-3, 1e-3, 1e-3, 1e-2))
+        phase = torch.zeros((R, len(K2_MIP_ROW_STATS)), dtype=torch.int64,
+                            pin_memory=True)
+        traced = fused_plcore.mip_two_pass_call(*args, rt=rt,
+                                                phase_cycles=phase)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, traced)), label
+        c = dict(zip(K2_MIP_ROW_STATS, phase.sum(0).tolist()))
+        total = c["plcore_two_pass_cycles_total"]
+        shares = {k.rsplit("_", 1)[-1] if "cycles" in k else k:
+                  100.0 * v / total for k, v in c.items()
+                  if "cycles" in k and not k.endswith("total")}
+        assert c["plcore_two_pass_rows_real"] <= c["plcore_two_pass_rows_mma"]
+        assert 0 < c["plcore_two_pass_cycles_encode"] \
+            <= c["plcore_two_pass_cycles_scalar"], c
+        n_bytes = nbytes(cones, t_row, u_row, plain_net) + 4 * R * 9
+        b = plcore_bounds(cfg, R, 2 * cfg.n_samples, 2, n_bytes, False, peaks)
+        print(f"K2 mipnerf {label}: {ms:.3f} ms at ray tile {rt}; "
+              f"tensor-core bound {b['bound_ms']:.3f} ms ({100 * b['bound_ms'] / ms:.1f}% of it, "
+              f"by {b['bound_by']}); plain {plain_ms:.3f} ms; phase shares "
+              f"{ {k: round(v, 2) for k, v in shares.items()} }; row fill "
+              f"{100 * c['plcore_two_pass_rows_real'] / c['plcore_two_pass_rows_mma']:.1f}%",
+              flush=True)
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "ray_tile": rt, "phase_pct": shares, **b}
+    return out
+
+
+MIP_ENGINE_ARGV = ["--mode", "engine", "--model", "mipnerf", "--full",
+                   "--kernel", "--fuse-two-pass", "--scenes", "3",
+                   "--requests", "6", "--hw-mix", "64,128", "--loop",
+                   "closed", "--concurrency", "2", "--pipeline-depth", "2",
+                   "--tile-rays", "4096", "--check"]
+
+
+def mip_engine_phase(extra: list) -> dict:
+    """Mip-NeRF's main path through ``serve --mode engine --model
+    mipnerf`` (its run, then its ``--check`` gates), launch counts zeroed
+    just before the run and read just after it: K2's Mip-NeRF instance
+    once a dispatch attempt that did not raise and once an oracle rung, no
+    NeRF kernel; every clean image equal bit for bit to a direct render of
+    its view's cones (``PackedMipNerf.render_tile``, one launch a view)."""
+    args = serve.build_parser().parse_args(MIP_ENGINE_ARGV + extra)
+    zero_launches()
+    report, engine, trace, rerun = serve.run_engine(args)
+    launches = read_launches()
+    st, rb = report["engine"], report["robustness"]
+    assert report["device"].startswith("cuda"), report["device"]
+    label = "chaos" if args.inject_faults else "clean"
+    if not args.inject_faults:
+        assert (rb["dispatch_errors"], rb["tile_retries"],
+                rb["oracle_fallbacks"]) == (0, 0, 0), rb
+    mip = launches.get("mip_two_pass_call", 0)
+    assert mip == (st["dispatches"] + st["tile_retries"]
+                   - st["dispatch_errors"] + st["oracle_fallbacks"]), (
+        launches, st)
+    assert mip >= 1 and launches["two_pass_plcore_call"] == 0 and \
+        launches["fused_plcore_call"] == 0, launches
+    n_exact = 0
+    models = {}
+    for rid, item in enumerate(trace):
+        res = engine.completed[rid]
+        if res.status != "ok" or res.fallbacks or res.retries:
+            continue
+        req = item.request
+        if req.scene_id not in models:
+            models[req.scene_id] = serve.load_plcore(
+                serve.model_config(args), args,
+                args.seed + int(req.scene_id.removeprefix("scene")))
+        cones = rays.mip_view_rays(req.theta, req.phi, req.radius, req.hw)
+        direct = models[req.scene_id].render_tile(*cones).cpu().numpy()
+        assert np.array_equal(res.image.reshape(-1, 3), direct), (
+            rid, float(np.abs(res.image.reshape(-1, 3) - direct).max()))
+        n_exact += 1
+    assert n_exact >= 1, (n_exact, rb)
+    compared = serve.check_engine(args, report, engine, rerun)
+    summary = {"run": label, "rays_per_s": report["rays_per_s"],
+               "dispatches": st["dispatches"],
+               "tile_retries": rb["tile_retries"],
+               "dispatch_errors": rb["dispatch_errors"],
+               "oracle_fallbacks": rb["oracle_fallbacks"],
+               "status_counts": rb["status_counts"],
+               "launches": launches, "images_exact_vs_direct": n_exact,
+               "check_compared": compared}
+    print(f"mipnerf engine {label}: {json.dumps(summary)}", flush=True)
+    return summary
 
 
 def k3_weights(k: int, n: int, gen, copies: int = 1) -> list:
@@ -3811,6 +3948,9 @@ def main() -> None:
     mesh_paths = mesh_paths_phase()
     rows = kernel_phase(cfg, params, peaks)
     width_rows = width_phase(peaks)
+    mip_rows = mip_phase(peaks)
+    mip_engine = {label: mip_engine_phase(extra) for label, extra in
+                  (("clean", []), ("chaos", ["--inject-faults"]))}
 
     k3_row = k3_phase(peaks)
     sdf_run = sdf_phase(peaks)
@@ -3900,6 +4040,24 @@ def main() -> None:
                                        "the trained scene's adaptive view",
                         "alive_mask": "every third ray dead",
                         **row, "library_ms": None})
+    mip_launches = {label: run["launches"].get("mip_two_pass_call", 0)
+                    for label, run in mip_engine.items()}
+    kernels.append({"name": "mip_two_pass_call", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/plcore_mip.cuh",
+                    "header": HEADER,
+                    "mma_route": "wgmma: 3xTF32 (f32 weights); one weight "
+                                 "stream read by both levels",
+                    "replaces": REPLACES[k2],
+                    "launches": sum(mip_launches.values()),
+                    "launches_by_run": mip_launches,
+                    "launches_on": "serve --mode engine --model mipnerf, "
+                                   "clean and with --inject-faults (its "
+                                   "oracle rung included)",
+                    "launches_by_instance": {
+                        i: n for r in mip_engine.values()
+                        for i, n in r["launches"]["instances"].items()},
+                    **{k: v for k, v in mip_rows["full"].items()},
+                    "tiny": mip_rows["tiny"], "library_ms": None})
     kernels.append({"name": "rmcm_matmul", "route": "cuda",
                     "source": SOURCE["rmcm_matmul"], "header": HEADER,
                     "mma_route": "wgmma: bf16x3 (f32 x), bf16 (bf16 x); "
@@ -3949,7 +4107,10 @@ def main() -> None:
                       "render_step": render_step["row"],
                       "k1_vs_fused_render_ref": k1_ref, "dryrun": dry,
                       "mesh_paths": mesh_paths,
-                      "lm_e2e": lm_e2e,
+                      "lm_e2e": lm_e2e, "mipnerf_k2": mip_rows,
+                      "mipnerf_engine": {label: {
+                          k: v for k, v in run.items() if k != "launches"}
+                          for label, run in mip_engine.items()},
                       "main_path_instances": instances}))
     print(card)
     print(json.dumps({"kernels": kernels}))

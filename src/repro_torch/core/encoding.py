@@ -132,3 +132,65 @@ class PEU:
             return fn(x, self.n_freqs, self.include_input)
         enc = fourier_features(x, self.A.to(x.dtype))
         return torch.cat([x, enc], dim=-1) if self.include_input else enc
+
+
+# ------------------------------------------- Mip-NeRF: integrated encoding --
+# Mip-NeRF (arXiv:2103.13415, ``internal/mip.py``) casts a cone per pixel:
+# the interval [t0, t1] of a ray is a conical frustum, which it stands in
+# for by a Gaussian (its mean and diagonal covariance) and encodes by the
+# expected value of the sines and cosines over that Gaussian. The forms
+# here are mip-NeRF's stable ones, each operation rounded on its own, in
+# the order the fused kernel computes them.
+
+def frustum_rows(t0: torch.Tensor, t1: torch.Tensor):
+    """The along-ray moments of the conical frustums [t0, t1]: (t_mean,
+    t_var, r_var / r^2), with mu and hw the interval's middle and half
+    width. They depend on the edges alone, so a row of edges shared by
+    every ray gives one row of moments."""
+    mu = (t0 + t1) * 0.5
+    hw = (t1 - t0) * 0.5
+    mu2, hw2 = mu * mu, hw * hw
+    den = 3.0 * mu2 + hw2
+    hw4 = hw2 * hw2
+    t_mean = mu + (2.0 * mu * hw2) / den
+    t_var = hw2 / 3.0 - (4.0 / 15.0) * ((hw4 * (12.0 * mu2 - hw2))
+                                        / (den * den))
+    r_unit = mu2 / 4.0 + (5.0 / 12.0) * hw2 - (4.0 / 15.0) * hw4 / den
+    return t_mean, t_var, r_unit
+
+
+def lift_gaussian(o, d, r, t_mean, t_var, r_unit):
+    """Each frustum's Gaussian in space: mean o + d t_mean and the diagonal
+    covariance t_var d^2 + r^2 r_unit (1 - d^2 / |d|^2), for rays o, d
+    (..., 3) and cone radii r (...,) over moments (..., N). Returns (mean,
+    cov), each (..., N, 3)."""
+    d2 = d * d
+    mag = torch.clamp((d2[..., 0] + d2[..., 1]) + d2[..., 2], min=1e-10)
+    null = 1.0 - d2 / mag[..., None]                        # (..., 3)
+    r_var = (r * r)[..., None] * r_unit                     # (..., N)
+    mean = o[..., None, :] + d[..., None, :] * t_mean[..., None]
+    cov = (t_var[..., None] * d2[..., None, :]
+           + r_var[..., None] * null[..., None, :])
+    return mean, cov
+
+
+def integrated_pos_enc(mean, cov, min_deg: int, max_deg: int):
+    """The IPE of Gaussians (..., 3) x 2: for each degree l of [min_deg,
+    max_deg) and axis a, sin(2^l x_a) exp(-4^l var_a / 2), then the same
+    cosines: all sines of every degree first, as mip-NeRF orders them. The
+    cosine is cos(y), the exact value of mip-NeRF's sin(y + pi / 2)."""
+    scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=mean.dtype,
+                                 device=mean.device)
+    shape = mean.shape[:-1] + (-1,)
+    y = (mean[..., None, :] * scales[:, None]).reshape(shape)
+    v = (cov[..., None, :] * (scales * scales)[:, None]).reshape(shape)
+    w = torch.exp(-0.5 * v)
+    return torch.cat([w * torch.sin(y), w * torch.cos(y)], dim=-1)
+
+
+def mip_dir_encoding(x: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """Mip-NeRF's view-direction encoding: [x, sin(2^l x) for every degree
+    and axis, then the cosines] (degree-major, axes within a degree)."""
+    scales = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+    xb = (x[..., None, :] * scales[:, None]).reshape(x.shape[:-1] + (-1,))
+    return torch.cat([x, torch.sin(xb), torch.cos(xb)], dim=-1)

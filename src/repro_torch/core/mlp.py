@@ -119,6 +119,12 @@ def logistic(x):
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+def softplus(x):
+    """softplus as jax.nn.softplus computes it, log(1 + e^x) = max(x, 0) +
+    log1p(exp(-|x|)) (Mip-NeRF's density head)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def nerf_mlp_apply(cfg: NerfConfig, params: dict, pe_pos, pe_dir,
                    quant: Optional[dict] = None):
     """(pe_pos (..., pos_enc_dim), pe_dir (..., de) or per-ray (R,1,de))

@@ -148,7 +148,50 @@ def _materialize(cfg: NerfConfig, params, quant, packed, shard_mesh,
     return new_p, new_q, None
 
 
-class PackedPlcore:
+class TileIO:
+    """How a resident's tiles meet the card, shared by the resident
+    models (``PackedPlcore``, ``core.mipnerf.PackedMipNerf``): uploads
+    without a stream sync, a tile's start event and its ``TileHandle``.
+    The resident sets ``device``."""
+
+    def tile_start(self):
+        """On the card, a timing event recorded now on the current stream:
+        the start of a tile's device work, for ``handle``; None on the
+        CPU."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def handle(self, rgb: torch.Tensor, start=None,
+               phase=None) -> TileHandle:
+        """A ``TileHandle`` for pixels rendered on the card or the CPU (the
+        pixels' own device decides): on the card, a non-blocking copy into
+        pinned host memory and a timing event after it on the current
+        stream (``start``: the event of ``tile_start`` before the render);
+        on the CPU, the pixels themselves. ``phase``: the pinned rows K2's
+        traced instance writes, kept with the pixels."""
+        if rgb.device.type != "cuda":
+            return TileHandle(rgb)
+        host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
+        host.copy_(rgb, non_blocking=True)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return TileHandle(host, event, rgb, start, phase)
+
+    def _upload(self, x, dtype=torch.float32, device=None) -> torch.Tensor:
+        """Host data -> the device (this instance's, or ``device``) without
+        a stream sync: a pageable host-to-device copy would wait for every
+        tile queued before it."""
+        device = self.device if device is None else torch.device(device)
+        t = torch.as_tensor(x, dtype=dtype)
+        if device.type != "cuda" or t.device.type == "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+
+
+class PackedPlcore(TileIO):
     """A loaded PLCore: params + optional RMCM quantization + the kernel
     weight layout, packed once at construction and kept on ``device``
     (default ``"cuda"``; without a card only an explicit ``"cpu"`` works).
@@ -164,6 +207,9 @@ class PackedPlcore:
     Routed tiles can instead run on their home cell against a staged copy
     (``cell_view``, ``render_tile_cell``, ``dispatch_tile(percell=True)``),
     each cell's launches on its own CUDA stream."""
+
+    #: the engine's per-ray columns of a view: (o, unit d)
+    view_rays = staticmethod(drays.nerf_view_rays)
 
     def __init__(self, cfg: NerfConfig, params: dict, *,
                  quant: Optional[dict] = None, use_kernel: bool = False,
@@ -387,32 +433,6 @@ class PackedPlcore:
                          **(trace_attrs or {}))
         return handle, cost
 
-    def tile_start(self):
-        """On the card, a timing event recorded now on the current stream:
-        the start of a tile's device work, for ``handle``; None on the
-        CPU."""
-        if self.device.type != "cuda":
-            return None
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def handle(self, rgb: torch.Tensor, start=None,
-               phase=None) -> TileHandle:
-        """A ``TileHandle`` for pixels rendered on the card or the CPU (the
-        pixels' own device decides): on the card, a non-blocking copy into
-        pinned host memory and a timing event after it on the current
-        stream (``start``: the event of ``tile_start`` before the render);
-        on the CPU, the pixels themselves. ``phase``: the pinned rows K2's
-        traced instance writes, kept with the pixels."""
-        if rgb.device.type != "cuda":
-            return TileHandle(rgb)
-        host = torch.empty(rgb.shape, dtype=rgb.dtype, pin_memory=True)
-        host.copy_(rgb, non_blocking=True)
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return TileHandle(host, event, rgb, start, phase)
-
     def tile_gather_cost(self, home_cell: Optional[int] = None) -> dict:
         """Weight-gather traffic of one tile dispatch in the owner-map
         model: every trunk layer the tile's home cell does NOT own is one
@@ -518,16 +538,6 @@ class PackedPlcore:
                                    view["packed"]), o, d,
                                   self._eps(ert_eps), coarse_only)
             return self.handle(rgb, start) if handle else rgb
-
-    def _upload(self, x, dtype=torch.float32, device=None) -> torch.Tensor:
-        """Host data -> the device (this instance's, or ``device``) without
-        a stream sync: a pageable host-to-device copy would wait for every
-        tile queued before it."""
-        device = self.device if device is None else torch.device(device)
-        t = torch.as_tensor(x, dtype=dtype)
-        if device.type != "cuda" or t.device.type == "cuda":
-            return t.to(device)
-        return t.pin_memory().to(device, non_blocking=True)
 
 
 # ----------------------------------------------------------------- ASDR -----

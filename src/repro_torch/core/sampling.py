@@ -144,6 +144,62 @@ def deltas_from_t(t, far_cap: float = 1e10):
     return torch.cat([d, torch.full_like(t[..., :1], far_cap)], dim=-1)
 
 
+
+# ------------------------------------------------------ Mip-NeRF resample --
+#: the last point of Mip-NeRF's deterministic CDF grid: 1 - float32 eps
+MIP_U_END = 1.0 - 2.0 ** -23
+
+
+def mip_u(n: int, device=None) -> torch.Tensor:
+    """Mip-NeRF's deterministic resample grid, ``linspace(0, 1 - 2^-23,
+    n)`` in float32 (rounded as ``_linspace0``)."""
+    return _linspace0(MIP_U_END, n, device)
+
+
+def mip_edges(near: float, far: float, n: int, device=None) -> torch.Tensor:
+    """Mip-NeRF's ``n`` coarse edges (``sample_along_rays``, not jittered,
+    not in disparity): near (1 - s) + far s at s = linspace(0, 1, n), in
+    float32 (s rounded as ``_linspace0``)."""
+    s = _linspace0(1.0, n, device)
+    return near * (1.0 - s) + far * s
+
+
+def mip_resample(t_edges, weights, padding: float,
+                 u_row: Optional[torch.Tensor] = None):
+    """Mip-NeRF's fine edges (``internal/mip.py`` ``resample_along_rays``
+    and ``sorted_piecewise_constant_pdf``, deterministic): the coarse
+    weights (..., N) blurred by neighbour maxima (each weight the mean of
+    the maxima with its two neighbours, the ends repeated), plus
+    ``padding``; a pdf over the N intervals of ``t_edges`` (..., N + 1)
+    and its CDF (0, the cumulative sums of the first N - 1, 1), inverted at
+    the N + 1 points of ``u_row`` (default ``mip_u``). Each point falls in
+    the last interval whose CDF start is <= it (``find_interval``); the
+    sums run left to right, as the fused kernel adds them. No union with
+    the coarse edges. Returns (..., N + 1)."""
+    w_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]], -1)
+    w_max = torch.maximum(w_pad[..., :-1], w_pad[..., 1:])
+    w = 0.5 * (w_max[..., :-1] + w_max[..., 1:]) + padding
+    n = w.shape[-1]
+    w_sum = torch.cumsum(w, dim=-1)[..., -1:]
+    pad = torch.clamp(1e-5 - w_sum, min=0.0)
+    w = w + pad / n
+    w_sum = w_sum + pad
+    cdf = torch.clamp(torch.cumsum((w / w_sum)[..., :-1], dim=-1), max=1.0)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
+                     torch.ones_like(cdf[..., :1])], dim=-1)
+    if u_row is None:
+        u_row = mip_u(n + 1, cdf.device).to(cdf.dtype)
+    u = torch.broadcast_to(u_row, cdf.shape[:-1] + (u_row.shape[-1],))
+    t_edges = torch.broadcast_to(t_edges, cdf.shape)
+    i0 = torch.clamp(torch.searchsorted(cdf.contiguous(), u.contiguous(),
+                                        right=True) - 1, 0, n)
+    i1 = torch.clamp(i0 + 1, max=n)
+    c0, c1 = cdf.gather(-1, i0), cdf.gather(-1, i1)
+    b0, b1 = t_edges.gather(-1, i0), t_edges.gather(-1, i1)
+    frac = torch.nan_to_num((u - c0) / (c1 - c0), nan=0.0)
+    return b0 + torch.clamp(frac, 0.0, 1.0) * (b1 - b0)
+
+
 # ===================================================================== ASDR =
 # Adaptive per-ray sample budgets + cross-ray trunk memoization. A cheap
 # coarse-only probe at scene load calibrates a quantized-voxel density

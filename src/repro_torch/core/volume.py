@@ -81,3 +81,22 @@ def composite_depth(weights, t_vals):
 def white_background(rgb, acc):
     """Composite onto white (synthetic NeRF scenes convention)."""
     return rgb + (1.0 - acc[..., None])
+
+
+def interval_deltas(t_edges, d):
+    """Mip-NeRF's sample spacing: each interval's length along the ray,
+    (t1 - t0) |d| for the unnormalised directions d (..., 3); no far cap,
+    the last interval ends at the last edge. (..., N + 1) -> (..., N)."""
+    return (t_edges[..., 1:] - t_edges[..., :-1]) * torch.linalg.norm(
+        d, dim=-1, keepdim=True)
+
+
+def interval_depth(weights, t_edges, acc):
+    """Mip-NeRF's depth: the weights' mean of the interval midpoints,
+    sum(w t_mid) / acc, an empty ray (0 / 0) at the far edge, clipped to
+    the edges' span."""
+    mids = 0.5 * (t_edges[..., :-1] + t_edges[..., 1:])
+    dist = torch.nan_to_num(torch.sum(weights * mids, dim=-1) / acc,
+                            nan=float("inf"))
+    return torch.minimum(torch.maximum(dist, t_edges[..., 0]),
+                         t_edges[..., -1])

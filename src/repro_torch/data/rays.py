@@ -20,34 +20,67 @@ from repro_torch.bridge import resolve_device
 from repro_torch.core import sampling, volume
 
 
-def pose_spherical(theta_deg: float, phi_deg: float,
-                   radius: float) -> torch.Tensor:
-    """c2w for a camera on a sphere looking at the origin."""
+def pose_spherical(theta_deg: float, phi_deg: float, radius: float,
+                   dtype=np.float32) -> torch.Tensor:
+    """c2w for a camera on a sphere looking at the origin, computed in
+    ``dtype``."""
     th, ph = math.radians(theta_deg), math.radians(phi_deg)
     cam_pos = np.array([radius * math.cos(ph) * math.sin(th),
                         radius * math.sin(ph),
-                        radius * math.cos(ph) * math.cos(th)], np.float32)
+                        radius * math.cos(ph) * math.cos(th)], dtype)
     fwd = -cam_pos / np.linalg.norm(cam_pos)               # look at origin
-    up = np.array([0.0, 1.0, 0.0], np.float32)
+    up = np.array([0.0, 1.0, 0.0], dtype)
     right = np.cross(fwd, up)
     right /= max(np.linalg.norm(right), 1e-8)
     true_up = np.cross(right, fwd)
-    c2w = np.eye(4, dtype=np.float32)
+    c2w = np.eye(4, dtype=dtype)
     c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = right, true_up, -fwd, cam_pos
     return torch.from_numpy(c2w)
 
 
-def camera_rays(c2w: torch.Tensor, H: int, W: int, focal: float):
-    """Pixel-center rays. Returns (rays_o (H,W,3), rays_d (H,W,3) unit)."""
-    i, j = torch.meshgrid(torch.arange(W, dtype=torch.float32) + 0.5,
-                          torch.arange(H, dtype=torch.float32) + 0.5,
+def camera_rays(c2w: torch.Tensor, H: int, W: int, focal: float,
+                unit: bool = True):
+    """Pixel-center rays in ``c2w``'s dtype. Returns (rays_o (H,W,3),
+    rays_d (H,W,3)): unit directions, or with ``unit=False`` the camera's
+    z = -1 directions unnormalised."""
+    i, j = torch.meshgrid(torch.arange(W, dtype=c2w.dtype) + 0.5,
+                          torch.arange(H, dtype=c2w.dtype) + 0.5,
                           indexing="xy")
     dirs = torch.stack([(i - W / 2) / focal, -(j - H / 2) / focal,
                         -torch.ones_like(i)], dim=-1)
     rays_d = dirs @ c2w[:3, :3].T
-    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if unit:
+        rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     rays_o = torch.broadcast_to(c2w[:3, 3], rays_d.shape).contiguous()
     return rays_o, rays_d
+
+
+def nerf_view_rays(theta: float, phi: float, radius: float, hw: int):
+    """A served view's per-ray columns for NeRF: (origins, unit
+    directions), each (hw * hw, 3) float32, row-major pixels, focal 0.9 x
+    the view's side."""
+    ro, rd = camera_rays(pose_spherical(theta, phi, radius), hw, hw,
+                         0.9 * hw)
+    return (ro.numpy().astype(np.float32).reshape(-1, 3),
+            rd.numpy().astype(np.float32).reshape(-1, 3))
+
+
+def mip_view_rays(theta: float, phi: float, radius: float, hw: int):
+    """A served view's per-ray columns for Mip-NeRF's cones: (origins (n,
+    3), directions with camera z = -1, unnormalised (n, 3), base radii (n,
+    1)), float32, row-major pixel centres, focal f = 0.9 x the view's side,
+    ``pose_spherical``'s camera. A cone's base radius is 2 / (sqrt(12) f):
+    the spacing of neighbouring pixels' directions, 1 / f, times
+    2 / sqrt(12), which mip-NeRF's Blender loader computes from the
+    directions themselves. The camera is evaluated in float64 and rounded
+    once: the encoding's highest degrees turn a last-ulp error of a
+    direction into a visible phase error."""
+    f = 0.9 * hw
+    ro, rd = camera_rays(pose_spherical(theta, phi, radius, np.float64), hw,
+                         hw, f, unit=False)
+    n = hw * hw
+    return (ro.reshape(n, 3).float().numpy(), rd.reshape(n, 3).float().numpy(),
+            np.full((n, 1), 2.0 / (math.sqrt(12.0) * f), np.float32))
 
 
 @dataclass(frozen=True)

@@ -98,6 +98,10 @@ def load():
         lib.plcore_two_pass.restype = ci
         lib.plcore_blocks_per_sm.argtypes = [vp, ci, vp]
         lib.plcore_blocks_per_sm.restype = ci
+        lib.plcore_mip_two_pass.argtypes = [vp, vp, vp]
+        lib.plcore_mip_two_pass.restype = ci
+        lib.plcore_mip_blocks_per_sm.argtypes = [vp, vp]
+        lib.plcore_mip_blocks_per_sm.restype = ci
         lib.rmcm_matmul_plan.argtypes = [ci, ci, ci, ci, vp]
         lib.rmcm_matmul_plan.restype = ci
         lib.rmcm_matmul.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,

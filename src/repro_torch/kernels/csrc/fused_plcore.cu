@@ -10,11 +10,14 @@
 // Built width pairs (W, C), the list kernels/fused_plcore.py
 // KERNEL_WIDTHS names: (256, 128), the full NerfConfig; (64, 32), tiny()
 // and the reference kernel tests' 5-layer config; (32, 16), their
-// 2-layer config.
+// 2-layer config. K2's Mip-NeRF instance (plcore_mip.cuh) at the pairs
+// of MIP_KERNEL_WIDTHS: (256, 128), the published MipNerfConfig, and
+// (64, 32), its tiny().
 
 #include <cuda_runtime.h>
 
 #define PLCORE_WIDTHS(X) X(256, 128) X(64, 32) X(32, 16)
+#define PLCORE_MIP_WIDTHS(X) X(256, 128) X(64, 32)
 
 namespace plcore {
 template <int W, int C, bool Q>
@@ -26,6 +29,10 @@ template <int W, int C, bool Q>
 int k1_resident(const int* dims, int* blocks);
 template <int W, int C, bool QC, bool QF>
 int k2_resident(const int* dims, int* blocks);
+template <int W, int C, bool TRACE>
+int k2_mip_launch(const void* const* ptrs, const int* dims, void* stream);
+template <int W, int C>
+int k2_mip_resident(const int* dims, int* blocks);
 }  // namespace plcore
 
 namespace {
@@ -98,6 +105,34 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
   if (dims[2] == W && dims[5] == C) return k2<W, C>(ptrs, dims, thr, stream);
   PLCORE_WIDTHS(PLCORE_K2)
 #undef PLCORE_K2
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 for Mip-NeRF (one network for both levels). ptrs: rays (R x 7: o, d
+// with camera z = -1, cone radius), t_row and u_row (N + 1 each: the
+// coarse edges and the resample grid), rgb, rgb_c, acc, acc_c, depth,
+// net[14], phase|null (a row of 8 int64 a block: K2's 7, then the
+// encoding's cycles). dims: R, rt, W, L, skip_mask, C, IPE degrees,
+// dir_freqs, P, P2, N (intervals a level), white.
+int plcore_mip_two_pass(const void* const* ptrs, const int* dims,
+                        void* stream) {
+  const bool traced = ptrs[8 + 14] != nullptr;
+#define PLCORE_K2_MIP(W, C)                                                 \
+  if (dims[2] == W && dims[5] == C)                                         \
+    return traced ? plcore::k2_mip_launch<W, C, true>(ptrs, dims, stream)   \
+                  : plcore::k2_mip_launch<W, C, false>(ptrs, dims, stream);
+  PLCORE_MIP_WIDTHS(PLCORE_K2_MIP)
+#undef PLCORE_K2_MIP
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of K2's Mip-NeRF instance resident on one SM (dims as
+// plcore_mip_two_pass's), written to *blocks.
+int plcore_mip_blocks_per_sm(const int* dims, int* blocks) {
+#define PLCORE_MIP_RES(W, C) \
+  if (dims[2] == W && dims[5] == C) return plcore::k2_mip_resident<W, C>(dims, blocks);
+  PLCORE_MIP_WIDTHS(PLCORE_MIP_RES)
+#undef PLCORE_MIP_RES
   return (int)cudaErrorInvalidValue;
 }
 

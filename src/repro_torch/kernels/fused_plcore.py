@@ -14,6 +14,11 @@ in ``csrc/plcore_w*.cu``).
   so a traced launch adds no operation on the device. A block renders
   its rays two at a time in a pass whose rows then fill every chunk
   (``pairs``), so K2 wants an even ray tile there (``k2_pairs``).
+* ``mip_two_pass_call`` — K2's Mip-NeRF instance (``csrc/plcore_mip.cuh``):
+  both levels of Mip-NeRF through ONE network in one launch, the rays as
+  (R, 7) rows of origin, direction (camera z = -1) and cone radius. Its
+  traced instance writes a row of ``obs.metrics.K2_MIP_ROW_STATS``: K2's
+  seven slots and the integrated encoding's cycles.
 
 Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
 RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:
@@ -45,7 +50,8 @@ import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.kernels import ref
-from repro_torch.obs.metrics import K2_ROW_STATS, CountsView, global_registry
+from repro_torch.obs.metrics import (K2_MIP_ROW_STATS, K2_ROW_STATS,
+                                     CountsView, global_registry)
 
 LAUNCHES = CountsView(global_registry().counter(
     "plcore_kernel_launches_total", "fused PLCore kernel launches"),
@@ -63,6 +69,13 @@ INSTANCE_LAUNCHES = CountsView(global_registry().counter(
 # NerfConfig, tiny() and the reference kernel tests' 5-layer config, their
 # 2-layer config (csrc/fused_plcore.cu PLCORE_WIDTHS)
 KERNEL_WIDTHS = ((256, 128), (64, 32), (32, 16))
+# the (trunk, color) width pairs of K2's Mip-NeRF instance: the published
+# MipNerfConfig and its tiny() (csrc/fused_plcore.cu PLCORE_MIP_WIDTHS)
+MIP_KERNEL_WIDTHS = ((256, 128), (64, 32))
+# mip-NeRF's constants that the Mip-NeRF instance compiles in
+# (csrc/plcore_mip.cuh): density bias, rgb padding, resample padding
+MIP_CONSTANTS = {"density_bias": -1.0, "rgb_padding": 0.001,
+                 "resample_padding": 0.01}
 
 # sample rows of a chunk of the kernels' MMA pipeline, half of them a
 # warpgroup's (csrc/plcore_kernels.cuh S)
@@ -333,3 +346,87 @@ def two_pass_plcore_call(cfg: NerfConfig, packed_c: dict, packed_f: dict,
     INSTANCE_LAUNCHES[name] = INSTANCE_LAUNCHES.get(name, 0) + 1
     return tuple(outs)
 
+
+def check_mip(cfg) -> None:
+    """Raise ``ValueError`` unless K2's Mip-NeRF instance is built for the
+    config: its width pair, mip-NeRF's constants, IPE degrees from 0 in a
+    multiple of 8 (96 or 48 features, whole k steps)."""
+    W, C = cfg.trunk_width, cfg.color_width
+    if (W, C) not in MIP_KERNEL_WIDTHS:
+        raise ValueError(f"K2's Mip-NeRF instance is built for the (trunk, "
+                         f"color) widths {list(MIP_KERNEL_WIDTHS)}; got "
+                         f"({W}, {C})")
+    for k, v in MIP_CONSTANTS.items():
+        if getattr(cfg, k) != v:
+            raise ValueError(f"K2's Mip-NeRF instance compiles in {k} = {v}; "
+                             f"the config has {getattr(cfg, k)}")
+    if cfg.min_deg_point != 0 or cfg.pos_freqs % 8:
+        raise ValueError("K2's Mip-NeRF instance encodes degrees 0 to L - 1 "
+                         "with L a multiple of 8")
+
+
+def mip_blocks_per_sm(cfg, device) -> int:
+    """Blocks of K2's Mip-NeRF instance resident on one SM of ``device``,
+    from the occupancy calculator at the launch's shared memory."""
+    check_mip(cfg)
+    return _mip_blocks_per_sm(tuple(_dims(cfg, 1, 1) + [cfg.n_samples, 0]),
+                              torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _mip_blocks_per_sm(dims: tuple, device: torch.device) -> int:
+    from repro_torch.kernels import build
+    lib_dims = (ctypes.c_int * len(dims))(*dims)
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device):
+        rc = build.load().plcore_mip_blocks_per_sm(
+            ctypes.cast(lib_dims, ctypes.c_void_p),
+            ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0 or out[0] < 1:
+        raise RuntimeError(f"plcore_mip_blocks_per_sm failed: CUDA error "
+                           f"{rc}, {out[0]} blocks")
+    return out[0]
+
+
+def mip_two_pass_call(cfg, packed: dict, rays, t_row, u_row, *, rt: int,
+                      phase_cycles: Optional[torch.Tensor] = None,
+                      white_bkgd: bool = False):
+    """K2's Mip-NeRF instance. ``rays`` (R, 7): origin, direction (camera z
+    = -1, unnormalised) and cone radius per row; ``t_row`` (N + 1,) the
+    coarse edges and ``u_row`` (N + 1,) the resample grid, shared by every
+    ray (``ops.mip_sample_rows``); ``packed`` the one network's
+    ``ops.kernel_weights`` layout, read by both levels; ``phase_cycles``
+    optional zeroed (R, 8) int64 tensor in pinned host memory for the
+    traced instance (``obs.metrics.K2_MIP_ROW_STATS`` a row). Returns (rgb
+    (R,3), rgb_coarse (R,3), acc (R,), acc_coarse (R,), depth (R,)); with
+    ``white_bkgd`` both rgb outputs composited onto white. A CPU tensor
+    takes the plain version (``ref.mip_two_pass_ref``)."""
+    dev = _device_of(rays)
+    if dev.type == "cpu":
+        return ref.mip_two_pass_ref(cfg, packed, rays, t_row, u_row, rt=rt,
+                                    white_bkgd=white_bkgd)
+    from repro_torch.kernels import build
+    check_mip(cfg)
+    R, N = rays.shape[0], cfg.n_samples
+    f32 = torch.float32
+    _check("rays", rays, (R, 7), f32, dev)
+    _check("t_row", t_row, (N + 1,), f32, dev)
+    _check("u_row", u_row, (N + 1,), f32, dev)
+    if phase_cycles is not None:
+        if not phase_cycles.is_pinned():
+            raise ValueError("phase_cycles must lie in pinned host memory")
+        _check("phase_cycles", phase_cycles, (R, len(K2_MIP_ROW_STATS)),
+               torch.int64, torch.device("cpu"))
+    if "trunk_mag" in packed:
+        raise ValueError("K2's Mip-NeRF instance reads float32 weights")
+    outs = [torch.empty(s, dtype=f32, device=dev)
+            for s in ((R, 3), (R, 3), (R,), (R,), (R,))]
+    ptrs = [rays.data_ptr(), t_row.data_ptr(), u_row.data_ptr()]
+    ptrs += [o.data_ptr() for o in outs] + _net_ptrs(cfg, packed, dev)
+    ptrs.append(None if phase_cycles is None else phase_cycles.data_ptr())
+    dims = _dims(cfg, R, rt) + [N, int(white_bkgd)]
+    _launch(build.load().plcore_mip_two_pass, ptrs, dims)
+    LAUNCHES["mip_two_pass_call"] = LAUNCHES.get("mip_two_pass_call", 0) + 1
+    name = instance_name(cfg, "mip_two_pass_call", (False,))
+    INSTANCE_LAUNCHES[name] = INSTANCE_LAUNCHES.get(name, 0) + 1
+    return tuple(outs)

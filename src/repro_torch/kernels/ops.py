@@ -22,6 +22,9 @@
   kernels and their plain versions handle a ragged last
   tile themselves, so no ray is padded here. K2's ray-independent sample
   grids come from ``sample_rows``, built once per config and device.
+* ``fused_render_mip`` — Mip-NeRF's two levels through K2's Mip-NeRF
+  instance, its grids from ``mip_sample_rows``; one network packs with
+  ``kernel_weights`` as a NeRF network does.
 * ``plcore_resident_weight_bytes``: one network's per-cell bytes of that
   layout when its trunk is layer-sharded over a cell list.
 * ``pack_count`` and ``dispatch_count`` read two counters of the
@@ -399,6 +402,40 @@ def fused_render_two_pass(cfg: NerfConfig, packed: dict, rays_o, rays_d, *,
         rays_d.contiguous(), t_row, u_row, rt=rt,
         ert_eps=float(ert_eps),
         alive=None if alive is None else alive.to(torch.float32).contiguous(),
+        phase_cycles=phase_cycles, white_bkgd=white_bkgd)
+    return {"rgb": rgb, "rgb_coarse": rgb_c, "acc": acc,
+            "acc_coarse": acc_c, "depth": depth}
+
+
+@functools.lru_cache(maxsize=None)
+def _mip_sample_rows(near: float, far: float, n_edges: int,
+                     device: torch.device):
+    return (sampling.mip_edges(near, far, n_edges, device).contiguous(),
+            sampling.mip_u(n_edges, device).contiguous())
+
+
+def mip_sample_rows(cfg, device) -> tuple:
+    """The two ray-independent grids of K2's Mip-NeRF instance, built once
+    per config and device: ``t_row`` (N + 1,), the coarse edges, and
+    ``u_row`` (N + 1,), the resample grid. Read-only."""
+    return _mip_sample_rows(float(cfg.near), float(cfg.far), cfg.n_edges,
+                            torch.device(device))
+
+
+def fused_render_mip(cfg, packed: dict, rays, *, phase_cycles=None,
+                     white_bkgd: bool = False) -> dict:
+    """Both levels of Mip-NeRF through K2's Mip-NeRF instance, one launch.
+    ``rays`` (R, 7): origin, direction (camera z = -1), cone radius;
+    ``packed`` the one network's ``kernel_weights``; ``phase_cycles`` and
+    ``white_bkgd`` as ``fused_plcore.mip_two_pass_call``'s. Returns {rgb,
+    rgb_coarse, acc, acc_coarse, depth}."""
+    _DISPATCHES.inc()
+    dev = rays.device
+    per_sm = _fp.mip_blocks_per_sm(cfg, dev) if dev.type == "cuda" else 0
+    rt = pick_ray_tile(rays.shape[0], dev, per_sm)
+    t_row, u_row = mip_sample_rows(cfg, dev)
+    rgb, rgb_c, acc, acc_c, depth = _fp.mip_two_pass_call(
+        cfg, packed, rays.contiguous(), t_row, u_row, rt=rt,
         phase_cycles=phase_cycles, white_bkgd=white_bkgd)
     return {"rgb": rgb, "rgb_coarse": rgb_c, "acc": acc,
             "acc_coarse": acc_c, "depth": depth}

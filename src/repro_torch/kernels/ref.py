@@ -17,11 +17,21 @@ CUDA kernels against them on the card.
 * ``two_pass_ref`` — K2: coarse pass over the pinned ``t_row``, the
   deterministic inverse-CDF resample, the sorted merge, the fine pass.
   With ERT or a mask, a dead ray keeps its coarse rgb/acc/depth.
+* ``mip_two_pass_ref`` — K2's Mip-NeRF instance: both levels through one
+  network, the integrated encoding of each frustum, the blurred resample
+  (``sampling.mip_resample``), softplus density and padded sigmoid, the
+  VRU over finite deltas (t1 - t0) |d|. Its ``mm`` takes the products
+  that K2 forms on the tensor cores; ``tf32x3_matmul`` is that arithmetic
+  as the full-width instance forms it.
 * ``rmcm_matmul_ref`` — K3: the RMCM dequant-fused matmul, in the
   kernel's order (f32 product with the signed magnitudes, then the
   per-column scale, then the cast to ``x.dtype``).
 * ``split_bf16x3`` — the kernels' split of an f32 operand into three bf16
   pieces (``csrc/mma_split.cuh``), each rounded to nearest even.
+* ``tf32x3_matmul`` — an f32 product as 3xTF32 MMAs form it
+  (``csrc/mma_split.cuh``): split operands, k steps of 8, each MMA's sum
+  rounded toward zero (the tensor cores' f32 additions truncate) or to
+  nearest.
 """
 from __future__ import annotations
 
@@ -31,9 +41,11 @@ import torch
 
 from repro_torch.configs.nerf_icarus import NerfConfig
 from repro_torch.core import rmcm, sampling, volume
-from repro_torch.core.encoding import (nerf_encoding,
+from repro_torch.core.encoding import (frustum_rows, integrated_pos_enc,
+                                       lift_gaussian, mip_dir_encoding,
+                                       nerf_encoding,
                                        nerf_encoding_double_angle)
-from repro_torch.core.mlp import nerf_mlp_apply
+from repro_torch.core.mlp import nerf_mlp_apply, softplus
 
 
 def fused_render_ref(cfg: NerfConfig, params: dict, rays_o, rays_d, t,
@@ -207,6 +219,89 @@ def two_pass_ref(cfg: NerfConfig, packed_c: dict, packed_f: dict, rays_o,
     return rgb, rgb_c, acc, acc_c, depth
 
 
+def mip_pass_body(cfg, net, o, d, r, t_edges, ped, norm, mm=torch.matmul):
+    """One Mip-NeRF level over (rt, N) intervals with edges ``t_edges``
+    (rt, N + 1) (or a shared (1, N + 1) row): the IPE of each frustum's
+    Gaussian, the MLP with mip-NeRF's heads, the VRU in K2's closed form
+    over the deltas (t1 - t0) ``norm``. ``mm`` forms the products K2 forms
+    on the tensor cores (the trunk, the skip layer's [h, encoding] in one
+    sum, the bottleneck, the colour layer's bottleneck part). Returns (rgb
+    (rt, 3), w (rt, N), T_next (rt, N), sum(w t_mid) (rt,))."""
+    tw, tb, sw, sb, fw, fb, cw, cb, rw, rb = net
+    W, de_dim = cfg.trunk_width, cfg.dir_enc_dim
+    t0, t1 = t_edges[..., :-1], t_edges[..., 1:]
+    rt, N = o.shape[0], t0.shape[-1]
+    x, var = lift_gaussian(o, d, r, *frustum_rows(t0, t1))
+    pe = integrated_pos_enc(x, var, cfg.min_deg_point,
+                            cfg.max_deg_point).reshape(rt * N, -1)
+    pe_dim = pe.shape[-1]
+    h = pe
+    for i in range(cfg.trunk_layers):
+        if i == 0:
+            h = torch.relu(mm(pe, tw[i][:pe_dim]) + tb[i])
+        elif i in cfg.skip_at:
+            h = torch.relu(mm(torch.cat([h, pe], dim=-1),
+                              tw[i][:W + pe_dim]) + tb[i])
+        else:
+            h = torch.relu(mm(h, tw[i][:W]) + tb[i])
+    sigma = softplus(((h @ sw)[:, 0] + sb[0]) + cfg.density_bias)
+    feat = mm(h, fw) + fb
+    C = cw.shape[-1]
+    cold = ped @ cw[W:W + de_dim]
+    hc = torch.relu((mm(feat, cw[:W]).reshape(rt, N, C)
+                     + cold[:, None, :]).reshape(rt * N, C) + cb)
+    rgb = (torch.sigmoid(hc @ rw + rb) * (1.0 + 2.0 * cfg.rgb_padding)
+           - cfg.rgb_padding).reshape(rt, N, 3)
+    dl = (t1 - t0) * norm[:, None]
+    x_t = -sigma.reshape(rt, N) * dl
+    T_next = torch.exp(torch.cumsum(x_t, dim=-1))
+    T_i = torch.cat([torch.ones_like(T_next[:, :1]), T_next[:, :-1]], dim=-1)
+    w = T_i - T_next
+    mids = (t0 + t1) * 0.5
+    return (torch.sum(w[..., None] * rgb, dim=1), w, T_next,
+            torch.sum(w * mids, dim=-1))
+
+
+def mip_two_pass_tile(cfg, net, rays, t_row, u_row, mm=torch.matmul):
+    """K2's Mip-NeRF tile body for rt rays (rt, 7): the coarse level over
+    the shared edges ``t_row`` (N + 1,), the blurred resample at ``u_row``,
+    the fine level through the same network (``mm``: as
+    ``mip_pass_body``'s). Returns (rgb, rgb_coarse, acc, acc_coarse,
+    depth); depth is sum(w t_mid) / acc clipped to the fine edges."""
+    o, d, r = rays[:, :3], rays[:, 3:6], rays[:, 6]
+    d2 = d * d
+    ss = (d2[:, 0] + d2[:, 1]) + d2[:, 2]
+    # the unit direction by rsqrt, as the kernels' PEU takes it
+    ped = mip_dir_encoding(d * torch.rsqrt(ss)[:, None], cfg.deg_view)
+    norm = torch.sqrt(ss)
+    t_c = t_row[None, :]
+    rgb_c, w_c, Tn_c, _ = mip_pass_body(cfg, net, o, d, r, t_c, ped, norm,
+                                        mm)
+    t_f = sampling.mip_resample(t_c.expand(o.shape[0], -1), w_c,
+                                cfg.resample_padding, u_row=u_row)
+    rgb, _, Tn, dep = mip_pass_body(cfg, net, o, d, r, t_f, ped, norm, mm)
+    acc = 1.0 - Tn[:, -1]
+    dist = torch.nan_to_num(dep / acc, nan=float("inf"))
+    depth = torch.minimum(torch.maximum(dist, t_f[:, 0]), t_f[:, -1])
+    return rgb, rgb_c, acc, 1.0 - Tn_c[:, -1], depth
+
+
+def mip_two_pass_ref(cfg, packed: dict, rays, t_row, u_row, *, rt: int,
+                     white_bkgd: bool = False, mm=torch.matmul):
+    """K2's Mip-NeRF instance's plain version over R rays (R, 7), ``rt``
+    rays at a time; with ``white_bkgd`` both rgb outputs composited onto
+    white. ``mm``: the tensor-core products' arithmetic (the plain f32
+    product, or ``tf32x3_matmul``'s)."""
+    net = net_arrays(cfg, packed)
+    outs = [mip_two_pass_tile(cfg, net, rays[s:e], t_row, u_row, mm)
+            for s, e in _tiles(rays.shape[0], rt)]
+    rgb, rgb_c, acc, acc_c, depth = (torch.cat(x) for x in zip(*outs))
+    if white_bkgd:
+        rgb = volume.white_background(rgb, acc)
+        rgb_c = volume.white_background(rgb_c, acc_c)
+    return rgb, rgb_c, acc, acc_c, depth
+
+
 def rmcm_matmul_ref(x: torch.Tensor, packed: dict) -> torch.Tensor:
     """K3's plain version. x (M, K) float; ``packed`` the ``rmcm.pack`` of
     a (K, N) weight. Returns (M, N) in ``x.dtype``."""
@@ -228,6 +323,43 @@ def split_bf16x3(x: torch.Tensor):
     h = bf(x)
     m = bf(x - h)
     return h, m, bf(x - h - m)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (10 fraction bits) held in f32, rounded to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _to_f32(s: torch.Tensor, truncate: bool) -> torch.Tensor:
+    y = s.to(torch.float32)
+    if truncate:
+        over = y.to(s.dtype).abs() > s.abs()
+        y = torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+    return y
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                  truncate: bool = True) -> torch.Tensor:
+    """a (M, K) @ b (K, N) in f32 as K2's full-width 3xTF32 MMAs form it
+    (``mma_segment`` at W = 256): each operand split into hi = tf32(x) and
+    lo = tf32(x - hi); per k step of 8, three MMAs (a_lo b_hi, a_hi b_lo,
+    a_hi b_hi, in that order) each add their 8 products to the f32
+    accumulator in one sum. That sum is taken exactly (float64) and
+    rounded once to f32: toward zero with ``truncate`` (the tensor cores'
+    additions), else to nearest. Slow: a model of the arithmetic for
+    small shapes, not a kernel."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32,
+                      device=a.device)
+    for k in range(0, a.shape[1], 8):
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            s = acc.double() + x[:, k:k + 8].double() @ y[k:k + 8].double()
+            acc = _to_f32(s, truncate)
+    return acc
 
 
 def ert_threshold(ert_eps: float) -> float:

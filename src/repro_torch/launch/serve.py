@@ -71,6 +71,17 @@ keys (``arch``, ``batch``, ``prompt_len``, ``prefill_s``,
 end in a device synchronize. The tokens come from a torch generator, so
 ``sample_tokens`` cannot equal the reference's.
 
+``--model mipnerf`` (with ``--mode engine``) serves Mip-NeRF scenes
+(``configs.mipnerf``: the published config with ``--full``, else its
+tiny()) through the same engine: a ``core.mipnerf.PackedMipNerf`` resident
+per scene (one network, its weights drawn like a NeRF scene's), the engine
+building each view's cones (origin, direction with camera z = -1, radius),
+K2's Mip-NeRF instance one launch a tile with ``--kernel --fuse-two-pass``
+(else the plain path); ``--hosts`` > 1 puts the same residents behind the
+cluster engine. It refuses ``--rmcm``, ``--ert``, ``--tiled``,
+``--adaptive-sampling``, ``--degrade-on-overload``, ``--shard-weights``
+and its routing flags: none of them is defined for the model here.
+
 Flags: ``--kernel`` routes each pass through the fused kernel (K1,
 two dispatches per render); ``--fuse-two-pass`` (with ``--kernel``) runs the
 whole coarse -> importance -> fine chain as ONE kernel launch (K2);
@@ -102,6 +113,10 @@ weights packed per call), and refuses ``--ert`` and ``--fuse-two-pass``.
         --fuse-two-pass --adaptive-sampling --scene-bias -0.1 --scenes 3 \\
         --requests 12 --hw-mix 64,128 --loop closed --pipeline-depth 2 \\
         --tile-rays 4096 --check
+    python -m repro_torch.launch.serve --mode engine --model mipnerf \
+        --full --kernel --fuse-two-pass --scenes 3 --requests 12 \
+        --hw-mix 64,128 --loop closed --pipeline-depth 2 --tile-rays 4096 \
+        --check
     python -m repro_torch.launch.serve --mode lm --arch qwen2-1.5b --full
     python -m repro_torch.launch.serve --mode lm --arch mamba2-2.7b \\
         --device cpu
@@ -122,8 +137,9 @@ import torch
 from repro_torch.bridge import resolve_device
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, list_archs, smoke_config
+from repro_torch.configs import mipnerf as mip_configs
 from repro_torch.configs.nerf_icarus import CONFIG as NERF_FULL, tiny as nerf_tiny
-from repro_torch.core import rmcm
+from repro_torch.core import mipnerf, rmcm
 from repro_torch.core.pipeline import PackedPlcore
 from repro_torch.core.plcore import plcore_decls, render_image_tiled
 from repro_torch.data import rays as R
@@ -151,8 +167,35 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def mip_guards(args) -> None:
+    """The flags ``--model mipnerf`` refuses: each selects a feature that
+    is not defined for Mip-NeRF here, and would otherwise render it with
+    NeRF's maths or not at all."""
+    if args.model != "mipnerf":
+        return
+    if args.mode != "engine":
+        raise SystemExit("--model mipnerf serves through --mode engine")
+    for flag, name in ((args.rmcm, "--rmcm"), (args.ert > 0.0, "--ert"),
+                       (args.tiled, "--tiled"),
+                       (args.adaptive_sampling, "--adaptive-sampling"),
+                       (args.degrade_on_overload, "--degrade-on-overload"),
+                       (args.shard_weights, "--shard-weights"),
+                       (args.route_by_shard, "--route-by-shard"),
+                       (args.percell_dispatch, "--percell-dispatch"),
+                       (args.kernel != args.fuse_two_pass,
+                        "--kernel without --fuse-two-pass (Mip-NeRF's kernel "
+                        "route is K2's one launch)")):
+            if flag:
+                raise SystemExit(f"--model mipnerf is incompatible with "
+                                 f"{name}")
+
+
 def model_config(args):
-    """The NeRF config for the flags."""
+    """The model's config for the flags: NeRF's, or Mip-NeRF's under
+    ``--model mipnerf``."""
+    if args.model == "mipnerf":
+        mip_guards(args)
+        return mip_configs.CONFIG if args.full else mip_configs.tiny()
     cfg = NERF_FULL if args.full else nerf_tiny()
     if args.ert > 0.0:
         if args.tiled:
@@ -259,7 +302,17 @@ def load_plcore(cfg, args, seed: int, params: Optional[dict] = None,
                 shard_mesh=None) -> PackedPlcore:
     """A PackedPlcore for the flags, with ``params`` or else weights drawn
     from a ``torch.Generator`` seeded ``seed``; its trunk sharded over
-    ``shard_mesh`` when one is given."""
+    ``shard_mesh`` when one is given. Under ``--model mipnerf`` a
+    ``PackedMipNerf`` of one network drawn the same way."""
+    if args.model == "mipnerf":
+        if params is None:
+            gen = torch.Generator().manual_seed(seed)
+            params = init_params(mipnerf.mip_decls(cfg), gen, "float32")
+        if args.scene_bias:
+            params["sigma"]["b"] = params["sigma"]["b"] + args.scene_bias
+        return mipnerf.PackedMipNerf(cfg, params, use_kernel=args.kernel,
+                                     device=args.device,
+                                     shard_mesh=shard_mesh)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = init_params(plcore_decls(cfg), gen, "float32")
@@ -528,12 +581,13 @@ def run_engine(args, shard_mesh=None):
     report = {"device": str(dev),
               "device_name": (torch.cuda.get_device_name(dev)
                               if dev.type == "cuda" else "cpu"),
+              "model": args.model,
               "config": "full" if args.full else "tiny",
         "ckpt": args.ckpt,
               "scenes": args.scenes, "tile_rays": args.tile_rays,
               "kernel": bool(args.kernel),
               "fuse_two_pass": bool(args.fuse_two_pass),
-              "rmcm": bool(args.rmcm), "ert_eps": cfg.ert_eps,
+              "rmcm": bool(args.rmcm), "ert_eps": args.ert,
               "pipeline_depth": args.pipeline_depth,
               "route_by_shard": bool(args.route_by_shard),
               "percell_dispatch": bool(args.percell_dispatch),
@@ -875,6 +929,8 @@ def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=["nerf", "engine", "lm"], default="nerf")
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--model", choices=["nerf", "mipnerf"], default="nerf",
+                    help="the render model of --mode engine")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scene", default="blobs", choices=sorted(R.SCENES))
     ap.add_argument("--hw", type=int, default=64)

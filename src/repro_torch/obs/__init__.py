@@ -13,6 +13,7 @@ from repro_torch.obs.metrics import (CLUSTER_STATS_SCHEMA,
                                      PERCELL_STATS_SCHEMA,
                                      ROUTING_STATS_SCHEMA,
                                      K2_PHASES, K2_ROW_COUNTS, K2_ROW_STATS,
+                                     K2_MIP_ROW_STATS,
                                      SAMPLING_STATS_SCHEMA,
                                      TRACE_STATS_SCHEMA, CountsView,
                                      EngineMetrics, Histogram,
@@ -27,6 +28,7 @@ __all__ = ["SpanTracer", "NullTracer", "NULL_TRACER", "Span",
            "log_buckets", "ENGINE_STATS_SCHEMA", "CLUSTER_STATS_SCHEMA",
            "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
            "PERCELL_STATS_SCHEMA", "TRACE_STATS_SCHEMA", "K2_PHASES",
-           "K2_ROW_COUNTS", "K2_ROW_STATS", "CountsView", "chrome_trace", "write_chrome_trace",
+           "K2_ROW_COUNTS", "K2_ROW_STATS", "K2_MIP_ROW_STATS",
+           "CountsView", "chrome_trace", "write_chrome_trace",
            "prometheus_text", "snapshot", "validate_trace",
            "validate_chrome_trace", "device_busy", "phase_share"]

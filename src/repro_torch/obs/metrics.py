@@ -39,7 +39,7 @@ __all__ = [
     "engine_stats_view", "extend_stats_view", "ENGINE_STATS_SCHEMA",
     "CLUSTER_STATS_SCHEMA", "SAMPLING_STATS_SCHEMA", "ROUTING_STATS_SCHEMA",
     "PERCELL_STATS_SCHEMA", "TRACE_STATS_SCHEMA", "K2_PHASES",
-    "K2_ROW_COUNTS", "K2_ROW_STATS", "EngineMetrics",
+    "K2_ROW_COUNTS", "K2_ROW_STATS", "K2_MIP_ROW_STATS", "EngineMetrics",
     "TIME_BUCKETS",
     "DEPTH_BUCKETS",
 ]
@@ -346,11 +346,15 @@ K2_ROW_COUNTS = ("rows_mma", "rows_real")
 # the engine's stats key of each slot of a block's row, in the row's order
 K2_ROW_STATS = (tuple(f"plcore_two_pass_cycles_{p}" for p in K2_PHASES)
                 + tuple(f"plcore_two_pass_{c}" for c in K2_ROW_COUNTS))
+# A row of K2's Mip-NeRF instance: the same slots, then the cycles of its
+# integrated positional encoding (which lie inside the scalar phase).
+K2_MIP_ROW_STATS = K2_ROW_STATS + ("plcore_two_pass_cycles_encode",)
 
 # The trace block, bound by ``extend_stats_view`` only when an engine has a
 # real tracer (``SpanTracer``), so the default stats keep their keys. The
 # cycle and row counters sum K2's traced instance's rows over the drained
-# tiles (``K2_ROW_STATS``; zero off the card); host_wait_s is the time the
+# tiles (``K2_MIP_ROW_STATS``, the encoding's only from the Mip-NeRF
+# instance; zero off the card); host_wait_s is the time the
 # engine's thread waits on the card in the drain; backlog_tiles_at_admit
 # sums, over the admitted submits, the tiles the view finds ahead of it:
 # the queue's rays still to coalesce over tile_rays, rounded up, plus the
@@ -370,6 +374,8 @@ TRACE_STATS_SCHEMA = (
      "K2 sample rows its MMAs computed, padding included"),
     ("plcore_two_pass_rows_real", "counter", 0,
      "K2 real sample rows among the rows its MMAs computed"),
+    ("plcore_two_pass_cycles_encode", "counter", 0,
+     "K2 cycles in Mip-NeRF's integrated encoding, inside the scalar ones"),
     ("host_wait_s", "counter", 0.0,
      "seconds the engine's thread waits on the card in the drain"),
     ("admitted_views", "counter", 0, "admitted submits"),

@@ -750,7 +750,7 @@ class ClusterEngine(RenderEngine):
         kw = {} if home is None else {"home_cell": home}
         try:
             handle, cost = pp.dispatch_tile(
-                tile.rays_o, tile.rays_d, coarse_only=tile.degraded, **kw)
+                *tile.rays, coarse_only=tile.degraded, **kw)
             arr = handle.result()
         except Exception:
             # the reference's semantics: any failure here declines, and

@@ -116,8 +116,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.data import rays as R
-from repro_torch.obs.metrics import (K2_ROW_STATS, PERCELL_STATS_SCHEMA,
+from repro_torch.obs.metrics import (K2_MIP_ROW_STATS, PERCELL_STATS_SCHEMA,
                                      ROUTING_STATS_SCHEMA,
                                      SAMPLING_STATS_SCHEMA,
                                      TRACE_STATS_SCHEMA, MetricsRegistry,
@@ -203,7 +202,7 @@ class _Active:
     handed out bucket by bucket so tiles stay (scene, budget)-pure, while
     ``next_ray`` counts every ray handed out, so ``remaining`` and the
     admission arithmetic do not see the buckets."""
-    __slots__ = ("req", "rid", "seq", "rays_o", "rays_d", "fb",
+    __slots__ = ("req", "rid", "seq", "rays", "fb",
                  "next_ray", "n_done", "n_rays", "submit_s",
                  "service_start_s", "deadline_abs", "terminal",
                  "degraded", "retries", "fallbacks",
@@ -212,11 +211,8 @@ class _Active:
 
     def __init__(self, req: RenderRequest, rid: int, seq: int, now: float):
         self.req, self.rid, self.seq, self.submit_s = req, rid, seq, now
-        c2w = R.pose_spherical(req.theta, req.phi, req.radius)
-        ro, rd = R.camera_rays(c2w, req.hw, req.hw, 0.9 * req.hw)
-        self.rays_o = ro.numpy().astype(np.float32).reshape(-1, 3)
-        self.rays_d = rd.numpy().astype(np.float32).reshape(-1, 3)
-        self.n_rays = self.rays_o.shape[0]
+        self.rays = None             # per-ray columns, built when tiled
+        self.n_rays = req.hw * req.hw
         # NaN framebuffer: a pixel the scatter never wrote, or a padded
         # tail ray leaking into a neighbor, cannot hide as black
         self.fb = np.full((self.n_rays, 3), np.nan, np.float32)
@@ -238,6 +234,15 @@ class _Active:
     def remaining(self) -> int:
         return self.n_rays - self.next_ray
 
+    def columns(self, pp) -> tuple:
+        """The view's per-ray columns as the resident ``pp`` takes them
+        (its model's ``view_rays``), built when the request is first
+        tiled."""
+        if self.rays is None:
+            r = self.req
+            self.rays = pp.view_rays(r.theta, r.phi, r.radius, r.hw)
+        return self.rays
+
 
 @dataclass
 class _Tile:
@@ -245,15 +250,16 @@ class _Tile:
     completion. ``spans`` records which request contributed which rays
     (``(_Active, start, take)``: ``start`` an int for a contiguous span,
     an index array for an adaptive bucket's rays), so completion can
-    scatter out of order. ``host_id`` and ``prev_host`` matter only under
+    scatter out of order. ``rays`` holds the tile's per-ray columns as
+    the resident's ``dispatch_tile`` takes them: (origins, unit
+    directions) for NeRF. ``host_id`` and ``prev_host`` matter only under
     the multi-host cluster (``serving.cluster``): the host the tile is
     placed on, and the last host that dispatched it (a dispatch on another
     host is the cross-host failover the cluster counts)."""
     scene_id: str
     pp: object                  # resident PackedPlcore
     spans: List[tuple]
-    rays_o: np.ndarray
-    rays_d: np.ndarray
+    rays: tuple                 # per-ray columns, (n, k) each
     n_real: int                 # non-pad rays
     home_cell: Optional[int] = None   # shard-locality routing
     degraded: bool = False      # coarse-only program
@@ -262,6 +268,14 @@ class _Tile:
     host_id: Optional[int] = None     # cluster placement
     prev_host: Optional[int] = None   # last host that dispatched it
     tid: int = -1               # deterministic trace id
+
+    @property
+    def rays_o(self) -> np.ndarray:
+        return self.rays[0]
+
+    @property
+    def rays_d(self) -> np.ndarray:
+        return self.rays[1]
 
 
 # ---------------------------------------------------------------------------
@@ -599,8 +613,9 @@ class TileScheduler:
         ar = self.adaptive.renderer(scene, pp)
         for a in scene_cands:
             if a.bucket_idx is None:
-                cls = ar.classify_rays(a.rays_o, a.rays_d)
-                hint = ar.dead_hint(a.rays_o, a.rays_d)
+                o, d = a.columns(pp)
+                cls = ar.classify_rays(o, d)
+                hint = ar.dead_hint(o, d)
                 a.bucket_idx = [np.nonzero((cls == c) & ~hint)[0]
                                 for c in range(len(ar.budgets))]
                 a.bucket_idx.append(np.nonzero(hint)[0])
@@ -637,7 +652,7 @@ class TileScheduler:
         bucket = budget = None
         if self.adaptive is not None and not degraded:
             bucket, budget, n_buckets = self._bucket(scene, pp, scene_cands)
-        spans, chunks_o, chunks_d, n = [], [], [], 0
+        spans, chunks, n = [], [], 0
         for a in scene_cands:
             if a.degraded != degraded:
                 continue
@@ -648,16 +663,15 @@ class TileScheduler:
                     continue
                 idx = avail[cur:cur + take]
                 spans.append((a, idx, take))
-                chunks_o.append(a.rays_o[idx])
-                chunks_d.append(a.rays_d[idx])
+                chunks.append(tuple(c[idx] for c in a.columns(pp)))
                 a.bucket_next[bucket] = cur + take
             else:
                 take = min(a.remaining, self.tile_rays - n)
                 if take <= 0:
                     continue
                 spans.append((a, a.next_ray, take))
-                chunks_o.append(a.rays_o[a.next_ray:a.next_ray + take])
-                chunks_d.append(a.rays_d[a.next_ray:a.next_ray + take])
+                chunks.append(tuple(c[a.next_ray:a.next_ray + take]
+                                    for c in a.columns(pp)))
             if a.service_start_s is None:
                 a.service_start_s = now
             a.next_ray += take
@@ -673,13 +687,13 @@ class TileScheduler:
                          max(32, 1 << int(np.ceil(np.log2(max(n, 2))))))
         pad = target - n
         if pad:                       # tail tile: repeat the last real ray
-            chunks_o.append(np.repeat(chunks_o[-1][-1:], pad, axis=0))
-            chunks_d.append(np.repeat(chunks_d[-1][-1:], pad, axis=0))
+            chunks.append(tuple(np.repeat(c[-1:], pad, axis=0)
+                                for c in chunks[-1]))
             self.stats["padded_rays"] += pad
         tid = self._tile_seq
         self._tile_seq += 1
-        tile = _Tile(scene, pp, spans, np.concatenate(chunks_o),
-                     np.concatenate(chunks_d), n,
+        tile = _Tile(scene, pp, spans,
+                     tuple(np.concatenate(col) for col in zip(*chunks)), n,
                      home_cell=self._route(scene, pp), degraded=degraded,
                      budget=budget,
                      dead_bucket=(bucket is not None
@@ -813,7 +827,7 @@ class TileExecutor:
                     "tile": tile.tid, "host": tile.host_id,
                     "scene": tile.scene_id})
             handle, cost = tile.pp.dispatch_tile(
-                tile.rays_o, tile.rays_d, coarse_only=tile.degraded, **kw)
+                *tile.rays, coarse_only=tile.degraded, **kw)
         extra = (fault["extra_s"]
                  if fault is not None and fault["kind"] == "straggle"
                  else 0.0)
@@ -878,9 +892,9 @@ class TileExecutor:
             if not a.terminal:
                 a.fallbacks += 1
         pp = tile.pp
-        rgb = (pp.render_tile(tile.rays_o, tile.rays_d, coarse_only=True)
+        rgb = (pp.render_tile(*tile.rays, coarse_only=True)
                if tile.degraded
-               else pp.render_tile_oracle(tile.rays_o, tile.rays_d))
+               else pp.render_tile_oracle(*tile.rays))
         return rgb.cpu().numpy(), _gather_cost(tile)
 
     def _device_clock(self, tile: _Tile) -> None:
@@ -1049,7 +1063,8 @@ class TileExecutor:
         st["host_wait_s"] += waited_s
         row = handle.phase_cycles()
         if row is not None:
-            for key, n in zip(K2_ROW_STATS, row):
+            # NeRF's rows are K2_ROW_STATS, a prefix of the Mip-NeRF row's
+            for key, n in zip(K2_MIP_ROW_STATS, row):
                 st[key] += n
 
     @_layer_range("executor.drain")
@@ -1269,7 +1284,13 @@ class RenderEngine:
     ``memo_mb`` per-scene trunk-memo capacity, ``adaptive_grid_res`` and
     ``adaptive_probe_hw`` size the load-time probe. It needs fused-kernel
     scenes and cannot be combined with ``degrade_on_overload`` (both
-    rewrite the per-ray sample budget)."""
+    rewrite the per-ray sample budget).
+
+    A view's per-ray columns come from its scene's resident
+    (``view_rays(theta, phi, radius, hw)``: NeRF's (origins, unit
+    directions), Mip-NeRF's cones), built when the view is first tiled;
+    the tiles carry them to ``dispatch_tile`` and the oracle rung as they
+    are."""
 
     def __init__(self, cache: SceneCache, *, tile_rays: int = 512,
                  max_sticky_tiles: int = 64, clock=time.perf_counter,

@@ -75,7 +75,7 @@ def test_readers_are_declared_where_they_read():
     spec = S.load(ROOT)
     entry = {m["name"]: m for m in spec["per_layer"]}
     closed = ["f32-view800-closed", "rmcm-view800-closed",
-              "rmcm-preview-closed"]
+              "rmcm-preview-closed", "mipnerf-f32-view800-closed"]
     for name in [f"plcore_two_pass_{p}_pct" for p in SHARES] + [
             "host_wait_pct", "plcore_two_pass_row_fill_pct"]:
         assert entry[name]["workloads"] == closed

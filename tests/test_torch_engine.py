@@ -492,6 +492,8 @@ class _NaNPlcore:
     """A resident whose every program returns NaN: weights poisoned
     beyond what retry or the oracle can fix."""
 
+    view_rays = staticmethod(R.nerf_view_rays)
+
     def __init__(self, pp):
         self.params, self.quant, self.packed = pp.params, pp.quant, pp.packed
 

@@ -92,8 +92,9 @@ int plcore_fused(const void* const* ptrs, const int* dims, void* stream) {
 
 // K2. ptrs: rays_o, rays_d, t_row, u_row, alive|null, rgb, rgb_c, acc, acc_c,
 // depth, net_c[14], net_f[14], phase|null. With phase rows (pinned host
-// memory, a row of 7 int64 a block: mlp, ring_wait, resample, scalar,
-// total cycles, then the MMA rows and the real sample rows among them)
+// memory, a row of 9 int64 a block: mlp, ring_wait, resample, scalar,
+// total cycles, then the MMA rows and the real sample rows among them,
+// the k steps and those issued with the previous one in flight)
 // the traced instance runs and writes each block's row; without, the
 // untraced one.
 // dims: R, rt, W, L, skip_mask, C, pos_freqs, dir_freqs, P, P2, Nc, Nf,
@@ -111,7 +112,7 @@ int plcore_two_pass(const void* const* ptrs, const int* dims, float thr,
 // K2 for Mip-NeRF (one network for both levels). ptrs: rays (R x 7: o, d
 // with camera z = -1, cone radius), t_row and u_row (N + 1 each: the
 // coarse edges and the resample grid), rgb, rgb_c, acc, acc_c, depth,
-// net[14], phase|null (a row of 8 int64 a block: K2's 7, then the
+// net[14], phase|null (a row of 10 int64 a block: K2's 9, then the
 // encoding's cycles). dims: R, rt, W, L, skip_mask, C, IPE degrees,
 // dir_freqs, P, P2, N (intervals a level), white.
 int plcore_mip_two_pass(const void* const* ptrs, const int* dims,

@@ -431,6 +431,16 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     else if (now - t0 > (1LL << 34)) __trap();
   }
 }
+// wait for the completion of the barrier's phase of this parity, the
+// retries inside the asm: no timeout, and no register but a predicate
+__device__ __forceinline__ void mbar_spin(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
 // whether the barrier's phase of this parity has completed, asked without
 // waiting
 __device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {

@@ -53,6 +53,19 @@
 //   from L2 overlap the MMAs. One weight pass serves 128 samples. K2 with
 //   two weight formats gives each network a ring of its own (barriers and
 //   bookkeeping) over the same slot memory, sized for the larger.
+// * Both warpgroups start every layer together after its epilogue's
+//   barriers, so they stay in phase, and a loop that waits for each k
+//   step loads and splits the next A fragment while neither has wgmmas
+//   queued. Where the ring has 4 slots or more (RMCM at the full width,
+//   k_pipelined), the k loop is pipelined: two A register sets, step
+//   j + 1 loaded, split and issued while step j's wgmmas run, step j
+//   retired with wgmma_wait<1> (mma_segment). A warpgroup then holds two
+//   slots, so 5 slots keep three steps of lead. f32's 3 slots of 16 KB (a
+//   fourth does not fit beside its activations) would keep one, so f32
+//   keeps the loop that waits for each step, as do the small widths.
+//   K2 pipelines one pass, the fine one where it can (two_pass_rays):
+//   ptxas serialises every wgmma when both are. The wgmmas keep their
+//   order either way: the sums are the same bits.
 // * The rest keeps its fp32 code and its explicitly rounded order: the
 //   exact sigma and rgb heads, the per-ray direction part of the color
 //   layer, the VRU prefix, the coarse CDF, the inverse-CDF binary search
@@ -77,7 +90,7 @@
 // B (f32), one block per SM. K2 with two formats takes the TF32 strides
 // (the bf16x3 A loads then meet 2-way bank conflicts) and the 48 KB ring:
 // 226,784 B; beside them K2 keeps 8 B of static memory (group_now), and
-// its traced instances 128 B more (the phase slots).
+// its traced instances 160 B more (the phase slots).
 // At the small widths (W <= 64) the ring has 8 slots, two blocks fit on
 // an SM (128 registers a thread), and each k step's products are summed
 // apart and added to the layer's sums with rounded adds (mma_segment). The
@@ -92,6 +105,17 @@
 #include <stdint.h>
 
 #include "mma_split.cuh"
+
+// ray_pass and two_pass_rays are always inlined in the translation units
+// whose instances pipeline a k loop (PLCORE_INLINE_PASSES defined before
+// this header): ptxas serialises every wgmma of a function that is called
+// rather than inlined (C7510), and the pipelined loop's size would have
+// the compiler call them. Elsewhere the compiler decides.
+#ifdef PLCORE_INLINE_PASSES
+#define PLCORE_PASS __forceinline__
+#else
+#define PLCORE_PASS
+#endif
 
 namespace {
 
@@ -136,13 +160,18 @@ __host__ __device__ constexpr int min_blocks() { return W >= 256 ? 1 : 2; }
 // ring waits inside them (PH_RING) taken out at exit; time between
 // borders that no phase names is counted in PH_TOTAL only. A ring wait
 // (one a k step) reads the clock only when the step's bytes have not
-// landed, and adds up in a register of every thread, which goes to the
-// slots at the MLP borders: a clock pair and a shared-memory update a
-// step cost the warpgroup 2 to 3% of K2's time. Two counts follow the
-// cycles: the MMA rows the warpgroup computed (64 a chunk) and the real
-// sample rows among them (PH_ROWS_MMA, PH_ROWS_REAL).
+// landed (in a pipelined loop it reads it twice every step and selects
+// what to add: see Ring::acquire), and adds up in a register of every
+// thread, which goes to the slots at the MLP borders: a clock pair and a
+// shared-memory update a step cost the warpgroup 2 to 3% of K2's time.
+// Four counts follow the cycles: the MMA rows the warpgroup computed (64
+// a chunk) and the real sample rows among them (PH_ROWS_MMA,
+// PH_ROWS_REAL), the k steps it ran and those it issued while its
+// previous step was still in flight (PH_STEPS_MMA, PH_STEPS_OVERLAPPED;
+// mma_segment).
 enum Phase { PH_MLP, PH_RING, PH_RESAMPLE, PH_SCALAR, PH_TOTAL, PH_ROWS_MMA,
-             PH_ROWS_REAL, PH_OUT, PH_LAST = PH_OUT, PH_SLOTS = 8 };
+             PH_ROWS_REAL, PH_STEPS_MMA, PH_STEPS_OVERLAPPED, PH_OUT,
+             PH_LAST = PH_OUT, PH_SLOTS = 10 };
 
 __device__ __forceinline__ long long* phase_slots(int wg) {
   __shared__ __align__(128) long long slots[2 * PH_SLOTS];
@@ -354,6 +383,16 @@ __device__ __forceinline__ float wget(const Mat& m, int k, int j, float scl) {
   }
 }
 
+// whether mma_segment keeps a k step in flight while it loads and splits
+// the next one's A fragment: only with 4 ring slots or more (RMCM at the
+// full width), since a warpgroup then holds two slots and the ring still
+// has steps of lead; f32's 3 slots would keep one. Never under split_sum
+// (W <= 64), whose k steps add their sums one by one.
+template <int W, bool Q>
+__host__ __device__ constexpr bool k_pipelined() {
+  return W > 64 && ring_slots<W, Q>() >= 4;
+}
+
 // --------------------------------------------------------- weight ring ----
 // One pass's weight stream: `total` k steps, the network's stream read
 // chunk after chunk (`per_chunk` steps each), through ring_slots() slots.
@@ -374,6 +413,7 @@ struct Ring {
   int gs;               // steps consumed, over the kernel's life
   int start;            // gs at the start of this pass
   int released;         // steps of this pass this warpgroup released
+  int fill_q;           // k_pipelined: the chunk's step of the next refill
 
   // the k step q (within a chunk) of the stream: its offset and bytes
   __device__ __forceinline__ void locate(int q, size_t* off,
@@ -398,6 +438,15 @@ struct Ring {
     bulk_copy(ring + slot * SB, src + off, bytes, full + slot);
   }
 
+  // the chunk's step q -> slot (one thread; the slot is free)
+  __device__ __forceinline__ void fill(int slot, int q) {
+    size_t off;
+    uint32_t bytes;
+    locate(q, &off, &bytes);
+    mbar_expect_tx(full + slot, bytes);
+    bulk_copy(ring + slot * SB, src + off, bytes, full + slot);
+  }
+
   // every thread, at the start of a pass (both warpgroups are done with
   // every slot): thread 0 fills the ring
   __device__ void begin(const uint8_t* stream, int steps) {
@@ -405,6 +454,7 @@ struct Ring {
     total = steps;
     start = gs;
     released = 0;
+    if constexpr (k_pipelined<W, Q>()) fill_q = NS % per_chunk;
     if (threadIdx.x == 0)
       for (int p = 0; p < min(NS, total); ++p) issue(p);
     __syncwarp();
@@ -415,7 +465,23 @@ struct Ring {
   // that does reads no clock)
   template <bool TRACE = false>
   __device__ __forceinline__ uint32_t acquire(long long* waited = nullptr) {
-    if constexpr (TRACE) {
+    if constexpr (k_pipelined<W, Q>()) {
+      // In a pipelined loop a step is in flight here, and ptxas serialises
+      // every wgmma (C7518) when the code between them branches per thread
+      // and takes registers there: the wait's retries stay inside one asm
+      // (mbar_spin), and the traced count is selected, not branched to.
+      uint64_t* bar = full + gs % NS;
+      const uint32_t parity = (gs / NS) & 1;
+      if constexpr (TRACE) {
+        const bool landed = mbar_test(bar, parity);
+        const long long t0 = clock64();
+        mbar_spin(bar, parity);
+        const long long t1 = clock64();
+        *waited += landed ? 0 : t1 - t0;
+      } else {
+        mbar_spin(bar, parity);
+      }
+    } else if constexpr (TRACE) {
       if (!mbar_test(full + gs % NS, (gs / NS) & 1)) {
         const long long t0 = clock64();
         mbar_wait(full + gs % NS, (gs / NS) & 1);
@@ -431,7 +497,20 @@ struct Ring {
   // this warpgroup's MMAs of its last step are done; the second
   // warpgroup to get here refills the slot with the step NS later
   __device__ __forceinline__ void release() {
-    if ((threadIdx.x & 127) == 0) {
+    if constexpr (k_pipelined<W, Q>()) {
+      // (a step may be in flight here, as in acquire) the refill's chunk
+      // step is counted along (fill_q), not divided out, so the leader's
+      // branch is short
+      const int slot = (start + released) % NS;
+      if ((threadIdx.x & 127) == 0) {
+        __threadfence_block();
+        if (atomicAdd(rel + slot, 1) == 1) {
+          rel[slot] = 0;
+          if (released + NS < total) fill(slot, fill_q);
+        }
+      }
+      fill_q = fill_q + 1 == per_chunk ? 0 : fill_q + 1;
+    } else if ((threadIdx.x & 127) == 0) {
       int* r = rel + (start + released) % NS;
       __threadfence_block();
       if (atomicAdd(r, 1) == 1) {
@@ -448,14 +527,78 @@ struct Ring {
 template <int W>
 using Acc = float[W / 2];
 
+// a segment's k steps: all of them, and those issued while the
+// warpgroup's previous step was still in flight (PH_STEPS_*)
+template <bool TRACE>
+__device__ __forceinline__ void count_steps(int steps, int overlapped) {
+  if constexpr (TRACE) {
+    if (phase_leader()) {
+      long long* s = phase_slots(threadIdx.x >> 7);
+      s[PH_STEPS_MMA] += steps;
+      s[PH_STEPS_OVERLAPPED] += overlapped;
+    }
+  }
+}
+
+// A thread's A registers of one bf16x3 k step: the pieces l, m, h, four
+// registers a piece. Only RMCM pipelines its k loop (k_pipelined).
+using AFrag = uint32_t[12];
+
+// The pipelined loop's k step at `a` (the warpgroup's 64 rows of a (sample
+// x feature) buffer of row stride ld): acquired, its A fragment loaded and
+// split into p, its three wgmmas (l, m, h) issued into acc as one commit
+// group.
+template <int W, int N, bool TRACE>
+__device__ __forceinline__ void issue_step(Acc<W>& acc, Ring<W, true>& rg,
+                                           AFrag& p, const float* a, int ld,
+                                           long long* waited) {
+  const uint64_t d = b_desc(rg.template acquire<TRACE>(waited));
+  const float2 v0 = *reinterpret_cast<const float2*>(a);
+  const float2 v1 = *reinterpret_cast<const float2*>(a + 8 * ld);
+  const float2 v2 = *reinterpret_cast<const float2*>(a + 8);
+  const float2 v3 = *reinterpret_cast<const float2*>(a + 8 * ld + 8);
+  const Bf16x3 q0 = split_bf16x3(v0.x, v0.y), q1 = split_bf16x3(v1.x, v1.y);
+  const Bf16x3 q2 = split_bf16x3(v2.x, v2.y), q3 = split_bf16x3(v3.x, v3.y);
+  const uint32_t v[12] = {q0.l, q1.l, q2.l, q3.l, q0.m, q1.m, q2.m, q3.m,
+                          q0.h, q1.h, q2.h, q3.h};
+#pragma unroll
+  for (int i = 0; i < 12; ++i) p[i] = v[i];
+  fence_a(p);
+  wgmma_fence();
+  wgmma_bf16<N>(acc, p[0], p[1], p[2], p[3], d);
+  wgmma_bf16<N>(acc, p[4], p[5], p[6], p[7], d);
+  wgmma_bf16<N>(acc, p[8], p[9], p[10], p[11], d);
+  wgmma_commit();
+  ++rg.gs;
+}
+
+// The warpgroup's older step in flight, whose A registers were `old`, is
+// done; its slot is released if it held one (`held`: false before the
+// first step, where wgmma_wait<1> finds one group in flight and returns).
+template <int W>
+__device__ __forceinline__ void retire_step(Ring<W, true>& rg, AFrag& old,
+                                            bool held) {
+  wgmma_wait<1>();
+  fence_a(old);
+  if (held) rg.release();
+}
+
 // acc += in[the warpgroup's 64 rows][nk k steps] . the next nk steps of
 // the ring, a layer N columns wide (W or C); `in` is (sample x feature)
 // with row stride ld. Per k step the A fragment is loaded and split, then
-// three wgmmas of the full width (bf16x3: l, m, h; 3xTF32: a_lo.b_hi,
-// a_hi.b_lo, a_hi.b_hi) make one commit group, waited for before the next
-// step writes its A registers: wgmma reads A from the registers while it
-// runs. The other warpgroup's MMAs fill the tensor cores meanwhile.
-template <int W, bool Q, int N, bool TRACE = false>
+// three wgmmas of the full width make one commit group. wgmma reads A
+// from the registers while it runs, so a step's A registers are not
+// written again until its group is waited for.
+// Pipelined (k_pipelined): two A register sets, taken in turn; step j + 1
+// is acquired, loaded, split and issued while step j's group runs, then
+// wgmma_wait<1> retires step j and releases its slot, so the tensor cores
+// have a step queued while the warpgroup splits. The last step is waited
+// for with wgmma_wait<0>, so acc is final at the segment's end.
+// Otherwise each step's group is waited for before the next step's loads
+// (this loop's instances compile as they did before the pipelined one).
+// The wgmmas run in the same order on the same accumulators either way:
+// the sums are the same bits.
+template <int W, bool Q, int N, bool TRACE = false, bool PIPELINE = true>
 __device__ __forceinline__ void mma_segment(Acc<W>& acc, Ring<W, Q>& rg,
                                             const float* in, int ld, int nk,
                                             long long* waited = nullptr) {
@@ -463,6 +606,25 @@ __device__ __forceinline__ void mma_segment(Acc<W>& acc, Ring<W, Q>& rg,
   const int wg = threadIdx.x >> 7;
   const int g = lane >> 2, t = lane & 3;
   const float* a = in + (64 * wg + 16 * w4 + g) * ld + (Q ? 2 * t : t);
+  if constexpr (PIPELINE && k_pipelined<W, Q>()) {
+    AFrag p0, p1 = {};
+#pragma unroll 1
+    for (int j = 0;;) {
+      issue_step<W, N, TRACE>(acc, rg, p0, a, ld, waited);
+      retire_step(rg, p1, j > 0);
+      if (++j == nk) break;
+      issue_step<W, N, TRACE>(acc, rg, p1, a + kstep<Q>(), ld, waited);
+      retire_step(rg, p0, true);
+      if (++j == nk) break;
+      a += 2 * kstep<Q>();
+    }
+    wgmma_wait<0>();
+    fence_a(p0);
+    fence_a(p1);
+    rg.release();
+    count_steps<TRACE>(nk, nk - 1);
+    return;
+  }
   constexpr uint32_t LO = (N * B_STEP_BYTES_PER_COL) >> 4;   // TF32 lo block
   // The tensor cores' f32 additions truncate. At the full width every
   // register holds the layer's accumulators, so the k steps accumulate on
@@ -514,6 +676,7 @@ __device__ __forceinline__ void mma_segment(Acc<W>& acc, Ring<W, Q>& rg,
       for (int i = 0; i < N / 2; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
     }
   }
+  count_steps<TRACE>(nk, 0);
 }
 
 // start a layer: zero accumulators, fenced before the first wgmma
@@ -652,10 +815,11 @@ __device__ __forceinline__ void vru_rows(Smem& sm, const Walk& wk, int c0,
 // TRACE: the MLP layers (with their epilogues and barriers) go to PH_MLP,
 // their ring waits to PH_RING, the encoding, the exact heads, the
 // direction part of the color layer and the VRU to PH_SCALAR; each chunk
-// counts its rows.
-template <int W, int C, bool Q, bool TRACE = false>
-__device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
-                         Ring<W, Q>& rg, const Walk& wk) {
+// counts its rows. PIPELINE: the pass's k loops are pipelined where its
+// ring allows it (k_pipelined).
+template <int W, int C, bool Q, bool TRACE = false, bool PIPELINE = true>
+__device__ PLCORE_PASS void ray_pass(const Net& net, const Dims& D, Smem& sm,
+                                     Ring<W, Q>& rg, const Walk& wk) {
   const int tid = threadIdx.x;
   const int as = sm.as, ps = sm.ps;
   const int nkh = W / kstep<Q>(), nkp = D.kpe / kstep<Q>();
@@ -700,11 +864,14 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     for (int i = 0; i < D.L; ++i) {
       mma_start<W>(acc);
       if (i == 0) {
-        mma_segment<W, Q, W, TRACE>(acc, rg, sm.pe, ps, nkp, &waited);
+        mma_segment<W, Q, W, TRACE, PIPELINE>(acc, rg, sm.pe, ps, nkp,
+                                              &waited);
       } else {
-        mma_segment<W, Q, W, TRACE>(acc, rg, sm.act, as, nkh, &waited);
+        mma_segment<W, Q, W, TRACE, PIPELINE>(acc, rg, sm.act, as, nkh,
+                                              &waited);
         if ((D.skip_mask >> i) & 1)
-          mma_segment<W, Q, W, TRACE>(acc, rg, sm.pe, ps, nkp, &waited);
+          mma_segment<W, Q, W, TRACE, PIPELINE>(acc, rg, sm.pe, ps, nkp,
+                                                &waited);
       }
       mma_finish<W>(acc);
       __syncthreads();
@@ -715,7 +882,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
 
     // ---- heads: sigma (exact) and feature ------------------------------
     mma_start<W>(acc);
-    mma_segment<W, Q, W, TRACE>(acc, rg, sm.act, as, nkh, &waited);
+    mma_segment<W, Q, W, TRACE, PIPELINE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
     lap_mlp<TRACE>(waited);
     if (tid < wk.rows(c0)) {
@@ -731,7 +898,7 @@ __device__ void ray_pass(const Net& net, const Dims& D, Smem& sm,
     // ---- color branch: feature rows per sample + direction part of the
     // warpgroup's ray
     mma_start<W>(acc);
-    mma_segment<W, Q, C, TRACE>(acc, rg, sm.act, as, nkh, &waited);
+    mma_segment<W, Q, C, TRACE, PIPELINE>(acc, rg, sm.act, as, nkh, &waited);
     mma_finish<W>(acc);
     __syncthreads();
     const int kw = wk.k0 + wk.ray_of(c0 + SLAB * (tid >> 7));
@@ -868,20 +1035,19 @@ __device__ __forceinline__ Group& group_now() {
 // both live and pairs(Nt); otherwise each ray walks alone, as does the
 // last ray of an odd tile. The pair's CDFs run side by side, on two
 // threads. TRACE: the resample goes to PH_RESAMPLE, loading and encoding
-// the rays to PH_SCALAR.
+// the rays to PH_SCALAR. One pass's k loops are pipelined: with both
+// passes' loops pipelined ptxas finds too few registers for the wgmma
+// pipeline and serialises every wgmma (C7512). The fine pass takes it
+// where its ring allows (it walks 3 of every 4 chunks at 64 + 128
+// samples), else the coarse pass.
 template <int W, int C, bool QC, bool QF, bool TRACE>
-__device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
-                              const Net& netc, const Net& netf, const Dims& D,
-                              Smem& sm, int Nc, int Nf, int ert, float thr,
-                              int white,
-                              const float* __restrict__ rays_o,
-                              const float* __restrict__ rays_d,
-                              const float* __restrict__ alive,
-                              float* __restrict__ rgb,
-                              float* __restrict__ rgb_c,
-                              float* __restrict__ acc,
-                              float* __restrict__ acc_c,
-                              float* __restrict__ depth) {
+__device__ PLCORE_PASS void two_pass_rays(
+    Ring<W, QC>& rgc, Ring<W, QF>& rgf, const Net& netc, const Net& netf,
+    const Dims& D, Smem& sm, int Nc, int Nf, int ert, float thr, int white,
+    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+    const float* __restrict__ alive, float* __restrict__ rgb,
+    float* __restrict__ rgb_c, float* __restrict__ acc,
+    float* __restrict__ acc_c, float* __restrict__ depth) {
   const int Nt = Nc + Nf, M1 = Nc - 1, tid = threadIdx.x;
   const int group = k2_group(Nc, Nf);
   const int r_end = min(D.R, (int)(blockIdx.x + 1) * D.rt);
@@ -898,9 +1064,9 @@ __device__ void two_pass_rays(Ring<W, QC>& rgc, Ring<W, QF>& rgf,
 
     // ---- pass 1: coarse, over the pinned row -----------------------------
     for (int k = 0; k < g.nr; k += coarse_rays())
-      ray_pass<W, C, QC, TRACE>(netc, D, sm, rgc,
-                                Walk{sm.tc, sm.dlc, sm.wbuf, 0, Nc, k,
-                                     coarse_rays()});
+      ray_pass<W, C, QC, TRACE, (!k_pipelined<W, QF>())>(
+          netc, D, sm, rgc, Walk{sm.tc, sm.dlc, sm.wbuf, 0, Nc, k,
+                                 coarse_rays()});
     int live = 0;
     for (int k = 0; k < g.nr; ++k) {
       bool l = true;
@@ -1200,6 +1366,14 @@ int k2_resident(const int* dims, int* blocks) {
   template int plcore::k1_resident<W, C, true>(const int*, int*);            \
   template int plcore::k2_resident<W, C, false, false>(const int*, int*);    \
   template int plcore::k2_resident<W, C, true, true>(const int*, int*);
+
+#define PLCORE_INSTANCES_FORMAT(W, C, Q)                                     \
+  template int plcore::k1_launch<W, C, Q>(const void* const*, const int*,    \
+                                          void*);                            \
+  template int plcore::k2_launch<W, C, Q, Q, false>(                         \
+      const void* const*, const int*, float, void*);                         \
+  template int plcore::k1_resident<W, C, Q>(const int*, int*);               \
+  template int plcore::k2_resident<W, C, Q, Q>(const int*, int*);
 
 #define PLCORE_INSTANCES_MIXED(W, C)                                         \
   template int plcore::k2_launch<W, C, false, true, false>(                  \

@@ -47,7 +47,7 @@
 //   cap; depth sum(w t_mid) / acc clipped to the edges.
 // * Traced (TRACE): NeRF's phases with NeRF's meanings (both encodings
 //   in the scalar phase), the row counts, and the encoding's cycles alone
-//   in the row's eighth slot (MIP_PH_OUT).
+//   in the row's tenth slot (MIP_PH_OUT).
 //
 // Shared memory at full width (W = 256, f32, 128 + 128 samples): the
 // ring (3 x 16 KB), its barriers, activations 128 x 260 f32 and the

@@ -9,8 +9,9 @@ in ``csrc/plcore_w*.cu``).
   render of every ray in ONE launch; coarse weights and sample positions
   never leave the block. Given ``phase_cycles`` rows it runs K2's traced
   instance, which writes where each block spent its cycles
-  (``obs.metrics.K2_PHASES``) and how many of its MMA rows were real
-  samples (``K2_ROW_COUNTS``) to the block's row, in pinned host memory,
+  (``obs.metrics.K2_PHASES``), how many of its MMA rows were real
+  samples and how many of its k steps ran with the previous one in
+  flight (``K2_ROW_COUNTS``) to the block's row, in pinned host memory,
   so a traced launch adds no operation on the device. A block renders
   its rays two at a time in a pass whose rows then fill every chunk
   (``pairs``), so K2 wants an even ray tile there (``k2_pairs``).
@@ -18,7 +19,7 @@ in ``csrc/plcore_w*.cu``).
   both levels of Mip-NeRF through ONE network in one launch, the rays as
   (R, 7) rows of origin, direction (camera z = -1) and cone radius. Its
   traced instance writes a row of ``obs.metrics.K2_MIP_ROW_STATS``: K2's
-  seven slots and the integrated encoding's cycles.
+  nine slots and the integrated encoding's cycles.
 
 Both run their MLP layers on the tensor cores with wgmma (bf16x3 under
 RMCM, 3xTF32 for f32 weights) and read the ``ops.kernel_weights`` layout:

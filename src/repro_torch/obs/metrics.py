@@ -340,9 +340,11 @@ PERCELL_STATS_SCHEMA = (
 K2_PHASES = ("mlp", "ring_wait", "resample", "scalar", "total")
 # The counts after the cycles in a block's row: the MMA rows its
 # warpgroups computed (64 a chunk each) and the real sample rows among
-# them, the rest being padding. They are not cycles: no phase share
-# divides them.
-K2_ROW_COUNTS = ("rows_mma", "rows_real")
+# them, the rest being padding; the k steps its warpgroups ran and those
+# issued while the warpgroup's previous step was still in flight (the
+# pipelined k loop: all but a segment's first step where it runs, none
+# where it does not). They are not cycles: no phase share divides them.
+K2_ROW_COUNTS = ("rows_mma", "rows_real", "steps_mma", "steps_overlapped")
 # the engine's stats key of each slot of a block's row, in the row's order
 K2_ROW_STATS = (tuple(f"plcore_two_pass_cycles_{p}" for p in K2_PHASES)
                 + tuple(f"plcore_two_pass_{c}" for c in K2_ROW_COUNTS))
@@ -374,6 +376,10 @@ TRACE_STATS_SCHEMA = (
      "K2 sample rows its MMAs computed, padding included"),
     ("plcore_two_pass_rows_real", "counter", 0,
      "K2 real sample rows among the rows its MMAs computed"),
+    ("plcore_two_pass_steps_mma", "counter", 0,
+     "K2 k steps its warpgroups ran"),
+    ("plcore_two_pass_steps_overlapped", "counter", 0,
+     "K2 k steps issued while the warpgroup's previous step was in flight"),
     ("plcore_two_pass_cycles_encode", "counter", 0,
      "K2 cycles in Mip-NeRF's integrated encoding, inside the scalar ones"),
     ("host_wait_s", "counter", 0.0,

@@ -68,16 +68,34 @@ def test_row_fill_pct():
     assert _read(name, _cycles(1, 1, 1, 1, 4), _cycles(2, 2, 2, 2, 8)) is None
 
 
+def test_overlap_pct():
+    """The window's k steps issued with the warpgroup's previous step in
+    flight over its k steps, in percent: 141 of every 152 in RMCM's
+    pipelined loop, 0 where K2 waits for each step; None without a traced
+    K2 launch in the window or without the counters (the parent)."""
+    def steps(mma, overlapped):
+        return {"plcore_two_pass_steps_mma": mma,
+                "plcore_two_pass_steps_overlapped": overlapped}
+    name = "plcore_two_pass_overlap_pct"
+    s0 = steps(3040, 2820)
+    assert _read(name, s0, steps(3040 + 1520, 2820 + 1410)) == pytest.approx(
+        100.0 * 141 / 152)
+    assert _read(name, s0, steps(3040 + 608, 2820)) == 0.0
+    assert _read(name, s0, s0) is None
+    assert _read(name, _cycles(1, 1, 1, 1, 4), _cycles(2, 2, 2, 2, 8)) is None
+
+
 def test_readers_are_declared_where_they_read():
     """Each reader has its ``per_layer`` entry: the closed cells for the
-    shares, the host's wait and K2's row fill (``rays_per_s``), the open
-    cell for the backlog (``latency_p95_ms``)."""
+    shares, the host's wait, K2's row fill and its overlapped k steps
+    (``rays_per_s``), the open cell for the backlog (``latency_p95_ms``)."""
     spec = S.load(ROOT)
     entry = {m["name"]: m for m in spec["per_layer"]}
     closed = ["f32-view800-closed", "rmcm-view800-closed",
               "rmcm-preview-closed", "mipnerf-f32-view800-closed"]
     for name in [f"plcore_two_pass_{p}_pct" for p in SHARES] + [
-            "host_wait_pct", "plcore_two_pass_row_fill_pct"]:
+            "host_wait_pct", "plcore_two_pass_row_fill_pct",
+            "plcore_two_pass_overlap_pct"]:
         assert entry[name]["workloads"] == closed
         assert entry[name]["moves"] == "rays_per_s"
         assert entry[name]["source"] == "program_counter"

@@ -301,11 +301,15 @@ def test_phase_share_reads_the_trace_block():
 
 
 def test_phase_share_leaves_the_row_counts_out():
-    """K2's row counts sit in the trace block beside the cycles; they are
-    not cycles, so the phase shares neither divide nor list them."""
+    """K2's row counts (MMA rows and real rows, k steps and the steps
+    issued with the previous one in flight) sit in the trace block beside
+    the cycles; they are not cycles, so the phase shares neither divide
+    nor list them."""
     st = {f"plcore_two_pass_cycles_{p}": n for p, n in
           zip(K2_PHASES, (400, 100, 50, 250, 1000))}
-    rows = {"plcore_two_pass_rows_mma": 384, "plcore_two_pass_rows_real": 256}
+    rows = {"plcore_two_pass_rows_mma": 384, "plcore_two_pass_rows_real": 256,
+            "plcore_two_pass_steps_mma": 912,
+            "plcore_two_pass_steps_overlapped": 846}
     assert phase_share({**st, **rows}) == phase_share(st)
     assert set(phase_share({**st, **rows})) == set(K2_PHASES[:-1])
 

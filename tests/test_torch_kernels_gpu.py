@@ -3,8 +3,10 @@ the card: K1 and K2 at a ragged multi-ray tile in f32 (3xTF32) and RMCM
 (bf16x3), at every built width pair and with a coarse and a fine network
 of different formats, K2 also at the adaptive budgets Nf = 8, 32, 64 with
 dead rows, K2's outputs the same bits at every ray tile (lone rays, pairs,
-odd tails, dead rays, ERT) in every format pair, and K2's traced instance
-against the untraced one with its row counts; an unbuilt width pair raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
+odd tails, dead rays, ERT) in every format pair and the bits recorded
+before its k loop was pipelined, and K2's traced instance against the
+untraced one with its row and k-step counts; an unbuilt width pair
+raising; K3 in both its routes (M <= 64 splits K) at ragged K and N, in
 f32 and bf16, two calls giving the same bits, and its f32 error against a
 float64 product within twice the plain f32 version's. Then NeRF training
 on the card: one QAT train step at the full width against the same step
@@ -22,6 +24,8 @@ conftest there):
 
 Without a CUDA device the test skips.
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -159,7 +163,9 @@ def test_k2_at_adaptive_budgets_on_card(n_fine, quantized):
 def test_k2_traced_instance_on_card(quantized):
     """K2's traced instance at full width on one 4,096-ray tile: its five
     outputs equal the untraced instance's bit for bit, every phase counter
-    is positive and the four phases sum to at most the blocks' total; a
+    is positive and the four phases sum to at most the blocks' total, its
+    k steps are 152 a chunk in RMCM, 141 of a fine chunk's issued with the
+    previous step in flight, and 304 in f32, none overlapped; a
     traced ``dispatch_tile`` brings the counters back with the untraced
     dispatch's pixels, an untraced one none."""
     if not torch.cuda.is_available():
@@ -189,12 +195,26 @@ def test_k2_traced_instance_on_card(quantized):
                                   phase_cycles=torch.zeros(shape,
                                                            dtype=torch.int64))
 
-    def check(row):
+    # k steps a chunk: RMCM 4 + 7 x 16 + 4 + 16 + 16 (k = 16) in 11
+    # segments; in the fine pass's chunks, each segment's steps but the
+    # first are issued with the one before in flight (the coarse pass
+    # waits for each step); f32 twice as many steps of k = 8, none
+    # overlapped
+    per_chunk, overlapped = (152, 141) if quantized else (304, 0)
+
+    def check(row, fine_share=Fraction(3, 4)):
+        """``fine_share``: the fine pass's share of the chunks, 3 of 4 for
+        a pair at 64 + 128 samples, 2 of 3 for a lone ray."""
         c = dict(zip(K2_ROW_STATS, row))
+        ov = c.pop("plcore_two_pass_steps_overlapped")
         assert all(v > 0 for v in c.values()), c
         total = c["plcore_two_pass_cycles_total"]
         assert sum(c[f"plcore_two_pass_cycles_{p}"]
                    for p in K2_PHASES[:-1]) <= total, c
+        # rows_mma counts 64 a warpgroup and chunk, as the steps count
+        chunks = c["plcore_two_pass_rows_mma"] // 64
+        assert c["plcore_two_pass_steps_mma"] == per_chunk * chunks, c
+        assert ov == overlapped * chunks * fine_share, (ov, c)
         return c["plcore_two_pass_rows_real"], c["plcore_two_pass_rows_mma"]
 
     check(phase.sum(0).tolist())
@@ -216,9 +236,58 @@ def test_k2_traced_instance_on_card(quantized):
         torch.cuda.synchronize()
         for a, b in zip(got, plain):
             assert torch.equal(a, b), rt
-        real, mma = check(rows.sum(0).tolist())
+        real, mma = check(rows.sum(0).tolist(),
+                          Fraction(2, 3) if rt == 1 else Fraction(3, 4))
         assert real == 256 * len(o) and den * real == num * mma, (
             rt, real, mma)
+
+
+# sha256 of K2's five outputs (rgb, rgb_c, acc, acc_c, depth, float32
+# bytes in that order) at the full width on ``_rays(4096, seed=11)`` with
+# the weights of seed 3, ray tile 14, no ERT, per (coarse, fine) format
+# pair: recorded on an NVIDIA H100 80GB HBM3 from K2 whose k loop waited
+# for each k step before loading the next. The pipelined loop keeps every
+# wgmma in its order on the same accumulators, so the bits must not move.
+K2_DIGESTS = {
+    "f32/f32":
+        "e2738deb73d3135a26c137ca46ef9808f8df0e54fefa61b4989b7d79d8348e50",
+    "rmcm/rmcm":
+        "67dcd4e0861eb76cb0e4496fc333a713dc346aa2d3040b1f8551f5a9fcacc2f7",
+    "f32/rmcm":
+        "a61a1ff5f9a947da64d874ec7c55d5784eca96131963dd9f8c07ad728284ae9e",
+    "rmcm/f32":
+        "892f3b74ebd8f3229775213115b864682a8304e1373fbd792beb76d56e8b9bda",
+}
+
+
+def k2_digest(formats: str, dev) -> str:
+    """The digest of ``K2_DIGESTS``: K2 at the full width in the format
+    pair "coarse/fine" on the card ``dev``."""
+    import hashlib
+    qc, qf = (f == "rmcm" for f in formats.split("/"))
+    params = torch_init(plcore.plcore_decls(CONFIG),
+                        torch.Generator().manual_seed(3))
+    packed = {}
+    for n, q in (("coarse", qc), ("fine", qf)):
+        packed[n] = bridge.to_device(ops.kernel_weights(
+            CONFIG, params[n], rmcm.quantize_tree(params[n]) if q else None),
+            dev)
+    o, d = (torch.from_numpy(x).to(dev) for x in _rays(4096, seed=11))
+    out = fused_plcore.two_pass_plcore_call(
+        CONFIG, packed["coarse"], packed["fine"], o, d,
+        *ops.sample_rows(CONFIG, dev), rt=14, ert_eps=0.0)
+    return hashlib.sha256(b"".join(x.cpu().numpy().tobytes()
+                                   for x in out)).hexdigest()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("formats", sorted(K2_DIGESTS))
+def test_k2_full_width_outputs_keep_their_digest_on_card(formats):
+    """K2 at the full width in every format pair gives the bits recorded
+    before its k loop was pipelined (``K2_DIGESTS``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert k2_digest(formats, torch.device("cuda")) == K2_DIGESTS[formats]
 
 
 @pytest.mark.gpu

@@ -2,8 +2,9 @@
 against the port's plain Mip-NeRF path (``core.mipnerf.render_rays``,
 TF32 off) and against its own plain tile body (``kernels/ref.py``), on a
 ragged multi-ray tile; its traced instance against the untraced one (the
-same bits, every counter positive, the encoding inside the scalar phase,
-every MMA row real at 128 intervals a level); a traced ``dispatch_tile``
+same bits, every counter positive but the overlapped k steps, of which
+f32's loop has none, the encoding inside the scalar phase, every MMA row
+real at 128 intervals a level); a traced ``dispatch_tile``
 bringing the row back; the oracle rung relaunching the instance.
 
 Imports neither JAX nor the reference package, so it runs on a machine
@@ -91,6 +92,8 @@ def test_mip_k2_traced_instance_on_card():
     for key, v in untraced.items():
         assert torch.equal(v, traced[key]), key
     c = dict(zip(K2_MIP_ROW_STATS, phase.sum(0).tolist()))
+    # f32's k loop waits for each step: none issued with one in flight
+    assert c.pop("plcore_two_pass_steps_overlapped") == 0, c
     assert all(v > 0 for v in c.values()), c
     assert sum(c[f"plcore_two_pass_cycles_{p}"]
                for p in K2_PHASES[:-1]) <= c["plcore_two_pass_cycles_total"]

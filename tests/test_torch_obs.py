@@ -15,8 +15,8 @@ from repro_torch.configs.nerf_icarus import tiny
 from repro_torch.core.pipeline import PackedPlcore
 from repro_torch.core.plcore import plcore_decls
 from repro_torch.models.params import init_params
-from repro_torch.obs.metrics import (ENGINE_STATS_SCHEMA, K2_PHASES,
-                                     K2_ROW_COUNTS, K2_ROW_STATS,
+from repro_torch.obs.metrics import (ENGINE_STATS_SCHEMA, K2_MIP_ROW_STATS,
+                                     K2_PHASES, K2_ROW_COUNTS, K2_ROW_STATS,
                                      TRACE_STATS_SCHEMA, MetricsRegistry,
                                      engine_stats_view, log_buckets)
 from repro_torch.obs.trace import NULL_TRACER, SpanTracer
@@ -224,25 +224,45 @@ def test_trace_block_counts_on_a_fake_clock():
 
 def test_trace_block_holds_k2s_row_in_its_order():
     """K2's pinned row is its phase cycles, then the MMA rows and the real
-    rows among them; each slot has its counter in the trace block, and a
-    traced drain adds a tile's summed row slot by slot."""
+    rows among them, then the k steps and those issued with the previous
+    one in flight; Mip-NeRF's row adds the encoding's cycles after them.
+    Each slot has its counter in the trace block, and a traced drain adds
+    a tile's summed row slot by slot."""
     keys = [k for k, *_ in TRACE_STATS_SCHEMA]
-    assert K2_ROW_COUNTS == ("rows_mma", "rows_real")
+    assert K2_ROW_COUNTS == ("rows_mma", "rows_real", "steps_mma",
+                             "steps_overlapped")
     assert list(K2_ROW_STATS) == (
         [f"plcore_two_pass_cycles_{p}" for p in K2_PHASES]
-        + ["plcore_two_pass_rows_mma", "plcore_two_pass_rows_real"])
+        + ["plcore_two_pass_rows_mma", "plcore_two_pass_rows_real",
+           "plcore_two_pass_steps_mma", "plcore_two_pass_steps_overlapped"])
     assert keys[:len(K2_ROW_STATS)] == list(K2_ROW_STATS)
+    assert K2_MIP_ROW_STATS == K2_ROW_STATS + (
+        "plcore_two_pass_cycles_encode",)
+    assert keys[:len(K2_MIP_ROW_STATS)] == list(K2_MIP_ROW_STATS)
 
     class Handle:
+        def __init__(self, row):
+            self.row = row
+
         def phase_cycles(self):
-            return [70, 10, 5, 10, 100, 384, 256]
+            return self.row
 
     eng = _engine(SpanTracer())
     for _ in range(2):
-        eng.executor._note_wait(Handle(), 0.25)
+        eng.executor._note_wait(
+            Handle([70, 10, 5, 10, 100, 384, 256, 912, 846]), 0.25)
     st = eng.stats
     assert st["host_wait_s"] == pytest.approx(0.5)
     assert (st["plcore_two_pass_cycles_mlp"],
             st["plcore_two_pass_cycles_total"]) == (140, 200)
     assert (st["plcore_two_pass_rows_mma"],
             st["plcore_two_pass_rows_real"]) == (768, 512)
+    assert (st["plcore_two_pass_steps_mma"],
+            st["plcore_two_pass_steps_overlapped"]) == (1824, 1692)
+    assert st["plcore_two_pass_cycles_encode"] == 0
+    # a Mip-NeRF row: the encoding's cycles in the slot after the counts
+    eng.executor._note_wait(
+        Handle([70, 10, 5, 10, 100, 384, 384, 1824, 0, 3]), 0.25)
+    assert (st["plcore_two_pass_steps_mma"],
+            st["plcore_two_pass_steps_overlapped"],
+            st["plcore_two_pass_cycles_encode"]) == (3648, 1692, 3)
